@@ -1,0 +1,65 @@
+"""Numpy <-> torch conversion of engine state.
+
+`state_from_numpy` turns the JAX package's parameters, as numpy arrays
+(e.g. `jax.tree.map(np.asarray, state)`), into the port's `TrainState`.
+bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
+as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
+patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from herald_tpu_torch.train.engine import TrainState
+
+
+def tensor_from_numpy(a: np.ndarray, dtype_name: Optional[str] = None,
+                      device="cpu") -> torch.Tensor:
+    """A numpy array as a tensor on `device`. `dtype_name` (a checkpoint
+    manifest's dtype string) overrides the array's own dtype, which for a
+    bf16 leaf read without `ml_dtypes` is only `V2`."""
+    a = np.asarray(a)
+    name = dtype_name or a.dtype.name
+    if name == "bfloat16":
+        if a.dtype.itemsize != 2:
+            raise ValueError(f"bfloat16 leaf stored as {a.dtype}")
+        a = a.view(np.int16)
+        bf16 = True
+    elif a.dtype.kind == "V":
+        raise ValueError(f"raw {a.dtype} leaf without a dtype name")
+    else:
+        bf16 = False
+    if not a.flags.writeable or not a.flags.c_contiguous:
+        a = np.array(a, order="C")
+    t = torch.from_numpy(a)
+    if bf16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(host array, dtype name). A bf16 tensor becomes a `V2` array of its
+    bit patterns: the layout `np.savez` gives a JAX bf16 leaf."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
+    a = t.numpy()
+    return a, a.dtype.name
+
+
+def state_from_numpy(leaves, device) -> TrainState:
+    """A TrainState-shaped object of numpy arrays (fields table,
+    table_slots, dense, dense_slots, step) -> the port's TrainState."""
+    def conv(a):
+        return tensor_from_numpy(a, device=device)
+    return TrainState(
+        table=conv(leaves.table),
+        table_slots={k: conv(v) for k, v in leaves.table_slots.items()},
+        dense={k: conv(v) for k, v in leaves.dense.items()},
+        dense_slots={k: {s: conv(x) for s, x in v.items()}
+                     for k, v in leaves.dense_slots.items() if v},
+        step=conv(leaves.step))

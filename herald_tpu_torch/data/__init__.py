@@ -1,0 +1,6 @@
+from herald_tpu_torch.data.datasets import (
+    DATASETS,
+    DatasetSpec,
+    dataset_for_model,
+    synthetic_ctr_data,
+)

@@ -1,0 +1,1 @@
+from herald_tpu_torch.ops.embedding import dedup_ids, embedding_lookup

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, one per TPU kernel of the JAX
+package (`herald_tpu/ops/pallas/kernels.py`), each with its plain PyTorch
+version and a launch counter. Built at first use (`build.py`)."""
+
+from herald_tpu_torch.ops.kernels.gather import (
+    embedding_gather,
+    embedding_gather_ref,
+)
+
+# every wrapper with a launch counter, for callers that reset and read them
+KERNELS = {"embedding_gather": embedding_gather}

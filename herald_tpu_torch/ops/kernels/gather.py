@@ -1,0 +1,81 @@
+"""K1 `embedding_gather`: out[i] = table[ids[i]], a zero row for ids
+outside [0, R).
+
+Port of the Pallas kernel `herald_tpu/ops/pallas/kernels.py:76-110` to a
+hand-written CUDA kernel (`csrc/embedding_gather.cu`). `embedding_gather`
+launches it for tensors on the card and uses the plain version
+`embedding_gather_ref` only for tensors on the CPU. The two are bit-exact:
+the kernel copies bytes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from herald_tpu_torch.ops.kernels import build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain PyTorch version: bounds mask, `index_select` on the clamped
+    ids, zero the out-of-range rows."""
+    valid = (ids >= 0) & (ids < table.shape[0])
+    out = table.index_select(0, torch.where(valid, ids, 0))
+    return out.masked_fill_(~valid.unsqueeze(1), 0)
+
+
+@functools.cache
+def _launcher():
+    fn = build.load("embedding_gather").herald_embedding_gather
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table [R, D] f32/bf16, ids [N] int32/int64 -> [N, D] in the table
+    dtype. On the card this launches the CUDA kernel or raises."""
+    if table.device.type == "cpu" and ids.device.type == "cpu":
+        return embedding_gather_ref(table, ids)
+    if not table.is_cuda or ids.device != table.device:
+        raise ValueError(f"embedding_gather: table on {table.device} and "
+                         f"ids on {ids.device}; both must be on one card")
+    if table.dim() != 2 or ids.dim() != 1:
+        raise ValueError(f"embedding_gather: table must be [R, D] and ids "
+                         f"[N], got {tuple(table.shape)} and "
+                         f"{tuple(ids.shape)}")
+    if table.dtype not in _DTYPE_CODES:
+        raise ValueError(f"embedding_gather: table dtype {table.dtype} not "
+                         f"in {list(_DTYPE_CODES)}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"embedding_gather: ids dtype {ids.dtype} is not "
+                         f"int32 or int64")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("embedding_gather: table and ids must be "
+                         "contiguous")
+    R, D = table.shape
+    N = ids.shape[0]
+    out = torch.empty((N, D), dtype=table.dtype, device=table.device)
+    if N == 0 or D == 0:
+        return out
+    fn = _launcher()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), R, D, N,
+                _DTYPE_CODES[table.dtype], int(ids.dtype == torch.int64),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"embedding_gather: kernel launch failed with "
+                           f"CUDA error {rc}")
+    embedding_gather.launches += 1
+    return out
+
+
+embedding_gather.launches = 0

@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """Drive herald_tpu_torch on one NVIDIA card (H100): build its CUDA kernels
 from the sources in this checkout, hold each against its plain PyTorch
-version, serve wdl_criteo at full width over HTTP, and print what it
+version, serve and train wdl_criteo at full width, and print what it
 measured.
 
     python3 chip_smoke.py
 
 Prints one JSON object per line, in this order: device, build,
-kernel:embedding_gather, serve, checkpoint, the kernels summary, and last
-{"ok": true, "device": {...}}. Every phase that fails raises: the script
-then exits non-zero and prints no "ok" line. It needs a CUDA card, nvcc
-(CUDA_HOME or /usr/local/cuda) and this checkout; it uses no network
-beyond 127.0.0.1.
+kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
+serve, checkpoint, train, train:adam, launch, the kernels summary, the
+card's name and power limit, and last {"ok": true, "device": {...}}.
+Every phase that fails raises: the script then exits non-zero and prints
+no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda)
+and this checkout; it uses no network beyond 127.0.0.1.
 
 Full width is the shape of bench.py: batch 256, embedding 128, the
 33,762,577-row Criteo table (padded to 33,762,584) in bfloat16, 8.64 GB,
-with random weights from a seed.
+with random weights from a seed; training is bench_engine's SGD at
+lr 0.01 on batches of synthetic_ctr_data(seed=0).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -37,11 +40,16 @@ import torch
 
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.data import DATASETS, synthetic_ctr_data
+from herald_tpu_torch.models import bce_with_logits
 from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
-                                          embedding_gather_ref)
+                                          embedding_gather_ref,
+                                          hot_onehot_push,
+                                          hot_onehot_push_ref,
+                                          rows_scatter_add,
+                                          rows_scatter_add_ref)
 from herald_tpu_torch.serve import Scorer, load_scorer, make_server
-from herald_tpu_torch.train.checkpoint import save_checkpoint
-from herald_tpu_torch.train.engine import Engine
+from herald_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from herald_tpu_torch.train.engine import Engine, TrainState
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
@@ -110,7 +118,7 @@ def phase_device() -> str:
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    return name
+    return smi
 
 
 def phase_build() -> None:
@@ -190,6 +198,207 @@ def phase_kernel(table: torch.Tensor, batches) -> dict:
            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "bytes_per_launch": bytes_moved}
     emit({"phase": "kernel:embedding_gather", **out})
+    return out
+
+
+def _own_ms(per: dict, marker: str):
+    """Device ms per call of the kernels whose name holds `marker`."""
+    ms = sum(v for k, v in per.items() if marker in k)
+    return ms or None
+
+
+def _push_cases(inverses, uniques):
+    """(label, ids, grads_ints, grads_random, num_rows) cases on the
+    card, f32 and bf16 grads."""
+    rng = np.random.default_rng(1)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shapes = []
+    # tests/test_pallas_kernels.py:62-76: duplicates and cold ids
+    ids = np.where(rng.random(200) < 0.8, rng.integers(0, 256, 200),
+                   1_000_000)
+    shapes.append(("pallas-test H=256 D=128 N=200", ids, 256, 128))
+    # num_rows no multiple of 512; D = 13 takes the one-column path
+    shapes.append(("H=1000 D=13 N=3000", rng.integers(0, 1000, 3000),
+                   1000, 13))
+    # 10% of ids out of range, both sides
+    ids = rng.integers(0, 3000, 6656)
+    bad = rng.random(6656) < 0.1
+    ids[bad] = np.where(rng.random(bad.sum()) < 0.5,
+                        -rng.integers(1, 100, bad.sum()),
+                        3000 + rng.integers(0, 100, bad.sum()))
+    shapes.append(("H=3000 D=128 N=6656 10% out of range", ids, 3000, 128))
+    shapes.append(("H=700 D=128 N=0", np.zeros(0, np.int64), 700, 128))
+    for label, ids, H, D in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            n = len(ids)
+            yield (f"{label} {str(dt)[6:]}",
+                   torch.as_tensor(ids, dtype=torch.int32, device="cuda"),
+                   torch.randint(-8, 9, (n, D), generator=g, device="cuda"
+                                 ).to(dt),
+                   torch.randn((n, D), generator=g, device="cuda").to(dt), H)
+    # full width: the inverse of serving batch 0 into its unique count
+    for dt in (torch.float32, torch.bfloat16):
+        n = inverses[0].numel()
+        yield (f"full width batch 0 N={n} U={uniques[0]} {str(dt)[6:]}",
+               inverses[0],
+               torch.randint(-8, 9, (n, EMB), generator=g, device="cuda"
+                             ).to(dt),
+               torch.randn((n, EMB), generator=g, device="cuda").to(dt),
+               uniques[0])
+
+
+def phase_kernel_push(inverses, uniques) -> dict:
+    """K3 against its plain version: integer-valued grads (exact sums)
+    bit for bit, random grads within 1e-6 * sum|g| per element, and two
+    launches bit-identical. Then timed at the training shape: the inverse
+    of each of the 64 serving batches (N = 6,656) into its unique count,
+    f32 grads."""
+    cases, worst = 0, 0.0
+    for label, ids, gi, gr, H in _push_cases(inverses, uniques):
+        got = hot_onehot_push(ids, gi, H)
+        if not torch.equal(got, hot_onehot_push_ref(ids, gi, H)):
+            raise AssertionError(f"hot_onehot_push differs from its plain "
+                                 f"version on integer grads ({label})")
+        a, b = hot_onehot_push(ids, gr, H), hot_onehot_push(ids, gr, H)
+        if not torch.equal(a, b):
+            raise AssertionError(f"hot_onehot_push is not deterministic "
+                                 f"({label})")
+        want = hot_onehot_push_ref(ids, gr, H)
+        bound = 1e-6 * hot_onehot_push_ref(ids, gr.abs(), H)
+        err = (a - want).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"hot_onehot_push differs from its plain "
+                                 f"version beyond 1e-6*sum|g| ({label}): "
+                                 f"max {float(err.max())}")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        cases += 1
+    torch.cuda.synchronize()
+
+    k = len(inverses)
+    grads = torch.randn((inverses[0].numel(), EMB), device="cuda")
+    mean_u = sum(uniques) / k
+    n = inverses[0].numel()
+    bytes_moved = (n * inverses[0].element_size() + n * EMB * 4
+                   + mean_u * EMB * 4)
+
+    def kern(i):
+        return hot_onehot_push(inverses[i % k], grads, uniques[i % k])
+
+    def plain(i):
+        return hot_onehot_push_ref(inverses[i % k], grads, uniques[i % k])
+
+    def library(i):
+        return torch.zeros((uniques[i % k], EMB), device="cuda").index_add_(
+            0, inverses[i % k], grads)
+
+    times = {what: cuda_ms(f, k) for what, f in
+             (("kernel", kern), ("plain", plain), ("library", library))}
+    prof = {what: device_profile(f, k) for what, f in
+            (("kernel", kern), ("plain", plain), ("library", library))}
+    out = {"name": "hot_onehot_push", "cases": cases, "max_abs_err": worst,
+           "launches_per_shape": k, "n": n, "mean_unique_ids": mean_u,
+           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+           "library_ms": times["library"],
+           "kernel_device_ms": _own_ms(prof["kernel"][1], "segment_rows"),
+           "wrapper_device_ms": prof["kernel"][0],
+           "wrapper_top_device_ms": prof["kernel"][1],
+           "plain_device_ms": prof["plain"][0],
+           "library_device_ms": prof["library"][0],
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
+           "bound_note": "ids + grads read once, output written once; the "
+                         "wrapper's position sort is left out"}
+    emit({"phase": "kernel:hot_onehot_push", **out})
+    return out
+
+
+def _scatter_cases():
+    """(label, table, unique ids, grads) cases on the card."""
+    rng = np.random.default_rng(2)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for tdt in (torch.float32, torch.bfloat16):
+        for gdt in (torch.float32, torch.bfloat16):
+            for R, D, N, oob in ((104, 128, 6, 0.0),   # test_pallas_kernels
+                                 (1001, 13, 300, 0.0),
+                                 (100_000, 128, 3491, 0.1),
+                                 (512, 128, 0, 0.0)):
+                ids = rng.permutation(R)[:N]
+                bad = rng.random(N) < oob
+                ids[bad] = np.where(rng.random(bad.sum()) < 0.5,
+                                    -rng.integers(1, 10, bad.sum()),
+                                    R + rng.integers(0, 10, bad.sum()))
+                yield (f"{str(tdt)[6:]} table {str(gdt)[6:]} grads R={R} "
+                       f"D={D} N={N}",
+                       torch.randn((R, D), generator=g, device="cuda"
+                                   ).to(tdt),
+                       torch.as_tensor(ids, device="cuda"),
+                       (0.01 * torch.randn((N, D), generator=g,
+                                           device="cuda")).to(gdt))
+
+
+def phase_kernel_scatter(table: torch.Tensor, batches) -> dict:
+    """K2 against its plain version, bit for bit, then at full width: the
+    unique ids of serving batch 0 into the 33.7M-row bf16 table with f32
+    deltas (the touched rows are restored after). Timed with zero deltas,
+    which leave the table as it is and move the same bytes."""
+    cases = 0
+    for label, tab, ids, grads in _scatter_cases():
+        want = rows_scatter_add_ref(tab.clone(), ids, grads)
+        got = rows_scatter_add(tab, ids, grads)
+        if not torch.equal(got, want):
+            raise AssertionError(f"rows_scatter_add differs from its plain "
+                                 f"version ({label})")
+        cases += 1
+    ids = batches[0]
+    keep = table[ids.long()].clone()
+    deltas = 1e-3 * torch.randn((ids.numel(), table.shape[1]),
+                                device="cuda")
+    rows_scatter_add(table, ids, deltas)
+    want = keep + deltas.to(table.dtype)
+    if not torch.equal(table[ids.long()], want):
+        raise AssertionError("rows_scatter_add differs from its plain "
+                             "version at full width")
+    table.index_copy_(0, ids.long(), keep)
+    cases += 1
+    torch.cuda.synchronize()
+
+    k = len(batches)
+    zeros = [torch.zeros((b.numel(), table.shape[1]), device="cuda")
+             for b in batches]
+    mean_n = sum(int(b.numel()) for b in batches) / k
+    row_bytes = table.shape[1] * table.element_size()
+    bytes_moved = (mean_n * batches[0].element_size()
+                   + mean_n * table.shape[1] * 4 + 2 * mean_n * row_bytes)
+
+    def kern(i):
+        return rows_scatter_add(table, batches[i % k], zeros[i % k])
+
+    def plain(i):
+        return rows_scatter_add_ref(table, batches[i % k], zeros[i % k])
+
+    def library(i):
+        return table.index_add_(0, batches[i % k],
+                                zeros[i % k].to(table.dtype))
+
+    times = {what: cuda_ms(f, k) for what, f in
+             (("kernel", kern), ("plain", plain), ("library", library))}
+    prof = {what: device_profile(f, k) for what, f in
+            (("kernel", kern), ("plain", plain), ("library", library))}
+    if not torch.equal(table[batches[0].long()], keep):
+        raise AssertionError("zero deltas changed the table")
+    out = {"name": "rows_scatter_add", "cases": cases, "max_abs_err": 0.0,
+           "batches": k, "mean_unique_ids": mean_n,
+           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+           "library_ms": times["library"],
+           "kernel_device_ms": _own_ms(prof["kernel"][1], "scatter_rows"),
+           "wrapper_device_ms": prof["kernel"][0],
+           "plain_device_ms": prof["plain"][0],
+           "library_device_ms": prof["library"][0],
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
+           "bound_note": "ids + f32 deltas read once, touched bf16 rows "
+                         "read and written once"}
+    emit({"phase": "kernel:rows_scatter_add", **out})
     return out
 
 
@@ -288,10 +497,11 @@ def phase_serve(eng: Engine, state) -> dict:
     eval_s = time.perf_counter() - t0
     expected += 64
     launches = {name: k.launches for name, k in KERNELS.items()}
-    if launches["embedding_gather"] != expected:
-        raise AssertionError(f"embedding_gather launched "
-                             f"{launches['embedding_gather']} times on the "
-                             f"main path, expected {expected}")
+    if launches != {"embedding_gather": expected, "hot_onehot_push": 0,
+                    "rows_scatter_add": 0}:
+        raise AssertionError(f"the serving path launched {launches}, "
+                             f"expected embedding_gather {expected} times "
+                             f"and no training kernel")
     if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
         raise AssertionError(f"evaluate gave {ev}")
 
@@ -386,33 +596,330 @@ def phase_checkpoint() -> None:
           "entry_point": "python -m herald_tpu_torch.serve"})
 
 
+def _stage(dense, sparse, labels, lo, k):
+    """k batches from row lo, on the card as [k, BATCH, ...] tensors (the
+    input pipeline's job; bench.py stages the same way)."""
+    n = k * BATCH
+    return tuple(torch.as_tensor(a[lo:lo + n].astype(dt).reshape(
+        k, BATCH, -1), device="cuda")
+        for a, dt in ((dense, np.float32), (sparse, np.int32),
+                      (labels, np.float32)))
+
+
+def reference_train_step(eng: Engine, state: TrainState, d, s, y):
+    """The engine's SGD step with K1, K2 and K3 replaced by their plain
+    versions; K3's plain version runs on the host, where `index_add_`
+    adds in position order, the order the kernel uses."""
+    step = state.step + 1
+    B, F = s.shape
+    uniq, inv = torch.unique(s.reshape(-1), sorted=True, return_inverse=True)
+    emb = embedding_gather_ref(state.table, uniq)[inv].reshape(
+        B, F, eng.width).float().requires_grad_(True)
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in state.dense.items()}
+    loss = bce_with_logits(eng.model.apply(params, emb, d), y)
+    grads = torch.autograd.grad(loss, [*params.values(), emb])
+    dense, dense_slots = eng.dense_opt.apply_dense(
+        state.dense, dict(zip(params, grads[:-1])), state.dense_slots, step,
+        lr=eng._lr_fn(step))
+    g_uniq = hot_onehot_push_ref(inv.cpu(), grads[-1].reshape(
+        -1, eng.width).cpu(), uniq.numel()).cuda()
+    rows_scatter_add_ref(state.table, uniq, -eng._elr_fn(step) * g_uniq)
+    return TrainState(state.table, state.table_slots, dense, dense_slots,
+                      step), loss.detach()
+
+
+def phase_train(eng: Engine, state: TrainState) -> dict:
+    """The main training path at full width (bench_engine's shape and
+    configuration): a warm-up chunk, then three timed chunks of 64 steps
+    through Engine.train_epoch, each ended by a host readback of its last
+    loss. Exactly one K1, one K2 and one K3 launch per step. Then a
+    profile of single steps, and 8 steps held against the plain-kernel
+    reference from a clone of the state."""
+    spec = eng.model.spec
+    K = 64
+    dense, sparse, labels = synthetic_ctr_data(spec, 2 * K * BATCH, seed=0,
+                                               num_rows=FULL_ROWS)
+    chunks = [_stage(dense, sparse, labels, 0, K),
+              _stage(dense, sparse, labels, K * BATCH, K)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, stats = eng.train_epoch(state, *chunks[0], steps=K)   # warm-up
+    float(stats["loss"][-1])
+    times, losses = [], [stats["loss"]]
+    for c in (1, 0, 1):
+        t0 = time.perf_counter()
+        state, stats = eng.train_epoch(state, *chunks[c], steps=K)
+        float(stats["loss"][-1])
+        times.append(time.perf_counter() - t0)
+        losses.append(stats["loss"])
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    if launches != {name: 4 * K for name in KERNELS}:
+        raise AssertionError(f"the training path launched {launches}; "
+                             f"expected one K1, K2 and K3 per step "
+                             f"({4 * K} each)")
+    losses = torch.cat(losses).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite training loss")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(times)
+
+    d0, s0, y0 = chunks[0]
+    busy, per, host = device_profile(
+        lambda i: eng.train_step(state, d0[i % K], s0[i % K], y0[i % K]), 20)
+    profile = {"device_busy_ms": busy, "host_ms_profiled": host,
+               "device_idle_share": None if busy is None else 1 - busy / host,
+               "top_device_ms": dict(sorted(per.items(),
+                                            key=lambda kv: -kv[1])[:8])}
+
+    # 8 steps against the plain-kernel reference, from one state
+    ref = TrainState(state.table.clone(), {},
+                     {k: v.clone() for k, v in state.dense.items()},
+                     {k: {} for k in state.dense}, state.step.clone())
+    d1, s1, y1 = chunks[1]
+    got_l, want_l = [], []
+    for i in range(8):
+        state, st = eng.train_step(state, d1[i], s1[i], y1[i])
+        ref, loss = reference_train_step(eng, ref, d1[i], s1[i], y1[i])
+        got_l.append(float(st["loss"]))
+        want_l.append(float(loss))
+    touched = torch.unique(s1[:8].reshape(-1)).long()
+    differ = (state.table != ref.table).any(dim=1)
+    differ[touched] = False
+    if bool(differ.any()):
+        raise AssertionError(f"{int(differ.sum())} rows no step touched "
+                             f"differ from the reference")
+    a, b = state.table[touched].float(), ref.table[touched].float()
+    row_err = float((a - b).abs().max())
+    loss_err = max(abs(x - y) for x, y in zip(got_l, want_l))
+    dense_err = max(float((state.dense[k] - ref.dense[k]).abs().max())
+                    for k in ref.dense)
+    # bf16 rows within one ulp (2^-7 relative), losses within 1e-5
+    if loss_err > 1e-5 or not torch.allclose(a, b, rtol=2 ** -7, atol=0):
+        raise AssertionError(f"training differs from the plain-kernel "
+                             f"reference: loss {loss_err}, rows {row_err}")
+    identical = bool(torch.equal(state.table, ref.table))
+    del ref, a, b, differ
+    out = {"phase": "train", "table_shape": list(state.table.shape),
+           "table_dtype": str(state.table.dtype), "optimizer": "sgd",
+           "lr": eng.cfg.learning_rate, "steps_timed": 3 * K,
+           "chunk_s": times, "train_examples_per_s": K * BATCH / med,
+           "step_ms_median": med / K * 1e3, "launches": launches,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "peak_mem_gb": peak, "step_profile": profile,
+           "reference_steps": 8, "reference_loss_max_err": loss_err,
+           "reference_row_max_err": row_err,
+           "reference_dense_max_err": dense_err,
+           "reference_table_identical": identical,
+           "touched_rows": int(touched.numel())}
+    emit(out)
+    return out
+
+
+def phase_train_adam() -> dict:
+    """Adam on the table at full width (table + two bf16 slots, 25.9 GB)
+    through the dedup path: K3 sums the grads, K1 reads the rows and
+    slots, index_copy_ writes them back; no K2."""
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, table_dtype=torch.bfloat16,
+                       optimizer="adam", learning_rate=0.01)
+    eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = eng.init_state(0)
+    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, 16 * BATCH,
+                                               seed=0, num_rows=FULL_ROWS)
+    chunk = _stage(dense, sparse, labels, 0, 16)
+    state, _ = eng.train_epoch(state, *[c[:8] for c in chunk], steps=8)
+    torch.cuda.synchronize()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    state, stats = eng.train_epoch(state, *[c[8:] for c in chunk], steps=8)
+    losses = stats["loss"].cpu()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    want = {"embedding_gather": 8 * 4, "hot_onehot_push": 8,
+            "rows_scatter_add": 0}
+    if launches != want:
+        raise AssertionError(f"the adam path launched {launches}, expected "
+                             f"{want}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite adam loss")
+    out = {"phase": "train:adam", "slots": sorted(state.table_slots),
+           "state_gb": 3 * state.table.numel() * 2 / 1e9, "steps": 16,
+           "step_ms": step_ms, "launches_last_8_steps": launches,
+           "losses": losses.tolist(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    return out
+
+
+def _run(argv, timeout=600):
+    """Run an entry point from the checkout; its output on failure."""
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv[:1])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _report(stdout: str) -> dict:
+    """The launcher's report: the indented JSON object that ends its
+    output (from its first line, or from the start of the output)."""
+    return json.loads(stdout[stdout.rfind("\n{\n") + 1:])
+
+
+def phase_launch() -> dict:
+    """The entry point, in subprocesses: a full-width run; at 4,096 rows a
+    run stopped at --max-steps and resumed with --resume, which must give
+    the uninterrupted run's final table bit for bit; then that checkpoint
+    served by `python -m herald_tpu_torch.serve`, scoring equal to
+    Engine.predict on the restored state."""
+    launch = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
+              "--bf16-table"]
+    t0 = time.perf_counter()
+    full = _report(_run(launch + ["--rows", str(FULL_ROWS), "--samples",
+                                  "65536", "--scan-steps", "32",
+                                  "--max-steps", "96"]))
+    full_s = time.perf_counter() - t0
+    if full["steps"] != 96 or not np.isfinite(full["train_loss_last"]) \
+            or not 0.0 <= full["val_auc"] <= 1.0:
+        raise AssertionError(f"full-width launch report: {full}")
+    rows = 4096
+    small = launch + ["--rows", str(rows), "--samples", "8192",
+                      "--scan-steps", "8", "--nepoch", "2", "--lr", "0.5"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        whole = _report(_run(small + ["--ckpt", str(tmp / "whole"),
+                                      "--save-config", str(tmp / "cfg.json")]))
+        part = _report(_run(small + ["--ckpt", str(tmp / "part"),
+                                     "--ckpt-every", "8", "--max-steps",
+                                     "20"]))
+        rest = _report(_run(small + ["--resume", str(tmp / "part"), "--ckpt",
+                                     str(tmp / "rest")]))
+        if part["steps"] != 20 or part["steps"] + rest["steps"] != \
+                whole["steps"]:
+            raise AssertionError(f"steps {part['steps']} + {rest['steps']} "
+                                 f"!= {whole['steps']}")
+        a = load_checkpoint(str(tmp / "whole"), "cuda")
+        b = load_checkpoint(str(tmp / "rest"), "cuda")
+        if int(a.step) != whole["steps"] or not torch.equal(a.table,
+                                                            b.table) \
+                or not all(torch.equal(a.dense[k], b.dense[k])
+                           for k in a.dense):
+            raise AssertionError("the resumed run's final state differs "
+                                 "from the uninterrupted run's")
+        cfg = HeraldConfig.from_json((tmp / "cfg.json").read_text())
+        eng = Engine(cfg, table_rows=rows, device="cuda")
+        dense, sparse, _ = synthetic_ctr_data(eng.model.spec, BATCH, seed=3,
+                                              num_rows=rows)
+        want = eng.predict(a, dense, sparse).cpu().numpy()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt",
+             str(tmp / "whole"), "--config", str(tmp / "cfg.json"),
+             "--rows", str(rows), "--port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            seen = []
+            for line in proc.stdout:
+                seen.append(line)
+                m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)",
+                              line)
+                if m:
+                    break
+            else:
+                raise AssertionError("serve entry point did not start:\n"
+                                     + "".join(seen))
+            code, resp = _request(f"http://127.0.0.1:{m.group(1)}/score",
+                                  {"dense": dense.tolist(),
+                                   "sparse": sparse.tolist()})
+            assert code == 200, (code, resp)
+            served = np.asarray(resp["probs"], np.float32)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+        if not np.array_equal(served, want):
+            raise AssertionError(f"served scores differ from Engine.predict "
+                                 f"by {np.abs(served - want).max()}")
+    out = {"phase": "launch", "full_width": {
+        k: full[k] for k in ("steps", "train_loss_last", "val_auc",
+                             "val_acc", "examples_per_sec", "device")},
+        "full_width_command_s": full_s, "rows_small": rows,
+        "small_steps": whole["steps"], "resumed_at": part["steps"],
+        "resume_bit_exact": True, "served_equal_predict": True,
+        "served_requests": BATCH}
+    emit(out)
+    return out
+
+
+def _entry(name, route_src, replaces, launches, by_path, k) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
+            "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+            "device_ms": k["kernel_device_ms"], "plain_ms": k["plain_ms"],
+            "plain_device_ms": k["plain_device_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+            "library_device_ms": k["library_device_ms"]}
+
+
 def main() -> None:
-    name = phase_device()
+    smi = phase_device()
     phase_build()
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
     state = eng.init_state(0)
     assert tuple(state.table.shape) == (33_762_584, EMB)
-    # the unique ids of 64 serving batches of synthetic_ctr_data(seed=0)
+    # 64 serving batches of synthetic_ctr_data(seed=0): their unique ids
+    # (K1's and K2's shape) and their inverses (K3's)
     _, sparse, _ = synthetic_ctr_data(eng.model.spec, 64 * BATCH, seed=0,
                                       num_rows=FULL_ROWS)
-    batches = [torch.as_tensor(np.unique(sparse[i * BATCH:(i + 1) * BATCH])
-                               .astype(np.int32), device="cuda")
-               for i in range(64)]
+    batches, inverses, uniques = [], [], []
+    for i in range(64):
+        u, inv = np.unique(sparse[i * BATCH:(i + 1) * BATCH].reshape(-1),
+                           return_inverse=True)
+        batches.append(torch.as_tensor(u.astype(np.int32), device="cuda"))
+        inverses.append(torch.as_tensor(inv.reshape(-1), device="cuda"))
+        uniques.append(len(u))
     k1 = phase_kernel(state.table, batches)
+    k3 = phase_kernel_push(inverses, uniques)
+    k2 = phase_kernel_scatter(state.table, batches)
     serve = phase_serve(eng, state)
     phase_checkpoint()
-    emit({"kernels": [{
-        "name": "embedding_gather", "route": "cuda",
-        "source": "herald_tpu_torch/ops/kernels/csrc/embedding_gather.cu",
-        "replaces": "herald_tpu/ops/pallas/kernels.py:104",
-        "launches": serve["launches"]["embedding_gather"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"],
-        "device_ms": k1["kernel_device_ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]}]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    train = phase_train(eng, state)
+    del state, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_adam()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_launch()
+    sl, tl = serve["launches"], train["launches"]
+    emit({"kernels": [
+        _entry("embedding_gather", "embedding_gather.cu", 104,
+               sl["embedding_gather"] + tl["embedding_gather"],
+               {"serve": sl["embedding_gather"],
+                "train": tl["embedding_gather"]}, k1),
+        _entry("hot_onehot_push", "hot_onehot_push.cu", 274,
+               tl["hot_onehot_push"], {"serve": 0,
+                                       "train": tl["hot_onehot_push"]}, k3),
+        _entry("rows_scatter_add", "rows_scatter_add.cu", 183,
+               tl["rows_scatter_add"], {"serve": 0,
+                                        "train": tl["rows_scatter_add"]},
+               k2)]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 

@@ -53,7 +53,9 @@ def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 def state_from_numpy(leaves, device) -> TrainState:
     """A TrainState-shaped object of numpy arrays (fields table,
-    table_slots, dense, dense_slots, step) -> the port's TrainState."""
+    table_slots, dense, dense_slots, step) -> the port's TrainState. The
+    trees keep JAX's shape: a slotless optimizer's dense slots stay
+    `{"W1": {}, ...}`."""
     def conv(a):
         return tensor_from_numpy(a, device=device)
     return TrainState(
@@ -61,5 +63,5 @@ def state_from_numpy(leaves, device) -> TrainState:
         table_slots={k: conv(v) for k, v in leaves.table_slots.items()},
         dense={k: conv(v) for k, v in leaves.dense.items()},
         dense_slots={k: {s: conv(x) for s, x in v.items()}
-                     for k, v in leaves.dense_slots.items() if v},
+                     for k, v in leaves.dense_slots.items()},
         step=conv(leaves.step))

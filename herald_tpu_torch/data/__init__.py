@@ -2,5 +2,6 @@ from herald_tpu_torch.data.datasets import (
     DATASETS,
     DatasetSpec,
     dataset_for_model,
+    load_dataset,
     synthetic_ctr_data,
 )

@@ -1,4 +1,4 @@
-"""Dataset specs and synthetic CTR data.
+"""Dataset specs, synthetic CTR data and the preprocessed-dataset loader.
 
 The port's own copy of the numpy functions it needs from
 `herald_tpu/data/datasets.py` (the port imports nothing of the JAX
@@ -9,6 +9,7 @@ package). The same seed gives byte-identical arrays in both packages;
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -117,3 +118,58 @@ def synthetic_ctr_data(
     else:
         labels = rng.integers(0, 2, size=num_samples).astype(np.float32)
     return dense, sparse.astype(np.int64), labels.reshape(-1, 1)
+
+
+# ----------------------------------------------------------------------
+# Real preprocessed data (the reference pipeline's .npy layout)
+# ----------------------------------------------------------------------
+
+_NPY_LAYOUT = {
+    # dataset -> (dense, sparse, label) file basenames of the reference's
+    # processed cache (load_data.py process_* functions)
+    "criteo": ("train_dense_feats.npy", "train_sparse_feats.npy",
+               "train_labels.npy"),
+    "avazu": ("train_dense_feats.npy", "train_sparse_feats.npy",
+              "train_labels.npy"),
+    "criteosearch": ("train_dense_feats.npy", "train_sparse_feats.npy",
+                     "train_labels.npy"),
+}
+
+
+def load_dataset(
+    spec: DatasetSpec,
+    path: Optional[str] = None,
+    num_samples: int = 100_000,
+    seed: int = 0,
+    num_rows: Optional[int] = None,
+):
+    """Load the preprocessed dataset from `path`, falling back to
+    synthetic data when `path` is None or holds no such files.
+
+    `path` holds the reference pipeline's processed `.npy` files (read
+    memory-mapped), or for "movie" its `train.npz` (user_input,
+    item_input, labels)."""
+    if path and spec.name in _NPY_LAYOUT:
+        files = [os.path.join(path, f) for f in _NPY_LAYOUT[spec.name]]
+        if all(os.path.exists(f) for f in files):
+            dense = np.load(files[0], mmap_mode="r")
+            sparse = np.load(files[1], mmap_mode="r")
+            labels = np.load(files[2], mmap_mode="r").reshape(-1, 1)
+            return np.asarray(dense, np.float32), \
+                np.asarray(sparse, np.int64), np.asarray(labels, np.float32)
+    if path and spec.name == "movie":
+        npz_path = os.path.join(path, "train.npz")
+        if os.path.exists(npz_path):
+            with np.load(npz_path) as train:
+                users = np.asarray(train["user_input"],
+                                   np.int64).reshape(-1, 1)
+                items = np.asarray(train["item_input"],
+                                   np.int64).reshape(-1, 1)
+                labels = np.asarray(train["labels"],
+                                    np.float32).reshape(-1, 1)
+            sparse = np.concatenate([users, items], axis=1)
+            dense = np.zeros((len(labels), max(spec.num_dense, 0)),
+                             np.float32)
+            return dense, sparse, labels
+    return synthetic_ctr_data(spec, num_samples, seed=seed,
+                              num_rows=num_rows)

@@ -1,1 +1,3 @@
-from herald_tpu_torch.ops.embedding import dedup_ids, embedding_lookup
+from herald_tpu_torch.ops.embedding import (dedup_ids, embedding_lookup,
+                                            scatter_add_rows,
+                                            segment_sum_grads)

@@ -1,7 +1,10 @@
 """Embedding lookup and dedup (port of `herald_tpu/ops/embedding.py`).
 
-`embedding_lookup` reads rows through K1 (`ops/kernels/gather.py`): the
-CUDA kernel on the card, its plain version on the CPU.
+`embedding_lookup` reads rows through K1 (`ops/kernels/gather.py`),
+`segment_sum_grads` sums duplicate-id gradients through K3
+(`ops/kernels/segment.py`) and `scatter_add_rows` adds rows through K3 and
+K2 (`ops/kernels/scatter.py`): the CUDA kernels on the card, their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -10,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-from herald_tpu_torch.ops.kernels import embedding_gather
+from herald_tpu_torch.ops.kernels import (embedding_gather, hot_onehot_push,
+                                          rows_scatter_add)
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -38,3 +42,27 @@ def dedup_ids(ids: torch.Tensor, size: int
         uniq = torch.cat([uniq, uniq[-1:].expand(size - num)])
     return uniq, inv.reshape(-1), torch.tensor(num, dtype=torch.int32,
                                                device=ids.device)
+
+
+def segment_sum_grads(grad: torch.Tensor, inverse: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Reduce duplicate-id gradients: grad [N, D] by inverse [N] ->
+    [num_segments, D] in grad's dtype, as `jax.ops.segment_sum` returns.
+    The sum runs through K3 in f32 and is rounded once; JAX adds in the
+    grad dtype (for bf16, one rounding per duplicate)."""
+    flat = grad.reshape(-1, grad.shape[-1])
+    return hot_onehot_push(inverse.reshape(-1), flat,
+                           num_segments).to(grad.dtype)
+
+
+def scatter_add_rows(table: torch.Tensor, rows: torch.Tensor,
+                     values: torch.Tensor) -> torch.Tensor:
+    """table [R, D] += values [U, D] at rows [U], duplicate rows allowed,
+    in place (JAX: `table.at[rows].add(values)`, a new table). Duplicates
+    are summed through K3 in f32, then each distinct row is written once
+    through K2: one rounding per row where JAX rounds per duplicate. Rows
+    outside [0, R) are dropped."""
+    uniq, inv = torch.unique(rows.reshape(-1), return_inverse=True)
+    summed = hot_onehot_push(inv, values.reshape(-1, values.shape[-1]),
+                             uniq.numel())
+    return rows_scatter_add(table, uniq, summed)

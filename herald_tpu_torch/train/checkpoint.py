@@ -211,6 +211,10 @@ def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
                 _insert(fields, parts, tensor_from_numpy(arr, name, device))
     finally:
         reader.close()
+    # a slotless dense optimizer saves no dense_slots leaves; its tree is
+    # {"W1": {}, ...}, as the engine builds it and JAX keeps it
+    for k in fields["dense"]:
+        fields["dense_slots"].setdefault(k, {})
     return TrainState(**fields)
 
 

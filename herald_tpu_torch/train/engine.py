@@ -1,10 +1,27 @@
-"""Engine, local mode (port of the eval half of `herald_tpu/train/engine.py`).
+"""Engine, local mode (port of `herald_tpu/train/engine.py`).
 
-One device, the whole table on it. `predict` and `evaluate` run the JAX
-engine's eval step: dedup the batch's ids, read the unique rows through K1
-(`ops/kernels/gather.py`), widen them to f32, run the tower, sigmoid.
-Training (the optimizers, the sparse update, kernels K2 and K3) comes in
-the next slice of the port; the row-sharded hybrid exchange later.
+One device, the whole table on it. The eval step (`predict`, `evaluate`)
+dedups the batch's ids, reads the unique rows through K1
+(`ops/kernels/gather.py`), widens them to f32, runs the tower and a
+sigmoid. The train step (`train_step`, `train_epoch`) adds the backward
+pass and the sparse update:
+
+- SGD on the table (the JAX fast path, `engine.py:427-453`): the rows are
+  read through the same dedup and K1; the duplicate-id gradients are
+  summed over the inverse through K3 (`ops/kernels/segment.py`), and
+  `-lr * g` is added to each distinct row through K2
+  (`ops/kernels/scatter.py`). JAX adds every duplicate's `-lr * g`
+  straight into the table instead: the same sum, with one rounding per
+  row here where JAX rounds once per duplicate.
+- Every other table optimizer (the dedup path, `engine.py:315-355`): K3
+  sums the gradients per unique id, the rows and slots are read through
+  K1, `apply_rows` updates them, and `index_copy_` writes them back (an
+  XLA scatter-set in JAX, outside any Pallas kernel).
+
+The table and its slots are updated in place: JAX donates them to the
+step, so the state handed in is consumed in both packages. The dense
+parameters and their slots are new tensors each step. The row-sharded
+hybrid exchange comes in a later slice.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 with no device given and no card present they raise.
@@ -18,8 +35,11 @@ import numpy as np
 import torch
 
 from herald_tpu_torch.config import HeraldConfig
-from herald_tpu_torch.models.base import ModelDef, get_model
-from herald_tpu_torch.ops.kernels import embedding_gather
+from herald_tpu_torch.models.base import ModelDef, bce_with_logits, get_model
+from herald_tpu_torch.ops.embedding import segment_sum_grads
+from herald_tpu_torch.ops.kernels import embedding_gather, rows_scatter_add
+from herald_tpu_torch.optim import get_optimizer
+from herald_tpu_torch.optim.schedules import get_schedule
 from herald_tpu_torch.utils import metrics as M
 
 
@@ -44,8 +64,19 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _write_rows(dst: torch.Tensor, idx: torch.Tensor,
+                vals: torch.Tensor) -> None:
+    """dst[idx] = vals in dst's dtype, dropping indices outside dst (the
+    JAX `.at[].set(mode="drop")`). Checking for such indices waits for
+    the device once."""
+    keep = (idx >= 0) & (idx < dst.shape[0])
+    if not bool(keep.all()):
+        idx, vals = idx[keep], vals[keep]
+    dst.index_copy_(0, idx.long(), vals.to(dst.dtype))
+
+
 class Engine:
-    """Scores batches with one model over a table on one device."""
+    """Trains and scores one model over a table on one device."""
 
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
                  table_rows: Optional[int] = None, device=None):
@@ -66,49 +97,183 @@ class Engine:
         # the JAX package pads the table to a multiple of 8 rows
         # (parallel/exchange.py:93-94); kept so checkpoints interchange
         self.padded_rows = -(-self.num_rows // 8) * 8
+        self.dense_opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
+        self.embed_opt = get_optimizer(cfg.embed_optimizer,
+                                       cfg.embed_learning_rate)
+        sched_kw = cfg.lr_schedule_kwargs or {}
+        self._lr_fn = get_schedule(cfg.lr_schedule, cfg.learning_rate,
+                                   **sched_kw)
+        self._elr_fn = get_schedule(cfg.lr_schedule,
+                                    cfg.embed_learning_rate, **sched_kw)
+        self._fast_local_sgd = (self.embed_opt.name == "sgd"
+                                and not cfg.use_cache)
+        # a step's overflow count: one device and no exchange, so always 0
+        self._zero = torch.zeros((), dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Random state from a seed: table ~ 0.01 * N(0, 1), generated
         directly in `table_dtype` on the device (no f32 intermediate: at
-        full width that would be 17 GB), then the tower. Optimizer slots
-        come with the training slice."""
+        full width that would be 17 GB), zero table slots in the table
+        dtype, then the tower and its zero slots (`{name: {}}` for a
+        slotless optimizer, as JAX's tree has it)."""
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
         table = torch.randn((self.padded_rows, self.width), generator=gen,
                             dtype=self.cfg.table_dtype, device=self.device)
         table.mul_(0.01)
+        slots = {k: torch.zeros_like(table)
+                 for k in self.embed_opt.slot_names}
         dense = self.model.init_dense(gen, self.cfg.embedding_dim)
+        dense_slots = {k: self.dense_opt.init_slots(v)
+                       for k, v in dense.items()}
         step = torch.zeros((), dtype=torch.int32, device=self.device)
-        return TrainState(table=table, table_slots={}, dense=dense,
-                          dense_slots={}, step=step)
+        return TrainState(table=table, table_slots=slots, dense=dense,
+                          dense_slots=dense_slots, step=step)
 
     # ------------------------------------------------------------------
-    def _gather_local(self, table, ids_flat):
-        """Row read through K1; ids outside the table give zero rows (the
-        JAX engine's `mode="fill"` read, `engine.py:292-293`)."""
-        return embedding_gather(table, ids_flat)
-
-    def _forward_embeddings(self, table, ids):
-        """ids [B, F] -> emb [B, F, W]. Reads each distinct id once.
-        `torch.unique` has a dynamic size, so it waits once per batch for
-        the device; the JAX engine's static-size `jnp.unique` does not."""
+    def _dedup_read(self, table, ids):
+        """ids [B, F] -> (emb [B, F, W] in the table dtype, uniq, inv).
+        Reads each distinct id once through K1; ids outside the table give
+        zero rows (the JAX engine's `mode="fill"` read). `torch.unique` has
+        a dynamic size, so it waits once per batch for the device; the
+        JAX engine's static-size `jnp.unique` does not."""
         B, F = ids.shape
         uniq, inv = torch.unique(ids.reshape(-1), sorted=True,
                                  return_inverse=True)
-        emb_uniq = self._gather_local(table, uniq)
-        return emb_uniq[inv].reshape(B, F, self.width)
+        emb_uniq = embedding_gather(table, uniq)
+        return emb_uniq[inv].reshape(B, F, self.width), uniq, inv
+
+    def _loss_and_grads(self, dense, emb, dense_x, labels):
+        """(loss, {name: dense grad}, emb grad): `value_and_grad` with
+        respect to the dense params and `emb`, whose grad comes back in
+        emb's dtype."""
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in dense.items()}
+        emb = emb.detach().requires_grad_(True)
+        with torch.enable_grad():
+            logits = self.model.apply(params, emb.to(torch.float32),
+                                      dense_x)
+            loss = bce_with_logits(logits, labels)
+            grads = torch.autograd.grad(loss, [*params.values(), emb])
+        return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
+
+    def _apply_sparse_grads(self, table, slots, step, uniq, inv, emb_grad):
+        """Sum the grads per unique id (K3, rounded once to the grads'
+        dtype), update the rows and slots with the table optimizer, write
+        them back. In place."""
+        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
+        # torch.unique does not pad, so every slot is real here; the mask
+        # stays for the cached slice, whose static-size dedup pads with -1
+        row_mask = uniq >= 0
+        rows_idx = torch.where(row_mask, uniq, self.padded_rows)
+        safe_idx = torch.where(row_mask, rows_idx, 0)
+        rows = embedding_gather(table, safe_idx)
+        row_slots = {k: embedding_gather(v, safe_idx)
+                     for k, v in slots.items()}
+        new_rows, new_slots = self.embed_opt.apply_rows(
+            rows, g_uniq, row_slots, step,
+            lr=self._elr_fn(step), mask=row_mask)
+        drop_idx = torch.where(row_mask, rows_idx, table.shape[0] + 1)
+        _write_rows(table, drop_idx, new_rows)
+        for k in slots:
+            _write_rows(slots[k], drop_idx, new_slots[k])
+        return table, slots
+
+    def _train_step_body(self, state: TrainState, dense_x, ids, labels):
+        if self._fast_local_sgd:
+            return self._train_step_body_fast(state, dense_x, ids, labels)
+        step = state.step + 1
+        emb, uniq, inv = self._dedup_read(state.table, ids)
+        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
+                                                      dense_x, labels)
+        dense, dense_slots = self.dense_opt.apply_dense(
+            state.dense, dgrads, state.dense_slots, step,
+            lr=self._lr_fn(step))
+        table, table_slots = self._apply_sparse_grads(
+            state.table, state.table_slots, step, uniq, inv, emb_grad)
+        new_state = TrainState(table=table, table_slots=table_slots,
+                               dense=dense, dense_slots=dense_slots,
+                               step=step)
+        return new_state, {"loss": loss, "overflow": self._zero}
+
+    def _train_step_body_fast(self, state: TrainState, dense_x, ids, labels):
+        """SGD on the table: K1 read, f32 emb grads summed per distinct id
+        through K3, `-lr * g` added through K2. JAX casts the gather to f32
+        before `value_and_grad`, so its emb grad is f32, as here."""
+        step = state.step + 1
+        emb, uniq, inv = self._dedup_read(state.table, ids)
+        loss, dgrads, emb_grad = self._loss_and_grads(
+            state.dense, emb.to(torch.float32), dense_x, labels)
+        dense, dense_slots = self.dense_opt.apply_dense(
+            state.dense, dgrads, state.dense_slots, step,
+            lr=self._lr_fn(step))
+        lr = self._elr_fn(step)
+        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])   # f32
+        table = rows_scatter_add(state.table, uniq, -lr * g_uniq)
+        new_state = TrainState(table=table, table_slots=state.table_slots,
+                               dense=dense, dense_slots=dense_slots,
+                               step=step)
+        return new_state, {"loss": loss, "overflow": self._zero}
 
     def _eval_step_body(self, state: TrainState, dense_x, ids):
-        emb = self._forward_embeddings(state.table, ids)
+        emb, _, _ = self._dedup_read(state.table, ids)
         logits = self.model.apply(state.dense, emb.to(torch.float32),
                                   dense_x)
         return torch.sigmoid(logits)
 
     def _put_batch(self, arr, dtype):
-        return torch.as_tensor(np.asarray(arr, dtype), device=self.device)
+        """A host array (or a tensor) on the engine's device; [W, B, ...]
+        flattens to [W*B, ...] as in JAX."""
+        if isinstance(arr, torch.Tensor):
+            a = arr.to(self.device, getattr(torch, np.dtype(dtype).name))
+        else:
+            a = torch.as_tensor(np.asarray(arr, dtype), device=self.device)
+        if a.dim() >= 3:
+            a = a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+        return a
 
     # ------------------------------------------------------------------
+    def train_step(self, state: TrainState, dense_x, sparse_ids, labels):
+        """One step on one batch: (state, {"loss", "overflow"}). The
+        table and its slots are updated in place."""
+        d = self._put_batch(dense_x, np.float32)
+        s = self._put_batch(sparse_ids, np.int32)
+        y = self._put_batch(labels, np.float32)
+        return self._train_step_body(state, d, s, y)
+
+    def train_epoch(self, state: TrainState, dense_x, sparse_ids, labels,
+                    steps: Optional[int] = None):
+        """Run `steps` steps (default: as many full batches as the arrays
+        hold). Host arrays are flat ([steps*B, ...]) and go to the device
+        in one copy each; tensors already shaped [steps, B, ...] are used
+        as they are. Returns (state, stats) with per-step `loss` and
+        `overflow` tensors [steps]. A Python loop over the steps, where
+        JAX scans them in one program."""
+        gb = self.cfg.batch_size
+        steps = steps or len(sparse_ids) // gb
+        if steps < 1:
+            raise ValueError(f"not enough samples for one step of {gb}")
+
+        def stack(a, dtype):
+            if isinstance(a, torch.Tensor) and a.dim() >= 2 \
+                    and a.shape[0] == steps:
+                return a.to(self.device)   # already [K, GB, ...]
+            a = np.asarray(a)[: steps * gb].astype(dtype, copy=False)
+            return torch.as_tensor(a.reshape(steps, gb, *a.shape[1:]),
+                                   device=self.device)
+
+        d = stack(dense_x, np.float32)
+        s = stack(sparse_ids, np.int32)
+        y = stack(labels, np.float32)
+        losses, overflows = [], []
+        for k in range(steps):
+            state, stats = self._train_step_body(state, d[k], s[k], y[k])
+            losses.append(stats["loss"])
+            overflows.append(stats["overflow"])
+        return state, {"loss": torch.stack(losses),
+                       "overflow": torch.stack(overflows)}
+
     @torch.inference_mode()
     def predict(self, state: TrainState, dense_x, sparse_ids
                 ) -> torch.Tensor:

@@ -1,0 +1,46 @@
+"""Step timing: the port's own copy of `StepTimer` from
+`herald_tpu/utils/profiler.py`."""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+class StepTimer:
+    """Wall-time stats per timed block (mirrors the per-minibatch timing
+    the reference entry scripts print). The first `warmup` blocks are not
+    kept. A block ends when the host returns, not when the device has
+    finished its work."""
+
+    def __init__(self, warmup: int = 5):
+        self.warmup = warmup
+        self.times: List[float] = []
+        self._count = 0
+        self._t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._count += 1
+        if self._count > self.warmup:
+            self.times.append(dt)
+
+    def report(self) -> Dict[str, float]:
+        if not self.times:
+            return {"steps": 0}
+        t = np.asarray(self.times)
+        return {
+            "steps": len(t),
+            "total_s": float(t.sum()),
+            "avg_ms": float(t.mean() * 1e3),
+            "max_ms": float(t.max() * 1e3),
+            "min_ms": float(t.min() * 1e3),
+            "p50_ms": float(np.percentile(t, 50) * 1e3),
+            "p99_ms": float(np.percentile(t, 99) * 1e3),
+        }

@@ -48,3 +48,31 @@ def test_metrics_equal(seed):
     assert tm.accuracy(y, s) == jm.accuracy(y, s)
     assert tm.accuracy(y, s, 0.3) == jm.accuracy(y, s, 0.3)
     assert tm.auc_score(np.ones(5), s[:5]) == 0.5
+
+
+@pytest.mark.parametrize("layout", ["npy", "movie_npz", "synthetic"])
+def test_load_dataset_matches_jax(layout, tmp_path):
+    rng = np.random.default_rng(9)
+    if layout == "npy":
+        spec = "criteo"
+        np.save(tmp_path / "train_dense_feats.npy",
+                rng.standard_normal((40, 13)).astype(np.float32))
+        np.save(tmp_path / "train_sparse_feats.npy",
+                rng.integers(0, 500, (40, 26)))
+        np.save(tmp_path / "train_labels.npy",
+                rng.integers(0, 2, 40).astype(np.float32))
+    elif layout == "movie_npz":
+        spec = "movie"
+        np.savez(tmp_path / "train.npz",
+                 user_input=rng.integers(0, 50, 30),
+                 item_input=rng.integers(50, 90, 30),
+                 labels=rng.integers(0, 2, 30))
+    else:
+        spec = "avazu"               # a path without files falls back
+    got = tds.load_dataset(tds.DATASETS[spec], str(tmp_path),
+                           num_samples=64, seed=4, num_rows=700)
+    want = jds.load_dataset(jds.DATASETS[spec], str(tmp_path),
+                            num_samples=64, seed=4, num_rows=700)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)

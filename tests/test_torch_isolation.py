@@ -42,6 +42,9 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "    sys.modules[m] = None\n"
             "import herald_tpu_torch.serve, herald_tpu_torch.bridge\n"
             "import herald_tpu_torch.ops.kernels.build\n"
+            "import herald_tpu_torch.launch, herald_tpu_torch.launch.cli\n"
+            "import herald_tpu_torch.optim.schedules\n"
+            "import herald_tpu_torch.utils.profiler\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'ml_dtypes', 'herald_tpu')\n"
             "       and sys.modules[m] is not None]\n"
@@ -55,8 +58,14 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
 
 def test_engine_without_device_raises_when_no_card(monkeypatch):
     from herald_tpu_torch import Engine, HeraldConfig
+    from herald_tpu_torch.launch import cli
     from herald_tpu_torch.serve import load_scorer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the launcher raises before it loads data or builds anything
+    args = cli.build_parser().parse_args(["--samples", "64", "--rows",
+                                          "64"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.run_training(args)
     cfg = HeraldConfig(model="wdl_criteo", batch_size=4, embedding_dim=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, table_rows=64)

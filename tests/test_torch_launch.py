@@ -1,0 +1,188 @@
+"""The port's launcher (`python -m herald_tpu_torch.launch`) against
+herald_tpu's on small synthetic runs (wdl_criteo, 3,000 rows, embedding 8,
+batch 16), on the CPU.
+
+The two packages draw their initial weights from different generators, so
+the runs compared with JAX start from one JAX checkpoint at step 0
+(`--resume`), f32 tables. Tolerances: the launcher runs the same steps on
+the same batches, so per-epoch mean loss and the final 20-step mean agree
+within 1e-5 and validation AUC within 1e-4 (the f32 towers sum in another
+order: a probability that moves by 1e-7 can reorder a near-tie, and one
+reordered pair moves the AUC by 1/(positives * negatives)).
+A port run resumed from its own checkpoint is bit-exact against the
+uninterrupted run: on the CPU, and through K3's fixed summation order on
+the card (chip_smoke.py checks that).
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from herald_tpu import HeraldConfig as JaxConfig
+from herald_tpu.launch.cli import build_parser as jax_parser
+from herald_tpu.launch.cli import run_training as jax_run
+from herald_tpu.train.checkpoint import save_checkpoint as jax_save
+from herald_tpu.train.engine import Engine as JaxEngine
+from herald_tpu.utils.profiler import StepTimer as JaxStepTimer
+from herald_tpu_torch.launch import cli
+from herald_tpu_torch.train.checkpoint import load_checkpoint
+from herald_tpu_torch.utils.profiler import StepTimer
+
+ROWS = 3000
+COMMON = ["--model", "wdl_criteo", "--batch-size", "16",
+          "--embedding-size", "8", "--samples", "1600", "--rows", str(ROWS),
+          "--val-ratio", "0.2", "--scan-steps", "8", "--seed", "5"]
+
+
+@pytest.fixture(autouse=True)
+def _no_jax_compile_cache(monkeypatch):
+    # herald_tpu.launch turns on a persistent compile cache under /tmp
+    monkeypatch.setenv("HERALD_COMPILE_CACHE", "")
+
+
+def _port(argv):
+    return cli.run_training(cli.build_parser().parse_args(
+        COMMON + ["--device", "cpu"] + argv))
+
+
+def _jax(argv):
+    return jax_run(jax_parser().parse_args(COMMON + ["--no-prefetch"]
+                                           + argv))
+
+
+def _jax_init_ckpt(path, opt, lr):
+    cfg = JaxConfig(model="wdl_criteo", batch_size=16, embedding_dim=8,
+                    optimizer=opt, learning_rate=lr, seed=5)
+    eng = JaxEngine(cfg, table_rows=ROWS)
+    jax_save(eng.init_state(5), path)
+
+
+def _close(port, jx):
+    assert port["steps"] == jx["steps"]
+    assert port["stopped_early"] == jx["stopped_early"]
+    assert port["overflow_rows"] == jx["overflow_rows"] == 0
+    assert abs(port["train_loss_last"] - jx["train_loss_last"]) <= 1e-5
+    assert abs(port["val_auc"] - jx["val_auc"]) <= 1e-4
+    assert len(port["epochs"]) == len(jx["epochs"])
+    for a, b in zip(port["epochs"], jx["epochs"]):
+        assert a["epoch"] == b["epoch"]
+        assert abs(a["train_loss"] - b["train_loss"]) <= 1e-5
+        assert abs(a["val_auc"] - b["val_auc"]) <= 1e-4
+
+
+def test_launcher_matches_jax_from_one_checkpoint(tmp_path):
+    _jax_init_ckpt(str(tmp_path / "init"), "sgd", 0.5)
+    argv = ["--lr", "0.5", "--nepoch", "1", "--resume",
+            str(tmp_path / "init")]
+    port, jx = _port(argv), _jax(argv)
+    assert port["steps"] == 1280 // 16 and len(port["epochs"]) == 1
+    assert set(port) == set(jx) | {"device"} and port["device"] == "cpu"
+    assert port["mode"] == jx["mode"] == "baseline"
+    _close(port, jx)
+
+
+def test_jax_adam_checkpoint_resumed_by_the_port(tmp_path):
+    """A JAX run checkpointed mid-epoch, then finished by each package."""
+    _jax_init_ckpt(str(tmp_path / "init"), "adam", 0.01)
+    common = ["--opt", "adam", "--lr", "0.01", "--nepoch", "1"]
+    _jax(common + ["--resume", str(tmp_path / "init"), "--max-steps", "40",
+                   "--ckpt", str(tmp_path / "mid")])
+    resumed = common + ["--resume", str(tmp_path / "mid")]
+    port = _port(resumed + ["--ckpt", str(tmp_path / "port")])
+    jx = _jax(resumed + ["--ckpt", str(tmp_path / "jax")])
+    assert port["steps"] == jx["steps"] == 80 - 40
+    _close(port, jx)
+    a = load_checkpoint(str(tmp_path / "port"), "cpu")
+    b = load_checkpoint(str(tmp_path / "jax"), "cpu")
+    assert int(a.step) == int(b.step) == 80
+    assert set(a.table_slots) == set(b.table_slots) == {"m", "v"}
+    np.testing.assert_allclose(a.table.numpy(), b.table.numpy(), rtol=0,
+                               atol=1e-5)
+    for k in b.dense:
+        np.testing.assert_allclose(a.dense[k].numpy(), b.dense[k].numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+def test_resume_across_a_checkpoint_is_bit_exact(tmp_path):
+    common = ["--bf16-table", "--lr", "0.5", "--nepoch", "2",
+              "--scan-steps", "4"]
+    whole = _port(common + ["--ckpt", str(tmp_path / "whole")])
+    first = _port(common + ["--ckpt", str(tmp_path / "part"),
+                            "--ckpt-every", "30", "--max-steps", "100"])
+    assert first["steps"] == 100 and first["stopped_early"]
+    rest = _port(common + ["--resume", str(tmp_path / "part"),
+                           "--ckpt", str(tmp_path / "rest")])
+    assert rest["steps"] == whole["steps"] - 100
+    assert rest["val_auc"] == whole["val_auc"]
+    a = load_checkpoint(str(tmp_path / "whole"), "cpu")
+    b = load_checkpoint(str(tmp_path / "rest"), "cpu")
+    assert int(a.step) == int(b.step) == whole["steps"]
+    assert a.table.dtype == torch.bfloat16
+    assert torch.equal(a.table, b.table)
+    assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)
+    assert a.dense_slots == b.dense_slots == {k: {} for k in a.dense}
+
+
+def test_log_dir_writes_report_losses_and_trace(tmp_path):
+    out = tmp_path / "logs"
+    rep = _port(["--nepoch", "1", "--max-steps", "6", "--log-dir",
+                 str(out), "--save-config", str(tmp_path / "cfg.json")])
+    assert json.loads((out / "report.json").read_text())["steps"] == 6
+    assert np.load(out / "losses.npy").shape == (6,)
+    assert (out / "trace.json").stat().st_size > 0
+    assert rep["steps"] == 6
+    cfg = json.loads((tmp_path / "cfg.json").read_text())
+    assert cfg["model"] == "wdl_criteo" and "device" not in cfg
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--scheduled"], "--scheduled"),
+    (["--assign-only"], "--assign-only"),
+    (["--fae"], "--fae"),
+    (["--comm", "hybrid"], "--comm hybrid"),
+    (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
+    (["--export-onnx", "m.onnx"], "--export-onnx"),
+    (["--multihost"], "--multihost"),
+    (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
+    (["--int8-flush"], "--int8-flush"),
+    (["--platform", "cpu"], "--platform"),
+], ids=lambda v: v[0] if isinstance(v, list) else None)
+def test_flags_not_ported_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match) as e:
+        _port(argv)
+    assert "ROADMAP" in str(e.value)
+
+
+def test_serve_view_flag_raises_as_in_jax():
+    with pytest.raises(ValueError, match="--ckpt-serve-view"):
+        _port(["--ckpt-serve-view"])
+
+
+def test_resume_refuses_a_checkpoint_of_another_optimizer(tmp_path):
+    _port(["--nepoch", "1", "--max-steps", "2", "--ckpt",
+           str(tmp_path / "sgd")])
+    with pytest.raises(ValueError, match="optimizer slots"):
+        _port(["--opt", "adam", "--resume", str(tmp_path / "sgd")])
+
+
+def test_main_prints_the_report(capsys):
+    assert cli.main(COMMON + ["--device", "cpu", "--nepoch", "1",
+                              "--max-steps", "3"]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{\n"):])
+    assert report["steps"] == 3 and report["stopped_early"]
+
+
+def test_step_timer_reports_like_jax():
+    mine, theirs = StepTimer(warmup=2), JaxStepTimer(warmup=2)
+    assert mine.report() == theirs.report() == {"steps": 0}
+    for _ in range(5):
+        with mine:
+            pass
+        with theirs:
+            pass
+    a, b = mine.report(), theirs.report()
+    assert a.keys() == b.keys() and a["steps"] == b["steps"] == 3
+    assert 0 <= a["min_ms"] <= a["p50_ms"] <= a["max_ms"]

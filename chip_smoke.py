@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Drive herald_tpu_torch on one NVIDIA card (H100): build its CUDA kernels
-from the sources in this checkout, hold each against its plain PyTorch
-version, serve and train wdl_criteo at full width, and print what it
+and its host planner from the sources in this checkout, hold each kernel
+against its plain PyTorch version, serve and train wdl_criteo at full
+width, plainly and through the scheduled, cached engine, and print what it
 measured.
 
     python3 chip_smoke.py
 
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
-serve, checkpoint, train, train:adam, launch, the kernels summary, the
+serve, checkpoint, train, train:adam, launch, scheduled, scheduled:pinned,
+kernel:hot_onehot_gather, launch:scheduled, the kernels summary, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
 Every phase that fails raises: the script then exits non-zero and prints
-no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda)
-and this checkout; it uses no network beyond 127.0.0.1.
+no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda),
+g++ and this checkout; it uses no network beyond 127.0.0.1.
 
 Full width is the shape of bench.py: batch 256, embedding 128, the
 33,762,577-row Criteo table (padded to 33,762,584) in bfloat16, 8.64 GB,
 with random weights from a seed; training is bench_engine's SGD at
-lr 0.01 on batches of synthetic_ctr_data(seed=0).
+lr 0.01 on batches of synthetic_ctr_data(seed=0). The scheduled phases
+run bench_scheduled's configuration: the same table and data (256
+batches), a cache of 10% of the rows (3,376,257 x 256 f32, 3.46 GB) and
+program widths sized from a host probe pass.
 """
 
 from __future__ import annotations
@@ -33,23 +38,35 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from herald_tpu_torch.config import HeraldConfig
-from herald_tpu_torch.data import DATASETS, synthetic_ctr_data
+from herald_tpu_torch.data import (DATASETS, frequency_remap,
+                                   synthetic_ctr_data)
 from herald_tpu_torch.models import bce_with_logits
 from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
                                           embedding_gather_ref,
+                                          hot_onehot_gather,
+                                          hot_onehot_gather_ref,
                                           hot_onehot_push,
                                           hot_onehot_push_ref,
                                           rows_scatter_add,
                                           rows_scatter_add_ref)
+from herald_tpu_torch.sched.build import planner_lib_path
+from herald_tpu_torch.sched.replay import ReplayPlanner, plan_cache
+from herald_tpu_torch.sched.sizing import (TrafficProfile,
+                                           profile_planned_traffic)
 from herald_tpu_torch.serve import Scorer, load_scorer, make_server
-from herald_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from herald_tpu_torch.train.cached import CachedEngine
+from herald_tpu_torch.train.checkpoint import (load_cached_checkpoint,
+                                               load_checkpoint, load_extra,
+                                               save_checkpoint)
 from herald_tpu_torch.train.engine import Engine, TrainState
+from herald_tpu_torch.utils.profiler import cache_report
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
@@ -122,14 +139,35 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Every kernel (one nvcc each, all at once) while g++ builds the
+    planner."""
     t0 = time.perf_counter()
+    planner = {}
+
+    def build_planner():
+        t = time.perf_counter()
+        planner["path"] = planner_lib_path()
+        planner["seconds"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=build_planner)
+    thread.start()
     logs = build.build_all()
+    kernels_s = time.perf_counter() - t0
+    thread.join()
+    if "path" not in planner:
+        raise AssertionError("the planner did not build")
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    # per kernel source, from nvcc -Xptxas=-v: the most registers any of
+    # its instantiations uses, and whether any spills to local memory
+    ptxas = {name: {"max_registers": max(
+                        map(int, re.findall(r"Used (\d+) registers", log)),
+                        default=None),
+                    "spills": bool(re.search(r"[1-9]\d* bytes spill", log))}
              for name, log in logs.items()}
-    emit({"phase": "build", "seconds": seconds, "built": sorted(logs),
-          "ptxas": ptxas})
+    emit({"phase": "build", "seconds": seconds, "kernels_s": kernels_s,
+          "built": sorted(logs), "ptxas": ptxas,
+          "planner": Path(planner["path"]).name,
+          "planner_s": planner["seconds"]})
 
 
 def _gather_cases():
@@ -497,8 +535,8 @@ def phase_serve(eng: Engine, state) -> dict:
     eval_s = time.perf_counter() - t0
     expected += 64
     launches = {name: k.launches for name, k in KERNELS.items()}
-    if launches != {"embedding_gather": expected, "hot_onehot_push": 0,
-                    "rows_scatter_add": 0}:
+    if launches != {"embedding_gather": expected, "hot_onehot_gather": 0,
+                    "hot_onehot_push": 0, "rows_scatter_add": 0}:
         raise AssertionError(f"the serving path launched {launches}, "
                              f"expected embedding_gather {expected} times "
                              f"and no training kernel")
@@ -656,10 +694,11 @@ def phase_train(eng: Engine, state: TrainState) -> dict:
         times.append(time.perf_counter() - t0)
         losses.append(stats["loss"])
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    if launches != {name: 4 * K for name in KERNELS}:
+    if launches != {"embedding_gather": 4 * K, "hot_onehot_gather": 0,
+                    "hot_onehot_push": 4 * K, "rows_scatter_add": 4 * K}:
         raise AssertionError(f"the training path launched {launches}; "
                              f"expected one K1, K2 and K3 per step "
-                             f"({4 * K} each)")
+                             f"({4 * K} each) and no K4")
     losses = torch.cat(losses).cpu()
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError("non-finite training loss")
@@ -740,8 +779,8 @@ def phase_train_adam() -> dict:
     losses = stats["loss"].cpu()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    want = {"embedding_gather": 8 * 4, "hot_onehot_push": 8,
-            "rows_scatter_add": 0}
+    want = {"embedding_gather": 8 * 4, "hot_onehot_gather": 0,
+            "hot_onehot_push": 8, "rows_scatter_add": 0}
     if launches != want:
         raise AssertionError(f"the adam path launched {launches}, expected "
                              f"{want}")
@@ -859,11 +898,643 @@ def phase_launch() -> dict:
     return out
 
 
-def _entry(name, route_src, replaces, launches, by_path, k) -> dict:
+# ----------------------------------------------------------------------
+# the scheduled, cached engine (bench.py:113-250's configuration)
+# ----------------------------------------------------------------------
+
+SCHED_ITERS, SCHED_EPOCHS, PINNED = 256, 5, 4096
+DEVICE = "cuda"
+
+
+def _tree(fn, state):
+    """A state of the same NamedTuple type with fn applied to every
+    tensor (dicts of tensors kept as dicts)."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return fn(x)
+    return type(state)(*(conv(f) for f in state))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sched_setup(pinned: int):
+    """bench_scheduled's configuration at full width, with the program
+    widths sized from a host probe pass (bench.py:130-151): data, config,
+    engine. With a pinned tier the ids are frequency-remapped first, as
+    the launcher does."""
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, learning_rate=0.01,
+                       table_dtype=torch.bfloat16, use_cache=True,
+                       use_scheduler=True, cache_limit_ratio=0.1,
+                       pinned_rows=pinned)
+    spec = DATASETS["criteo"]
+    dense, sparse, labels = synthetic_ctr_data(
+        spec, BATCH * SCHED_ITERS, seed=0, num_rows=FULL_ROWS)
+    if pinned:
+        sparse, _ = frequency_remap(sparse, FULL_ROWS)
+    data = (dense.astype(np.float32), sparse.astype(np.int32),
+            labels.astype(np.float32))
+    t0 = time.perf_counter()
+    probe = CachedEngine(cfg, table_rows=FULL_ROWS,
+                         device=DEVICE).make_planner(sparse, epochs=1)
+    steps, _ = profile_planned_traffic(probe, sparse, 1)
+    probe.close()
+    prof = TrafficProfile.from_steps(steps)
+    cfg.sched_flush_slots = prof.flush_slots()
+    cfg.sched_unique_slots = prof.unique_slots()
+    eng = CachedEngine(cfg, table_rows=FULL_ROWS, device=DEVICE)
+    return cfg, eng, data, time.perf_counter() - t0
+
+
+def _expected_launches(tape, steps: int, pinned: bool) -> dict:
+    """Each kernel's launches over the first `steps` steps of a program
+    stream: per step one K1 read of the cache slots and one K3 sum of the
+    grads; one K1 pull on a step with pulls or prefetches; two K1 reads
+    (cache rows, table rows; SGD keeps no table slots) on a step with
+    flushes; with a pinned tier one K4 read and a second K3 sum."""
+    fids, pulls, pfids = (np.asarray(tape[k][:steps])
+                          for k in ("fids", "pulls", "pfids"))
+    has_flush = (fids >= 0).any(axis=1)
+    has_pull = pulls.any(axis=1) | (pfids >= 0).any(axis=1)
+    return {"embedding_gather": int(steps + has_pull.sum()
+                                    + 2 * has_flush.sum()),
+            "hot_onehot_gather": steps if pinned else 0,
+            "hot_onehot_push": steps * (2 if pinned else 1),
+            "rows_scatter_add": 0,
+            "steps_with_flush": int(has_flush.sum()),
+            "steps_with_pull": int(has_pull.sum())}
+
+
+def _check_launches(label: str, want: dict) -> dict:
+    got = {name: k.launches for name, k in KERNELS.items()}
+    if got != {k: want[k] for k in KERNELS}:
+        raise AssertionError(f"{label} launched {got}, expected {want}")
+    return got
+
+
+def _count_host_waits(fn):
+    """(count, sites) of the synchronizing CUDA calls PyTorch makes while
+    fn runs (its sync debug mode warns on each): the host's waits for the
+    card, and where up to five distinct ones came from."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the notice that the mode is a prototype is not a wait
+    waits = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
+    sites = sorted({f"{Path(w.filename).name}:{w.lineno}: "
+                    f"{str(w.message)[:100]}" for w in waits})
+    return len(waits), sites[:5]
+
+
+def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
+    """Device busy, host time and the top device items per step over n
+    chunks run(0..n-1), one profiler session (the chunks consume state, so
+    it is not retried: no device events gives "not measured", None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    steps = n * steps_per_chunk
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            run(i)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+    per = {e.key: e.self_device_time_total / 1e3 / steps
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    busy = sum(per.values()) if per else None
+    return {"steps": steps, "device_busy_ms": busy,
+            "host_ms_profiled": host,
+            "device_idle_share": None if busy is None else 1 - busy / host,
+            "top_device_ms": dict(sorted(per.items(),
+                                         key=lambda kv: -kv[1])[:8])}
+
+
+def _epochs_timed(run_epoch, epochs: int):
+    """Wall time of each epoch, each ended by a readback of its last loss
+    (bench.py:236-239)."""
+    times, losses = [], []
+    for e in range(epochs):
+        t0 = time.perf_counter()
+        stats = run_epoch(e)
+        losses.append(float(stats["loss"][-1]))
+        times.append(time.perf_counter() - t0)
+    return times, losses
+
+
+def _eval_after_sync(eng, state) -> dict:
+    dense, sparse, labels = synthetic_ctr_data(
+        DATASETS["criteo"], 32 * BATCH, seed=1, num_rows=FULL_ROWS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")     # synced: no unsynced warning
+        ev = eng.evaluate(state, dense, sparse, labels)
+    if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
+        raise AssertionError(f"evaluate gave {ev}")
+    return ev
+
+
+def phase_scheduled() -> dict:
+    """The scheduled engine at bench_scheduled's full width, two modes.
+    Tape: a plan tape recorded with plan_cache, every chunk of 32 staged
+    ahead in direct feed, epochs timed to a readback of their last loss.
+    Live: the planner in situ, stage_dataset (index feed), chunks of 64,
+    a queue of 256. Each mode runs SCHED_EPOCHS timed epochs (the counted
+    main path) and one more: tape mode profiles it, live mode drains the
+    stream with it. Then sync_cache and evaluate."""
+    cfg, eng, (dense, sparse, labels), probe_s = _sched_setup(0)
+    total = (SCHED_EPOCHS + 1) * SCHED_ITERS
+    counted = SCHED_EPOCHS * SCHED_ITERS
+    out = {"phase": "scheduled", "probe_s": probe_s,
+           "cache_rows": eng.cache_rows, "U_cap": eng.U_cap,
+           "F_cap": eng.F_cap, "P_cap": eng.P_cap,
+           "cache_gb": eng.cache_rows * 2 * eng.width * 4 / 1e9}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        # --- tape mode ---
+        t0 = time.perf_counter()
+        planner = plan_cache(eng, sparse, str(Path(tmp) / "tape"),
+                             epochs=SCHED_EPOCHS + 1)
+        out["tape_record_s"] = time.perf_counter() - t0
+        tape = {k: np.load(Path(tmp) / "tape" / f"{k}.npy", mmap_mode="r")
+                for k in ("fids", "pulls", "pfids")}
+        want = _expected_launches(tape, counted, pinned=False)
+        torch.cuda.reset_peak_memory_stats()
+        state = eng.init_cached_state(0)
+        t0 = time.perf_counter()
+        staged = eng.stage_program_chunks(planner, 32,
+                                          raw=(dense, sparse, labels))
+        torch.cuda.synchronize()
+        out["tape_stage_s"] = time.perf_counter() - t0
+        assert len(staged) == total // 32, len(staged)
+        per_epoch = SCHED_ITERS // 32
+        holder = [state]
+
+        def run_chunk(i):
+            holder[0], stats = eng.train_epoch_staged(holder[0], staged[i])
+            return stats
+
+        def tape_epoch(e):
+            pending = [run_chunk(e * per_epoch + c)
+                       for c in range(per_epoch)]
+            return {"loss": torch.cat([p["loss"] for p in pending]),
+                    "overflow": torch.cat([p["overflow"]
+                                           for p in pending])}
+
+        for k in KERNELS.values():
+            k.launches = 0
+        epochs_out = []
+        times, last = _epochs_timed(
+            lambda e: epochs_out.append(tape_epoch(e)) or epochs_out[-1],
+            SCHED_EPOCHS)
+        launches = _check_launches("the scheduled path (tape)", want)
+        overflow = int(sum(int(o["overflow"].sum()) for o in epochs_out))
+        losses = torch.cat([o["loss"] for o in epochs_out]).cpu()
+        if overflow or not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"tape run: overflow {overflow}, finite "
+                                 f"{bool(torch.isfinite(losses).all())}")
+        warm = times[2:] if eng.nopull_chunks else times[1:]
+        chunks_tape = {"full": SCHED_EPOCHS * per_epoch
+                       - eng.noflush_chunks,
+                       "flush_free": eng.noflush_chunks - eng.nopull_chunks,
+                       "pull_free": eng.nopull_chunks}
+        # one more epoch, profiled, with PyTorch's sync debug mode counting
+        # the host's waits for the card
+        base = SCHED_EPOCHS * per_epoch
+        waits, sites = _count_host_waits(lambda: [run_chunk(base + c)
+                                                  for c in range(2)])
+        profile = _profile_chunks(lambda i: run_chunk(base + 2 + i),
+                                  per_epoch - 2, 32)
+        profile["host_waits_per_step"] = waits / 64
+        profile["host_wait_sites"] = sites
+        state = eng.sync_cache(holder[0], planner)
+        del holder, staged, epochs_out
+        out.update({
+            "scheduled_examples_per_s": BATCH * SCHED_ITERS / min(warm),
+            "epoch_examples_per_s": [BATCH * SCHED_ITERS / t
+                                     for t in times],
+            "epoch_s": times, "step_ms": min(warm) / SCHED_ITERS * 1e3,
+            "chunks_tape": chunks_tape, "launches_tape": launches,
+            "expected_tape": want, "overflow": overflow,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "cache": cache_report(planner, total, eng.ids_per_worker),
+            "step_profile": profile,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "evaluate": _eval_after_sync(eng, state)})
+        planner.close()
+        del state
+        _free()
+
+        # --- live mode: the same stream, planned in situ ---
+        live_cfg = HeraldConfig(**{**cfg.__dict__, "sched_queue_size": 256})
+        eng_l = CachedEngine(live_cfg, table_rows=FULL_ROWS,
+                             device=DEVICE)
+        planner = eng_l.make_planner(sparse, epochs=SCHED_EPOCHS + 1)
+        state = eng_l.init_cached_state(0)
+        dev = eng_l.stage_dataset(dense, sparse, labels)
+        holder = [state]
+
+        def live_epoch(e):
+            outs = []
+            for _ in range(SCHED_ITERS // 64):
+                holder[0], stats = eng_l.train_epoch_cached(
+                    holder[0], planner, None, None, None, steps=64,
+                    device_data=dev)
+                outs.append(stats)
+            return {"loss": torch.cat([o["loss"] for o in outs]),
+                    "overflow": torch.cat([o["overflow"] for o in outs])}
+
+        for k in KERNELS.values():
+            k.launches = 0
+        ltimes, _ = _epochs_timed(live_epoch, SCHED_EPOCHS)
+        launches_l = _check_launches("the scheduled path (live)", want)
+        lwarm = ltimes[2:] if eng_l.nopull_chunks else ltimes[1:]
+        chunks_live = {"full": SCHED_EPOCHS * 4 - eng_l.noflush_chunks,
+                       "flush_free": eng_l.noflush_chunks
+                       - eng_l.nopull_chunks,
+                       "pull_free": eng_l.nopull_chunks}
+        lwaits, lsites = _count_host_waits(
+            lambda: live_epoch(SCHED_EPOCHS))
+        state = eng_l.sync_cache(holder[0], planner)
+        out.update({
+            "scheduled_live_examples_per_s":
+                BATCH * SCHED_ITERS / min(lwarm),
+            "live_epoch_examples_per_s": [BATCH * SCHED_ITERS / t
+                                          for t in ltimes],
+            "live_step_ms": min(lwarm) / SCHED_ITERS * 1e3,
+            "live_host_waits_per_step": lwaits / SCHED_ITERS,
+            "live_host_wait_sites": lsites,
+            "chunks_live": chunks_live, "launches_live": launches_l,
+            "live_cache": cache_report(planner, total, eng_l.ids_per_worker),
+            "live_evaluate": _eval_after_sync(eng_l, state)})
+        planner.close()
+        del state, holder, dev
+        _free()
+    emit(out)
+    return out
+
+
+def phase_scheduled_pinned() -> tuple:
+    """The same, tape mode only, with a pinned tier of 4,096 rows over
+    frequency-remapped ids. First 8 steps against the same CachedEngine on
+    the CPU from a copy of the state (plain versions of every kernel);
+    then the timed epochs, K4 once and K3 twice per step; then sync_cache,
+    after which the table's rows [0, 4096) equal the hot block."""
+    cfg, eng, (dense, sparse, labels), probe_s = _sched_setup(PINNED)
+    counted = SCHED_EPOCHS * SCHED_ITERS
+    C, W = eng.cache_rows, eng.width
+    out = {"phase": "scheduled:pinned", "probe_s": probe_s,
+           "pinned_rows": eng.pinned_rows, "U_cap": eng.U_cap,
+           "F_cap": eng.F_cap}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tape_dir = str(Path(tmp) / "tape")
+        planner = plan_cache(eng, sparse, tape_dir, epochs=SCHED_EPOCHS)
+        tape = {k: np.load(Path(tape_dir) / f"{k}.npy", mmap_mode="r")
+                for k in ("fids", "fslots", "pulls", "pfids", "pfslots",
+                          "slots", "uniq")}
+        want = _expected_launches(tape, counted, pinned=True)
+        state = eng.init_cached_state(0)
+
+        # --- 8 steps against the CPU engine, from one state ---
+        t0 = time.perf_counter()
+        cpu_eng = CachedEngine(cfg, table_rows=FULL_ROWS, device="cpu")
+        ref = _tree(lambda t: t.cpu(), state)
+        mine = _tree(lambda t: t.clone(), state)
+        mine, got = eng.train_epoch_cached(mine, ReplayPlanner(tape_dir),
+                                           dense, sparse, labels, steps=8)
+        ref, want_l = cpu_eng.train_epoch_cached(
+            ref, ReplayPlanner(tape_dir), dense, sparse, labels, steps=8)
+        loss_err = float((got["loss"].cpu() - want_l["loss"]).abs().max())
+        # rows the 8 steps wrote: cache slots of the batch keys, prefetch
+        # inserts and flushes; table rows of the flushes
+        sl, uq = np.asarray(tape["slots"][:8]), np.asarray(tape["uniq"][:8])
+        ps, pi = np.asarray(tape["pfslots"][:8]), np.asarray(
+            tape["pfids"][:8])
+        fs, fi = np.asarray(tape["fslots"][:8]), np.asarray(
+            tape["fids"][:8])
+        slots_w = np.unique(np.concatenate([
+            sl[(uq >= 0) & (sl < C)], ps[(pi >= 0) & (ps < C)],
+            fs[(fs >= 0) & (fs < C)]]))
+        rows_w = np.unique(fi[fi >= 0])
+        a = mine.cache[torch.as_tensor(slots_w, device=DEVICE)]
+        b = ref.cache[torch.as_tensor(slots_w)].to(DEVICE)
+        value_ok = torch.allclose(a[:, :W], b[:, :W], rtol=2 ** -7, atol=0)
+        dscale = float(b[:, W:].abs().max())
+        delta_err = float((a[:, W:] - b[:, W:]).abs().max())
+        hot_ok = torch.allclose(mine.hot_table.float(),
+                                ref.hot_table.to(DEVICE).float(), rtol=2 ** -7,
+                                atol=0)
+        hot_err = float((mine.hot_table.float()
+                         - ref.hot_table.to(DEVICE).float()).abs().max())
+        written = torch.zeros(C, dtype=torch.bool, device=DEVICE)
+        written[torch.as_tensor(slots_w, device=DEVICE)] = True
+        same = (mine.cache == ref.cache.to(DEVICE)).all(dim=1)
+        untouched_cache = bool(same[~written].all())
+        del same, written
+        ref_table = ref.table.to(DEVICE)
+        trows = torch.as_tensor(rows_w, device=DEVICE, dtype=torch.long)
+        table_ok = torch.allclose(mine.table[trows].float(),
+                                  ref_table[trows].float(), rtol=2 ** -7,
+                                  atol=0)
+        same = (mine.table == ref_table).all(dim=1)
+        same[trows] = True
+        untouched_table = bool(same.all())
+        del ref_table, same, trows, a, b
+        ok = (loss_err <= 1e-5 and value_ok and hot_ok and table_ok
+              and delta_err <= 1e-6 * dscale and untouched_cache
+              and untouched_table)
+        out["reference"] = {
+            "steps": 8, "engine": "CachedEngine(device='cpu')",
+            "loss_max_err": loss_err, "value_plane_within_bf16_ulp":
+            value_ok, "delta_plane_max_err": delta_err,
+            "delta_plane_bound": 1e-6 * dscale, "hot_block_within_bf16_ulp":
+            hot_ok, "hot_block_max_err": hot_err,
+            "flushed_table_rows": int(rows_w.size),
+            "written_cache_rows": int(slots_w.size),
+            "untouched_cache_identical": untouched_cache,
+            "untouched_table_identical": untouched_table,
+            "host_s": time.perf_counter() - t0}
+        del ref, mine, cpu_eng
+        _free()
+        if not ok:
+            raise AssertionError(f"the pinned run differs from the CPU "
+                                 f"reference: {out['reference']}")
+
+        # --- the timed run ---
+        torch.cuda.reset_peak_memory_stats()
+        staged = eng.stage_program_chunks(planner, 32,
+                                          raw=(dense, sparse, labels))
+        holder = [state]
+        per_epoch = SCHED_ITERS // 32
+        eng.noflush_chunks = eng.nopull_chunks = 0   # the 8 steps' chunk
+
+        def tape_epoch(e):
+            outs = []
+            for c in range(per_epoch):
+                holder[0], stats = eng.train_epoch_staged(
+                    holder[0], staged[e * per_epoch + c])
+                outs.append(stats)
+            return {"loss": torch.cat([o["loss"] for o in outs]),
+                    "overflow": torch.cat([o["overflow"] for o in outs])}
+
+        for k in KERNELS.values():
+            k.launches = 0
+        times, last = _epochs_timed(tape_epoch, SCHED_EPOCHS)
+        launches = _check_launches("the pinned scheduled path", want)
+        warm = times[2:] if eng.nopull_chunks else times[1:]
+        state = eng.sync_cache(holder[0], planner)
+        del holder, staged
+        if not torch.equal(state.table[:PINNED], state.hot_table):
+            raise AssertionError("after sync_cache the table's rows "
+                                 "[0, 4096) differ from the hot block")
+        # K4's shape on this path: the hot block and 64 steps' raw uniq
+        uniqs = [torch.as_tensor(np.array(tape["uniq"][i]), device=DEVICE)
+                 for i in range(64)]
+        hits = float(np.mean([int(((u >= 0) & (u < PINNED)).sum())
+                              for u in uniqs]))
+        out.update({
+            "pinned_examples_per_s": BATCH * SCHED_ITERS / min(warm),
+            "epoch_examples_per_s": [BATCH * SCHED_ITERS / t
+                                     for t in times],
+            "step_ms": min(warm) / SCHED_ITERS * 1e3,
+            "launches": launches, "expected": want,
+            "chunks": {"full": SCHED_EPOCHS * per_epoch
+                       - eng.noflush_chunks,
+                       "flush_free": eng.noflush_chunks - eng.nopull_chunks,
+                       "pull_free": eng.nopull_chunks},
+            "loss_last": last[-1], "hot_block_equals_table_rows": True,
+            "cache": cache_report(planner, counted, eng.ids_per_worker),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "evaluate": _eval_after_sync(eng, state),
+            "k4_mean_hot_ids": hits})
+        planner.close()
+        hot = state.hot_table.clone()
+        del state
+        _free()
+    emit(out)
+    return out, hot, uniqs, hits
+
+
+def _hot_gather_cases(hot, uniqs):
+    """(label, hot table, ids) cases on the card: the shape of
+    tests/test_pallas_kernels.py:49-59, negative ids, N = 0, D = 13 (no
+    16-byte vectors), f32 and bf16, and the pinned path's own shape."""
+    rng = np.random.default_rng(4)
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        for H, D, N in ((256, 128, 96), (300, 13, 500), (64, 128, 0),
+                        (4096, 128, 6656)):
+            table = torch.randn((H, D), generator=g, device=DEVICE).to(dt)
+            ids = np.where(rng.random(N) < 0.7, rng.integers(0, H, N),
+                           1_000_000)
+            neg = rng.random(N) < 0.1
+            ids[neg] = -rng.integers(1, 2 * H, int(neg.sum()))
+            for idt in (torch.int32, torch.int64):
+                yield (f"{str(dt)[6:]} H={H} D={D} N={N} {str(idt)[6:]}",
+                       table, torch.as_tensor(ids, dtype=idt,
+                                              device=DEVICE))
+    for i in (0, 63):
+        yield (f"pinned path bf16 [4096, 128], step {i} raw uniq "
+               f"(U_cap {uniqs[i].numel()})", hot, uniqs[i])
+
+
+def phase_kernel_hot_gather(hot, uniqs, hits) -> dict:
+    """K4 against its plain version, bit for bit, then timed at the pinned
+    path's shape: the [4096, 128] bf16 hot block read at each of 64
+    steps' raw uniq (U_cap wide, -1 padding, ids >= 4096)."""
+    cases = 0
+    for label, tab, ids in _hot_gather_cases(hot, uniqs):
+        got = hot_onehot_gather(tab, ids)
+        want = hot_onehot_gather_ref(tab, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"hot_onehot_gather differs from its plain "
+                                 f"version ({label})")
+        cases += 1
+    k = len(uniqs)
+    H = hot.shape[0]
+    n = uniqs[0].numel()
+    row = hot.shape[1] * hot.element_size()
+    # ids read once, every out row written once, the hot rows the in-range
+    # ids select read once (this run's mean hit count)
+    bytes_moved = n * uniqs[0].element_size() + n * row + hits * row
+    clamped = [u.clamp(0, H - 1) for u in uniqs]
+    cold = [((u < 0) | (u >= H)).unsqueeze(1) for u in uniqs]
+
+    def kern(i):
+        return hot_onehot_gather(hot, uniqs[i % k])
+
+    def plain(i):
+        return hot_onehot_gather_ref(hot, uniqs[i % k])
+
+    def library(i):
+        return torch.index_select(hot, 0, clamped[i % k]).masked_fill_(
+            cold[i % k], 0)
+
+    times = {what: cuda_ms(f, k) for what, f in
+             (("kernel", kern), ("plain", plain), ("library", library))}
+    prof = {what: device_profile(f, k) for what, f in
+            (("kernel", kern), ("plain", plain), ("library", library))}
+    out = {"name": "hot_onehot_gather", "cases": cases, "max_abs_err": 0.0,
+           "steps": k, "n": n, "mean_hot_ids": hits, "hot_rows": H,
+           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+           "library_ms": times["library"],
+           "kernel_device_ms": _own_ms(prof["kernel"][1], "hot_gather_rows"),
+           "plain_device_ms": prof["plain"][0],
+           "library_device_ms": prof["library"][0],
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
+           "library_note": "index_select on clamped ids + masked_fill_ "
+                           "(clamp and mask made outside the timing)"}
+    emit({"phase": "kernel:hot_onehot_gather", **out})
+    return out
+
+
+class _MirrorDump:
+    """The dirty (id, slot) pairs of a mid-stream cached state, from the
+    residency mirror its checkpoint's serve overlay carries: the slots
+    whose delta plane is not zero. Stands in for a drained planner's
+    `dirty_rows` so that `sync_cache` gives the synced state at that
+    step."""
+
+    def __init__(self, mirror, cache, width):
+        dirty = (cache[:, width:] != 0).any(dim=1).cpu().numpy()
+        slots = np.flatnonzero((mirror[0] >= 0) & dirty)
+        self.rows = (mirror[0][slots], slots.astype(np.int32))
+
+    def dirty_rows(self, worker):
+        return self.rows
+
+
+def phase_launch_scheduled() -> dict:
+    """The scheduled launcher, in subprocesses: a full-width run with a
+    plan tape, device data and a pinned tier; at 4,096 rows a run stopped
+    mid-stream with serve-view checkpoints, then resumed, whose final
+    table must equal the uninterrupted run's bit for bit; the mid-stream
+    checkpoint served by `python -m herald_tpu_torch.serve` against
+    Engine.predict on that state after sync_cache."""
+    launch = ["herald_tpu_torch.launch", "--scheduled", "--model",
+              "wdl_criteo", "--bf16-table"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        full = _report(_run(launch + [
+            "--batch-size", str(BATCH), "--embedding-size", str(EMB),
+            "--rows", str(FULL_ROWS), "--samples", "65536", "--scan-steps",
+            "32", "--nepoch", "2", "--plan-cache", str(tmp / "tape"),
+            "--device-data", "--pinned-rows", str(PINNED)], timeout=900))
+        full_s = time.perf_counter() - t0
+        spe = (65536 - int(65536 * 0.1)) // BATCH   # --val-ratio 0.1
+        if full["steps"] != 2 * spe or full["overflow_rows"] \
+                or not np.isfinite(full["train_loss_last"]) \
+                or full["val_auc"] is None \
+                or not full["examples_per_sec_steady"]:
+            raise AssertionError(f"full-width scheduled launch: {full}")
+        rows = 4096
+        small = launch + ["--rows", str(rows), "--samples", "8192",
+                          "--batch-size", "64", "--cache-limit-ratio", "0.5",
+                          "--scan-steps", "8", "--nepoch", "2", "--lr", "0.5",
+                          "--ckpt-serve-view"]
+        whole = _report(_run(small + ["--ckpt", str(tmp / "whole"),
+                                      "--save-config",
+                                      str(tmp / "cfg.json")]))
+        part = _report(_run(small + ["--ckpt", str(tmp / "part"),
+                                     "--ckpt-every", "16", "--max-steps",
+                                     "48"]))
+        rest = _report(_run(small + ["--resume", str(tmp / "part"),
+                                     "--ckpt", str(tmp / "rest")]))
+        if not part["stopped_early"] or part["steps"] != 48 \
+                or part["steps"] + rest["steps"] != whole["steps"]:
+            raise AssertionError(f"steps {part['steps']} + {rest['steps']} "
+                                 f"!= {whole['steps']}")
+        a = load_cached_checkpoint(str(tmp / "whole"), DEVICE)
+        b = load_cached_checkpoint(str(tmp / "rest"), DEVICE)
+        if int(a.step) != whole["steps"] or not all(
+                torch.equal(x, y) for x, y in
+                ((a.table, b.table), (a.cache, b.cache),
+                 (a.hot_table, b.hot_table))) or not all(
+                torch.equal(a.dense[k], b.dense[k]) for k in a.dense):
+            raise AssertionError("the resumed scheduled run's final state "
+                                 "differs from the uninterrupted run's")
+        del a, b
+        # the mid-stream checkpoint (step 48): served with its overlay,
+        # against predict on the same state after sync_cache
+        cfg = HeraldConfig.from_json((tmp / "cfg.json").read_text())
+        eng = CachedEngine(cfg, table_rows=rows, device=DEVICE)
+        mid = load_cached_checkpoint(str(tmp / "part"), DEVICE)
+        overlay = load_extra(str(tmp / "part"), "serve_overlay")
+        synced = eng.sync_cache(mid, _MirrorDump(overlay["mirror"],
+                                                 mid.cache, eng.width))
+        dense, sparse, _ = synthetic_ctr_data(eng.model.spec, BATCH, seed=3,
+                                              num_rows=rows)
+        want = eng.predict(synced, dense, sparse).cpu().numpy()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt",
+             str(tmp / "part"), "--config", str(tmp / "cfg.json"),
+             "--rows", str(rows), "--port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            seen = []
+            for line in proc.stdout:
+                seen.append(line)
+                m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)",
+                              line)
+                if m:
+                    break
+            else:
+                raise AssertionError("serve entry point did not start:\n"
+                                     + "".join(seen))
+            code, resp = _request(f"http://127.0.0.1:{m.group(1)}/score",
+                                  {"dense": dense.tolist(),
+                                   "sparse": sparse.tolist()})
+            assert code == 200, (code, resp)
+            served = np.asarray(resp["probs"], np.float32)
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+        serve_err = float(np.abs(served - want).max())
+        # the overlay widens rows and deltas to f32 before the update;
+        # the flush rounds the delta to bf16 first: a row can land one
+        # bf16 ulp apart, a score by ~1e-4
+        if serve_err > 1e-3:
+            raise AssertionError(f"served mid-stream scores differ from "
+                                 f"predict after sync_cache by {serve_err}")
+    out = {"phase": "launch:scheduled", "full_width": {
+        k: full[k] for k in ("steps", "train_loss_last", "val_auc",
+                             "val_acc", "examples_per_sec",
+                             "examples_per_sec_steady",
+                             "examples_per_sec_steady_segments",
+                             "noflush_chunks", "nopull_chunks", "device")},
+        "full_width_cache_miss_rate": full["cache"]["miss_rate"],
+        "full_width_command_s": full_s, "rows_small": rows,
+        "small_steps": whole["steps"], "resumed_at": part["steps"],
+        "resume_bit_exact": True, "served_midstream_max_err": serve_err,
+        "overlay_rows": int(len(overlay["rows"]))}
+    emit(out)
+    return out
+
+
+
+def _entry(name, route_src, replaces, by_path, k) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
             "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
-            "launches": launches, "launches_by_path": by_path,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
             "device_ms": k["kernel_device_ms"], "plain_ms": k["plain_ms"],
             "plain_device_ms": k["plain_device_ms"],
@@ -898,25 +1569,32 @@ def main() -> None:
     phase_checkpoint()
     train = phase_train(eng, state)
     del state, eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_train_adam()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_launch()
-    sl, tl = serve["launches"], train["launches"]
+    sched = phase_scheduled()
+    pinned, hot, uniqs, hits = phase_scheduled_pinned()
+    k4 = phase_kernel_hot_gather(hot, uniqs, hits)
+    del hot, uniqs
+    _free()
+    phase_launch_scheduled()
+    paths = {"serve": serve["launches"], "train": train["launches"],
+             "scheduled": sched["launches_tape"],
+             "scheduled:pinned": pinned["launches"]}
+
+    def by_path(name):
+        return {p: counts[name] for p, counts in paths.items()}
+
     emit({"kernels": [
         _entry("embedding_gather", "embedding_gather.cu", 104,
-               sl["embedding_gather"] + tl["embedding_gather"],
-               {"serve": sl["embedding_gather"],
-                "train": tl["embedding_gather"]}, k1),
+               by_path("embedding_gather"), k1),
         _entry("hot_onehot_push", "hot_onehot_push.cu", 274,
-               tl["hot_onehot_push"], {"serve": 0,
-                                       "train": tl["hot_onehot_push"]}, k3),
+               by_path("hot_onehot_push"), k3),
         _entry("rows_scatter_add", "rows_scatter_add.cu", 183,
-               tl["rows_scatter_add"], {"serve": 0,
-                                        "train": tl["rows_scatter_add"]},
-               k2)]})
+               by_path("rows_scatter_add"), k2),
+        _entry("hot_onehot_gather", "hot_onehot_gather.cu", 234,
+               by_path("hot_onehot_gather"), k4)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """Numpy <-> torch conversion of engine state.
 
-`state_from_numpy` turns the JAX package's parameters, as numpy arrays
-(e.g. `jax.tree.map(np.asarray, state)`), into the port's `TrainState`.
+`state_from_numpy` turns the JAX package's state, as numpy arrays
+(e.g. `jax.tree.map(np.asarray, state)`), into the port's `TrainState`,
+or its `CachedTrainState` when the leaves carry the cache arrays;
+`state_to_numpy` goes the other way, to a state of host arrays in the
+same NamedTuple type.
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -51,17 +54,38 @@ def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return a, a.dtype.name
 
 
-def state_from_numpy(leaves, device) -> TrainState:
-    """A TrainState-shaped object of numpy arrays (fields table,
-    table_slots, dense, dense_slots, step) -> the port's TrainState. The
-    trees keep JAX's shape: a slotless optimizer's dense slots stay
-    `{"W1": {}, ...}`."""
+def state_from_numpy(leaves, device):
+    """A TrainState- or CachedTrainState-shaped object of numpy arrays
+    (fields table, table_slots, dense, dense_slots, step, and for the
+    cached state cache, hot_table, hot_slots) -> the port's state of the
+    same kind. The trees keep JAX's shape: a slotless optimizer's dense
+    slots stay `{"W1": {}, ...}`."""
     def conv(a):
         return tensor_from_numpy(a, device=device)
-    return TrainState(
+    base = TrainState(
         table=conv(leaves.table),
         table_slots={k: conv(v) for k, v in leaves.table_slots.items()},
         dense={k: conv(v) for k, v in leaves.dense.items()},
         dense_slots={k: {s: conv(x) for s, x in v.items()}
                      for k, v in leaves.dense_slots.items()},
         step=conv(leaves.step))
+    if not hasattr(leaves, "cache"):
+        return base
+    from herald_tpu_torch.train.cached import CachedTrainState
+    return CachedTrainState(
+        *base, cache=conv(leaves.cache), hot_table=conv(leaves.hot_table),
+        hot_slots={k: conv(v) for k, v in leaves.hot_slots.items()})
+
+
+def state_to_numpy(state):
+    """The port's TrainState or CachedTrainState with every tensor as a
+    host array (bf16 as its `V2` bit patterns; `tensor_to_numpy`), in the
+    same NamedTuple type and trees."""
+    def conv(t):
+        return tensor_to_numpy(t)[0]
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return conv(x)
+    return type(state)(*(tree(f) for f in state))

@@ -143,6 +143,11 @@ class HeraldConfig:
                     "which the mp-sharded dense tower does not reduce; use "
                     "an elementwise dense optimizer with mp_shards > 1")
 
+    def cache_rows(self, table_rows: int) -> int:
+        if self.cache_limit is not None:
+            return int(self.cache_limit)
+        return max(1, int(table_rows * self.cache_limit_ratio))
+
     # ------------------------------------------------------------------
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

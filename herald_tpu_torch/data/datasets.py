@@ -173,3 +173,20 @@ def load_dataset(
             return dense, sparse, labels
     return synthetic_ctr_data(spec, num_samples, seed=seed,
                               num_rows=num_rows)
+
+
+def frequency_remap(sparse_ids: np.ndarray, num_rows: int):
+    """Permute the ID space so the most frequent IDs are [0, 1, 2, ...].
+
+    Returns (remapped_ids, perm) with perm[old_id] = new_id; unseen IDs
+    fill the tail in old order. Used by the pinned hot tier
+    (HeraldConfig.pinned_rows: rows [0, P) are the hot block). Apply the
+    same perm to ALL splits (train + eval) of a run.
+    """
+    ids, counts = np.unique(sparse_ids.reshape(-1), return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    perm = np.full(num_rows, -1, np.int64)
+    perm[ids[order]] = np.arange(len(ids), dtype=np.int64)
+    unseen = np.flatnonzero(perm < 0)
+    perm[unseen] = np.arange(len(ids), num_rows, dtype=np.int64)
+    return perm[sparse_ids], perm

@@ -2,16 +2,29 @@
 
     python -m herald_tpu_torch.launch --model wdl_criteo --bf16-table \
         --nepoch 1 --batch-size 256 --embedding-size 128 [--device cuda|cpu]
+    python -m herald_tpu_torch.launch --scheduled [--pinned-rows P \
+        --plan-cache DIR --device-data --autosize] [--device cuda|cpu]
 
-The flags are herald_tpu.launch's, plus `--device`. The port runs the plain
-local trainer (the launcher's default branch, `cli.py:1126-1238`): init or
-`--resume`, chunks of `--scan-steps` steps through `Engine.train_epoch`,
-checkpoints at `--ckpt-every` crossings and at the end, `--max-steps`,
-a validation pass per finished epoch and at the end, and the same report.
-It always stages each chunk from the host in one copy, whatever
-`--no-prefetch` says (the async prefetcher is a later item). The other
-modes and options raise NotImplementedError naming their ROADMAP item;
-none is ignored.
+The flags are herald_tpu.launch's, plus `--device`. Two of its branches
+are ported:
+- the plain local trainer (`cli.py:1126-1238`): init or `--resume`,
+  chunks of `--scan-steps` steps through `Engine.train_epoch`, checkpoints
+  at `--ckpt-every` crossings and at the end, `--max-steps`, a validation
+  pass per finished epoch and at the end, and the same report. It stages
+  each chunk from the host in one copy, whatever `--no-prefetch` says (the
+  async prefetcher is a later item);
+- the scheduled branch (`cli.py:736-1069`): the lookahead planner (live,
+  or a plan tape with `--plan-cache`) drives `CachedEngine` chunk by chunk,
+  with `--pinned-rows` over frequency-remapped ids, `--device-data`,
+  `--autosize` (and `--autosize-flush-budget`, with a wide engine for the
+  cold steps), `--ckpt-serve-view`, `--resume` through `fast_forward`, an
+  approximate per-epoch eval, the exact final eval after `sync_cache`, and
+  the steady-state clock. The async `_Prestager` is not ported: every
+  `--prestage` value runs the per-chunk path, and the report says so.
+  Unlike `cli.py:993`, a `--max-steps` stop on an epoch boundary keeps
+  that epoch's (approximate) eval.
+The other modes and options raise NotImplementedError naming their
+ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -278,7 +291,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of herald_tpu.launch the port does not run yet, each with the
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
-    ("scheduled", "--scheduled", "item 3 (scheduled engine, slice 3)"),
     ("assign_only", "--assign-only", "item 8 (scheduled engine, "
      "multi-rank: train_epoch_assigned)"),
     ("fae", "--fae", "item 11 (FAE engine)"),
@@ -287,7 +299,9 @@ _NOT_PORTED = (
      "checkpoints)"),
     ("preprocess_raw", "--preprocess-raw", "item 10 (launcher and input "
      "feed: data/preprocess.py)"),
-    ("int8_flush", "--int8-flush", "item 3 (scheduled engine: the int8 "
+    # the flush wire exists only across devices (JAX: num_shards > 1);
+    # a flush_wire_dtype in a config is accepted and, as in JAX, unused
+    ("int8_flush", "--int8-flush", "item 7 (hybrid exchange: the int8 "
      "flush wire)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
      "--device"),
@@ -308,10 +322,6 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             f"--comm {cfg.comm_mode} is not ported to herald_tpu_torch yet "
             f"(ROADMAP queue 1, item 7: hybrid exchange)")
-    if cfg.use_scheduler or cfg.use_cache:
-        raise NotImplementedError(
-            "a config with use_scheduler/use_cache is not ported to "
-            "herald_tpu_torch yet (ROADMAP queue 1, item 3)")
 
 
 def resolve_config(args) -> "HeraldConfig":
@@ -413,12 +423,12 @@ def _dump_logs(args, report, losses) -> None:
         json.dump(report, f, indent=2, default=float)
 
 
-def _start_trace(eng):
+def _start_trace(device):
     """A torch.profiler session over the training loop (the JAX
     launcher's jax.profiler trace)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
-    if eng.device.type == "cuda":
+    if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
@@ -427,7 +437,7 @@ def _start_trace(eng):
 
 def _check_resumed(eng, state, path) -> None:
     """A checkpoint must fit the engine it resumes: table shape and dtype,
-    and the optimizers' slots."""
+    the optimizers' slots, and for a cached run the cache and hot block."""
     want = (eng.padded_rows, eng.width)
     if tuple(state.table.shape) != want \
             or state.table.dtype != eng.cfg.table_dtype:
@@ -445,10 +455,258 @@ def _check_resumed(eng, state, path) -> None:
             f"--resume {path}: the checkpoint's optimizer slots "
             f"{sorted(state.table_slots)} do not match --embed-opt "
             f"{eng.embed_opt.name} / --opt {eng.dense_opt.name}")
+    if hasattr(state, "cache"):
+        got = (tuple(state.cache.shape), tuple(state.hot_table.shape))
+        need = ((eng.cache_rows, 2 * eng.width),
+                (max(eng.pinned_rows, 1), eng.width))
+        if got != need:
+            raise ValueError(
+                f"--resume {path}: cache {got[0]} and hot block {got[1]} "
+                f"do not fit the run's {need[0]} and {need[1]}; pass the "
+                f"training run's cache and --pinned-rows settings")
+
+
+class _ChunkStats:
+    """Per-chunk stats read back at boundaries only (the JAX launcher's
+    `_ChunkStats` with its default depth): the losses of the chunks in
+    flight stay on the device until an epoch, checkpoint or the end needs
+    them, so the loop itself never waits for the card."""
+
+    def __init__(self):
+        self.pending = []
+        self.losses = []
+        self.overflow = 0
+
+    def push(self, stats) -> None:
+        self.pending.append(stats)
+
+    def drain(self) -> None:
+        if not self.pending:
+            return
+        loss = torch.cat([st["loss"].reshape(-1) for st in self.pending])
+        over = torch.stack([st["overflow"].sum() for st in self.pending])
+        self.pending = []
+        self.losses.extend(loss.cpu().tolist())
+        self.overflow += int(over.sum())
+
+    def finish(self):
+        self.drain()
+        return self.losses, self.overflow
+
+
+def _fail_on_overflow(total: int) -> None:
+    """The JAX launcher's abort on dropped exchange rows. One device has
+    no exchange, so the count stays 0; the check stays beside every
+    checkpoint as in JAX."""
+    if total > 0:
+        raise RuntimeError(
+            f"exchange overflow: {total} embedding rows were dropped this "
+            f"run; results up to now trained on zero-filled rows")
+
+
+def _autosize(cfg, rows, trn, args, device):
+    """`--autosize`: size the program widths, capacities and pull target
+    from a host-only probe plan, as the JAX launcher does
+    (`cli.py:739-808`). Returns the wide engine for the cold steps and
+    their count."""
+    from herald_tpu_torch.config import HeraldConfig
+    from herald_tpu_torch.sched.sizing import (TrafficProfile,
+                                               hoist_target_candidates,
+                                               profile_planned_traffic,
+                                               sweep_flush_budget,
+                                               sweep_hoist_sizing)
+    from herald_tpu_torch.train.cached import CachedEngine
+    probe_eng = CachedEngine(cfg, table_rows=rows, device=device)
+    # with per-epoch reshuffling later epochs batch differently: probe
+    # several permutations so the caps cover them
+    probe_epochs = min(args.nepoch, 3) if cfg.sched_shuffle_seed else 1
+    probe = probe_eng.make_planner(trn[1], epochs=probe_epochs,
+                                   n_threads=cfg.sched_threads)
+    steps_prof, _ = profile_planned_traffic(probe, trn[1], 1)
+    probe.close()
+    W = min(args.autosize_warmup, len(steps_prof) // 2)
+    steady = TrafficProfile.from_steps(steps_prof[W:])
+    full = TrafficProfile.from_steps(steps_prof)
+    target, steady_h = sweep_hoist_sizing(
+        cfg, rows, trn[1], 1, W, hoist_target_candidates(steady, 1, 1),
+        epochs=probe_epochs, n_threads=cfg.sched_threads)
+    budget = 0
+    if args.autosize_flush_budget:
+        hoist_cfg = HeraldConfig(**{**cfg.__dict__,
+                                    "sched_pull_target": int(target)})
+        budget, steady_h = sweep_flush_budget(
+            hoist_cfg, rows, trn[1], 1, W, steady_h, epochs=probe_epochs,
+            n_threads=cfg.sched_threads)
+        budget = budget or 0
+    cfg.sched_unique_slots = int(full.unique_slots())
+    cfg.sched_flush_slots = int(full.flush_slots())
+    cfg.sched_pull_target = int(target)
+    cfg.a2a_pull_capacity = int(steady_h.pull_capacity())
+    cfg.a2a_flush_capacity = int(steady_h.flush_capacity())
+    cfg.sched_flush_budget = int(budget) or None
+    # the cold steps run on the wide-capacity engine (empty caches pull
+    # everything); the same program widths, so the planner's padded
+    # buffers fit both engines
+    cold_cfg = HeraldConfig(**{**cfg.__dict__, "a2a_pull_capacity": None,
+                               "a2a_flush_capacity": None})
+    return CachedEngine(cold_cfg, table_rows=rows, device=device), W
+
+
+def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
+                     ckpt_extras, timer):
+    """The scheduled branch of the JAX launcher (`cli.py:736-1069`) on one
+    device. Returns (engine, state, losses, overflow, stopped_early,
+    report extras)."""
+    from herald_tpu_torch.train.cached import CachedEngine
+    from herald_tpu_torch.train.checkpoint import (load_cached_checkpoint,
+                                                   load_extra)
+    from herald_tpu_torch.utils.profiler import cache_report
+
+    if args.prestage:
+        print(json.dumps({
+            "prestage": "not ported (ROADMAP item 10)",
+            "note": "every chunk is staged when it runs, in one copy from "
+                    "pinned host memory"}), flush=True)
+    eng_cold, warm_steps = None, 0
+    if args.autosize:
+        eng_cold, warm_steps = _autosize(cfg, rows, trn, args, device)
+    eng = CachedEngine(cfg, table_rows=rows, device=device)
+    if args.plan_cache:
+        from herald_tpu_torch.sched.replay import plan_cache
+        planner = plan_cache(eng, trn[1], args.plan_cache,
+                             epochs=args.nepoch, n_threads=cfg.sched_threads)
+    else:
+        planner = eng.make_planner(trn[1], epochs=args.nepoch,
+                                   n_threads=cfg.sched_threads)
+    steps_total = planner.batch_num * args.nepoch
+    done = 0
+    if args.resume:
+        # continue from the saved position: the checkpoint holds the cache
+        # arrays mid-stream, and the deterministic planner fast-forwards
+        # to the same batch
+        state = load_cached_checkpoint(args.resume, eng.device)
+        _check_resumed(eng, state, args.resume)
+        done = int(state.step)
+        skipped = planner.fast_forward(done)
+        assert skipped == done, (skipped, done)
+    else:
+        state = eng.init_cached_state(cfg.seed)
+    if args.ckpt_serve_view:
+        mirror = None
+        if args.resume:
+            ov = load_extra(args.resume, "serve_overlay")
+            if ov is None:
+                raise ValueError(
+                    "--ckpt-serve-view --resume needs a checkpoint that was "
+                    "itself written with --ckpt-serve-view (the residency "
+                    "mirror rides the overlay)")
+            mirror = ov["mirror"]
+        eng.enable_residency_tracking(mirror)
+        if eng_cold is not None:
+            eng_cold._slot2id = eng._slot2id     # one mirror for both
+        ckpt_extras[0] = lambda st: {"serve_overlay": eng.serve_overlay(st)}
+    target = min(steps_total, args.max_steps) if args.max_steps \
+        else steps_total
+    dev_data = eng.stage_dataset(*trn) if args.device_data else None
+    cs = _ChunkStats()
+    spe = planner.batch_num
+    start_done = done
+    final_eval_losses = None
+    # steady clock: past the first chunks (CUDA and kernel start-up), at a
+    # drained boundary, up to the final drain; eval and checkpoint time
+    # are cut out of it (JAX: cli.py:877-903)
+    warm_chunks = int(os.environ.get("HERALD_STEADY_WARM_CHUNKS", 4))
+    steady = {"t0": None, "done0": 0, "chunks": 0, "elapsed": 0.0,
+              "steps": 0, "segments": []}
+
+    def steady_close():
+        if steady["t0"] is not None:
+            dt = time.perf_counter() - steady["t0"]
+            ds = done - steady["done0"]
+            steady["elapsed"] += dt
+            steady["steps"] += ds
+            if ds:
+                steady["segments"].append((ds, dt))
+            steady["t0"] = None
+
+    def steady_open():
+        steady["t0"] = time.perf_counter()
+        steady["done0"] = done
+
+    while done < target:
+        run_eng = eng_cold if (eng_cold is not None
+                               and done < warm_steps) else eng
+        # chunks stop at epoch boundaries, so each eval sees one epoch
+        k = min(args.scan_steps, target - done,
+                spe - done % spe if done % spe else spe)
+        if run_eng is eng_cold:
+            k = min(k, warm_steps - done)
+        with timer:
+            state, stats = run_eng.train_epoch_cached(
+                state, planner, *trn, steps=k, device_data=dev_data)
+        if stats is None:
+            break
+        cs.push(stats)
+        done += int(stats["loss"].shape[0])     # the executed count
+        steady["chunks"] += 1
+        if steady["chunks"] == warm_chunks and done < target:
+            cs.drain()
+            steady_open()
+        if maybe_ckpt(state, done, pre=lambda: (cs.drain(), steady_close(),
+                                                _fail_on_overflow(
+                                                    cs.overflow))) \
+                and done < target and steady["chunks"] >= warm_chunks:
+            steady_open()
+        if done % spe == 0 and done > start_done:
+            cs.drain()
+            steady_close()
+            losses_ep = cs.losses[-(done - max(start_done, done - spe)):]
+            if done >= steps_total:
+                # the last epoch of the stream: its eval waits for
+                # sync_cache, so it is exact
+                final_eval_losses = losses_ep
+                continue
+            eval_epoch(eng, state, done // spe - 1, losses_ep, approx=True)
+            if steady["chunks"] >= warm_chunks:
+                steady_open()
+    losses, overflow_total = cs.finish()
+    steady_close()
+    _fail_on_overflow(overflow_total)
+    stopped_early = done < steps_total
+    if not stopped_early:
+        # an early stop leaves the stream undrained: the unflushed deltas
+        # live in the checkpoint and --resume continues them
+        state = (eng_cold or eng).sync_cache(state, planner)
+        eng._unsynced = False
+        if final_eval_losses is not None:
+            eval_epoch(eng, state, done // spe - 1, final_eval_losses)
+    gb = cfg.batch_size
+    extra = {
+        "cache": cache_report(planner, done, eng.ids_per_worker),
+        # train-loop-only throughput, evals and start-up excluded
+        "examples_per_sec_steady": (steady["steps"] * gb / steady["elapsed"]
+                                    if steady["steps"] else None),
+        "examples_per_sec_steady_segments": [
+            round(ds * gb / max(dt, 1e-6), 1)
+            for ds, dt in steady["segments"]],
+        "timing_steps_per_call": args.scan_steps,
+        "chunk_memo_hits": eng.memo_hits + (eng_cold.memo_hits
+                                            if eng_cold is not None else 0),
+        "chunk_memo_active": False,
+        "noflush_chunks": eng.noflush_chunks + (
+            eng_cold.noflush_chunks if eng_cold is not None else 0),
+        "nopull_chunks": eng.nopull_chunks + (
+            eng_cold.nopull_chunks if eng_cold is not None else 0),
+        "prestage": "not ported (ROADMAP item 10)",
+    }
+    return eng, state, losses, overflow_total, stopped_early, extra
 
 
 def run_training(args) -> dict:
-    from herald_tpu_torch.data import dataset_for_model, load_dataset
+    import warnings
+
+    from herald_tpu_torch.data import (dataset_for_model, frequency_remap,
+                                       load_dataset)
     from herald_tpu_torch.models import get_model
     from herald_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
@@ -458,7 +716,7 @@ def run_training(args) -> dict:
     cfg = resolve_config(args)
     _refuse_unported(args, cfg)
     device = resolve_device(args.device)   # no card: raise before any work
-    if args.ckpt_serve_view:
+    if args.ckpt_serve_view and not args.scheduled:
         raise ValueError("--ckpt-serve-view only applies to --scheduled "
                          "runs (plain checkpoints already serve exactly)")
     if args.save_config:
@@ -474,6 +732,9 @@ def run_training(args) -> dict:
                                          num_samples=args.samples,
                                          seed=cfg.seed, num_rows=args.rows)
     rows = args.rows or int(sparse.max()) + 1
+    if cfg.pinned_rows:
+        # hottest ids -> [0, pinned_rows): the pinned tier's id contract
+        sparse, _ = frequency_remap(sparse, rows)
     n_val = int(len(sparse) * args.val_ratio)
     val = (dense[-n_val:], sparse[-n_val:], labels[-n_val:])
     trn = (dense[:-n_val], sparse[:-n_val], labels[:-n_val])
@@ -482,82 +743,111 @@ def run_training(args) -> dict:
     # printed as it lands and collected into report["epochs"]
     epoch_records = []
 
-    def eval_epoch(eng, state, ep, epoch_losses):
-        r = eng.evaluate(state, *val)
+    def eval_epoch(eng, state, ep, epoch_losses, approx=False):
+        with warnings.catch_warnings():
+            if approx:
+                # scheduled mode mid-stream: the table lacks the unflushed
+                # cache deltas; the record says so instead of a warning
+                warnings.simplefilter("ignore", UserWarning)
+            r = eng.evaluate(state, *val)
         rec = {"epoch": ep,
                "train_loss": (float(np.mean(epoch_losses))
                               if len(epoch_losses) else None),
                "val_auc": r["auc"], "val_acc": r["acc"]}
+        if approx:
+            rec["val_approx_unsynced_cache"] = True
         epoch_records.append(rec)
         print(json.dumps({"epoch_eval": rec}), flush=True)
 
-    eng = Engine(cfg, model=model, table_rows=rows, device=device)
     timer = StepTimer()
     t_start = time.perf_counter()
-    prof = _start_trace(eng) if args.log_dir else None
-
     last_ckpt = [0]
+    ckpt_extras = [None]   # the scheduled branch installs the serve view
 
-    def maybe_ckpt(state, done):
+    def maybe_ckpt(state, done, pre=None):
         # fire on CROSSING a multiple of ckpt_every: `done` advances in
         # chunk strides, so an exact-modulus test could miss a boundary
+        fired = False
         if args.ckpt and args.ckpt_every \
                 and done // args.ckpt_every > last_ckpt[0] // args.ckpt_every:
-            save_checkpoint(state, args.ckpt)
+            if pre is not None:
+                pre()
+            save_checkpoint(
+                state, args.ckpt,
+                extras=ckpt_extras[0](state) if ckpt_extras[0] else None)
             last_ckpt[0] = done
+            fired = True
         if args.crash_after and not args.resume \
                 and done >= args.crash_after:
             print(json.dumps({"crashed_at": done}), flush=True)
             os._exit(17)
+        return fired
 
     gb = cfg.batch_size
-    steps_per_epoch = len(trn[1]) // gb
-    start_step = 0
-    if args.resume:
-        state = load_checkpoint(args.resume, eng.device,
-                                padded_rows=eng.padded_rows)
-        _check_resumed(eng, state, args.resume)
-        start_step = int(state.step)   # skip already-trained batches
+    prof = None
+    if args.scheduled:
+        if args.log_dir:
+            prof = _start_trace(device)
+        eng, state, losses, overflow_total, stopped_early, extra = \
+            _train_scheduled(args, cfg, rows, trn, device, eval_epoch,
+                             maybe_ckpt, ckpt_extras, timer)
     else:
-        state = eng.init_state(cfg.seed)
-    losses = []
-    overflow_total = 0
-    total_target = args.nepoch * steps_per_epoch
-    if args.max_steps:
-        total_target = min(total_target, args.max_steps)
-    for ep in range(args.nepoch):
-        done = max(0, min(start_step - ep * steps_per_epoch,
-                          steps_per_epoch))
-        trained = 0
-        while done < steps_per_epoch \
-                and ep * steps_per_epoch + done < total_target:
-            k = min(args.scan_steps, steps_per_epoch - done,
-                    total_target - ep * steps_per_epoch - done)
-            lo = done * gb
-            with timer:
-                state, stats = eng.train_epoch(
-                    state, trn[0][lo:], trn[1][lo:], trn[2][lo:], steps=k)
-            losses.extend(stats["loss"].cpu().tolist())
-            overflow_total += int(stats["overflow"].sum())
-            done += k
-            trained += k
-            maybe_ckpt(state, ep * steps_per_epoch + done)
-        if done >= steps_per_epoch and trained:
-            eval_epoch(eng, state, ep, losses[-trained:])
-    stopped_early = total_target < args.nepoch * steps_per_epoch
+        eng = Engine(cfg, model=model, table_rows=rows, device=device)
+        prof = _start_trace(device) if args.log_dir else None
+        steps_per_epoch = len(trn[1]) // gb
+        start_step = 0
+        if args.resume:
+            state = load_checkpoint(args.resume, eng.device,
+                                    padded_rows=eng.padded_rows)
+            _check_resumed(eng, state, args.resume)
+            start_step = int(state.step)   # skip already-trained batches
+        else:
+            state = eng.init_state(cfg.seed)
+        losses = []
+        overflow_total = 0
+        total_target = args.nepoch * steps_per_epoch
+        if args.max_steps:
+            total_target = min(total_target, args.max_steps)
+        for ep in range(args.nepoch):
+            done = max(0, min(start_step - ep * steps_per_epoch,
+                              steps_per_epoch))
+            trained = 0
+            while done < steps_per_epoch \
+                    and ep * steps_per_epoch + done < total_target:
+                k = min(args.scan_steps, steps_per_epoch - done,
+                        total_target - ep * steps_per_epoch - done)
+                lo = done * gb
+                with timer:
+                    state, stats = eng.train_epoch(
+                        state, trn[0][lo:], trn[1][lo:], trn[2][lo:],
+                        steps=k)
+                losses.extend(stats["loss"].cpu().tolist())
+                overflow_total += int(stats["overflow"].sum())
+                done += k
+                trained += k
+                maybe_ckpt(state, ep * steps_per_epoch + done)
+            if done >= steps_per_epoch and trained:
+                eval_epoch(eng, state, ep, losses[-trained:])
+        stopped_early = total_target < args.nepoch * steps_per_epoch
+        extra = {}
 
     train_time = time.perf_counter() - t_start
     if prof is not None:
         prof.stop()
         os.makedirs(args.log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.log_dir, "trace.json"))
-    res = eng.evaluate(state, *val)
+    # an early-stopped scheduled run holds unflushed deltas (resumable
+    # state, not an evaluable one): it skips the final eval, as in JAX
+    res = {"auc": None, "acc": None} if (args.scheduled and stopped_early) \
+        else eng.evaluate(state, *val)
     if args.ckpt:
-        save_checkpoint(state, args.ckpt)
+        save_checkpoint(
+            state, args.ckpt,
+            extras=ckpt_extras[0](state) if ckpt_extras[0] else None)
 
     report = {
         "model": cfg.model,
-        "mode": "baseline",
+        "mode": "scheduled" if args.scheduled else "baseline",
         "comm": cfg.comm_mode,
         "devices": 1,
         "device": str(eng.device),
@@ -570,6 +860,7 @@ def run_training(args) -> dict:
         "examples_per_sec": len(losses) * gb / max(train_time, 1e-9),
         "epochs": epoch_records,
         "timing": timer.report(),
+        **extra,
     }
     _dump_logs(args, report, losses)
     return report

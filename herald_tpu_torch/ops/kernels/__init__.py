@@ -6,6 +6,10 @@ from herald_tpu_torch.ops.kernels.gather import (
     embedding_gather,
     embedding_gather_ref,
 )
+from herald_tpu_torch.ops.kernels.hot_gather import (
+    hot_onehot_gather,
+    hot_onehot_gather_ref,
+)
 from herald_tpu_torch.ops.kernels.scatter import (
     rows_scatter_add,
     rows_scatter_add_ref,
@@ -17,5 +21,6 @@ from herald_tpu_torch.ops.kernels.segment import (
 
 # every wrapper with a launch counter, for callers that reset and read them
 KERNELS = {"embedding_gather": embedding_gather,
+           "hot_onehot_gather": hot_onehot_gather,
            "hot_onehot_push": hot_onehot_push,
            "rows_scatter_add": rows_scatter_add}

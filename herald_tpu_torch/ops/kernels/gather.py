@@ -17,7 +17,7 @@ import torch
 
 from herald_tpu_torch.ops.kernels import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor
@@ -39,27 +39,32 @@ def _launcher():
     return fn
 
 
+def check_gather_args(name: str, table: torch.Tensor,
+                      ids: torch.Tensor) -> None:
+    """Raise unless table [R, D] f32/bf16 and ids [N] int32/int64 lie,
+    contiguous, on one card: what the row-gather kernels (K1, K4) take."""
+    if not table.is_cuda or ids.device != table.device:
+        raise ValueError(f"{name}: table on {table.device} and ids on "
+                         f"{ids.device}; both must be on one card")
+    if table.dim() != 2 or ids.dim() != 1:
+        raise ValueError(f"{name}: table must be [R, D] and ids [N], got "
+                         f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if table.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: table dtype {table.dtype} not in "
+                         f"{list(DTYPE_CODES)}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: ids dtype {ids.dtype} is not int32 or "
+                         f"int64")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f"{name}: table and ids must be contiguous")
+
+
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table [R, D] f32/bf16, ids [N] int32/int64 -> [N, D] in the table
     dtype. On the card this launches the CUDA kernel or raises."""
     if table.device.type == "cpu" and ids.device.type == "cpu":
         return embedding_gather_ref(table, ids)
-    if not table.is_cuda or ids.device != table.device:
-        raise ValueError(f"embedding_gather: table on {table.device} and "
-                         f"ids on {ids.device}; both must be on one card")
-    if table.dim() != 2 or ids.dim() != 1:
-        raise ValueError(f"embedding_gather: table must be [R, D] and ids "
-                         f"[N], got {tuple(table.shape)} and "
-                         f"{tuple(ids.shape)}")
-    if table.dtype not in _DTYPE_CODES:
-        raise ValueError(f"embedding_gather: table dtype {table.dtype} not "
-                         f"in {list(_DTYPE_CODES)}")
-    if ids.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"embedding_gather: ids dtype {ids.dtype} is not "
-                         f"int32 or int64")
-    if not (table.is_contiguous() and ids.is_contiguous()):
-        raise ValueError("embedding_gather: table and ids must be "
-                         "contiguous")
+    check_gather_args("embedding_gather", table, ids)
     R, D = table.shape
     N = ids.shape[0]
     out = torch.empty((N, D), dtype=table.dtype, device=table.device)
@@ -69,7 +74,7 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), R, D, N,
-                _DTYPE_CODES[table.dtype], int(ids.dtype == torch.int64),
+                DTYPE_CODES[table.dtype], int(ids.dtype == torch.int64),
                 stream)
     if rc != 0:
         raise RuntimeError(f"embedding_gather: kernel launch failed with "

@@ -16,8 +16,10 @@ import torch
 
 
 def fixed(lr: float) -> Callable:
-    return lambda step: torch.tensor(lr, dtype=torch.float32,
-                                     device=step.device)
+    # a fill on the device: `torch.tensor(lr, device=...)` would copy from
+    # the host and wait for the card once per call
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
 
 
 def step_decay(lr: float, step_size: int, gamma: float = 0.1,

@@ -1,0 +1,659 @@
+"""Cached training engine: hot-row cache + planned flush/refresh (port of
+`herald_tpu/train/cached.py`, one device).
+
+State adds two arrays to the base engine:
+
+    cache [C, 2W] f32: columns [0,W) = cached row values (locally updated,
+    quantized through table_dtype), columns [W,2W) = accumulated unflushed
+    gradient deltas
+
+and the pinned hot tier (`hot_table` [P, W] in the table dtype, its f32
+optimizer slots). Each step executes the planner's micro-program
+(`herald_tpu_torch/sched/planner.py`) in JAX's phase order:
+
+    1. FLUSH   apply dirty deltas to the owner table with the embedding
+               optimizer, zero the flushed deltas
+    2. PULL    read missed/stale rows, plus prefetches hoisted from later
+               batches, from the *updated* table
+    3. INSERT  write prefetched rows into their cache slots
+    4. FORWARD dense tower on pulled-or-resident rows (plus the pinned
+               tier's rows)
+    5. UPDATE  one cache write per batch key: forward value - lr*grad,
+               plus delta accumulation; the pinned tier takes exact SGD
+
+Kernels on the step: K1 (`embedding_gather`) reads the pull from the
+table, the [U_cap, 2W] cache-slot rows and the flush's cache and table
+rows; K3 (`hot_onehot_push`) sums the per-key gradients and, with a pinned
+tier, the hot block's delta; K4 (`hot_onehot_gather`) reads the pinned
+tier. Every other write is a scatter-*set* (XLA's `.at[].set(mode="drop")`
+in JAX, outside any Pallas kernel), here `index_copy_`.
+
+No host wait inside a step. Every sentinel of a program (slot C for
+padding and pinned keys, id -1 for empty flush and prefetch entries) is
+known on the host in the popped arrays, so staging a chunk computes, per
+step and per write, the kept positions and their targets, and each write
+is a plain `index_copy_`; reads of sentinel positions return zero rows
+through K1's and K4's bounds checks. The state keeps JAX's shapes, so
+checkpoints interchange.
+
+A chunk ships to the card in one copy from pinned host memory
+(`_stage_chunk`). The flush-free and pull-free variants: a step skips a
+phase its program does not have (`sched_noflush_variant` /
+`sched_nopull_variant`; with a flag off the phase runs on its sentinels,
+a no-op, exactly as in JAX), and `noflush_chunks` / `nopull_chunks` count
+chunks with JAX's per-chunk meaning. Not ported: the packed wire and the
+chunk memo (`sched_packed_wire`, `sched_chunk_memo`, fixes for the TPU's
+remote transport; both flags are accepted, `memo_hits` stays 0),
+`example_step_args` (HLO inspection), and multi-rank planning (ROADMAP
+queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from herald_tpu_torch.config import HeraldConfig
+from herald_tpu_torch.models.base import ModelDef
+from herald_tpu_torch.ops.kernels import (embedding_gather, hot_onehot_gather,
+                                          hot_onehot_push)
+from herald_tpu_torch.sched.planner import CachePlanner
+from herald_tpu_torch.train.engine import Engine, TrainState, make_exchange
+
+
+class CachedTrainState(NamedTuple):
+    """JAX's `CachedTrainState`: the same fields, in the same order."""
+    table: torch.Tensor
+    table_slots: Dict[str, torch.Tensor]
+    dense: Dict[str, torch.Tensor]
+    dense_slots: Dict[str, Dict[str, torch.Tensor]]
+    step: torch.Tensor
+    cache: torch.Tensor                  # [C, 2W] f32: values | deltas
+    hot_table: torch.Tensor              # [P, W] table dtype ([1, W] if off)
+    hot_slots: Dict[str, torch.Tensor]   # each [max(P, 1), W] f32
+
+
+_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+          np.dtype(np.float32): torch.float32}
+
+
+class StagedChunk(NamedTuple):
+    """One chunk of programs on the device (`_stage_chunk`).
+
+    `variant` is JAX's per-chunk dispatch (0 full, 1 flush-free, 2
+    pull-free); `flush` and `pull` say, per step, whether the step runs
+    that phase. `arrays` maps a name to a [K, ...] device tensor: "d"/"y"
+    (direct feed) or "idx" (index feed), "slots", "inv", and where a step
+    needs them "pull_ids", "fids", "fslots", "uniq". `writes` is a flat
+    int64 device tensor of (positions, targets) pairs; `offsets[k][name]`
+    gives step k's (lo, mid, hi) for the writes "ft" (flush -> table),
+    "fc" (flush -> cache), "pf" (prefetch insert) and "up" (update)."""
+    K: int
+    variant: int
+    index_feed: bool
+    flush: tuple
+    pull: tuple
+    arrays: Dict[str, torch.Tensor]
+    writes: torch.Tensor
+    offsets: tuple
+
+
+def _kept(mask_row: np.ndarray, target_row: np.ndarray):
+    pos = np.flatnonzero(mask_row)
+    return pos, target_row[pos]
+
+
+class CachedEngine(Engine):
+    """Engine variant executing planner micro-programs."""
+
+    def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
+                 table_rows: Optional[int] = None, device=None):
+        cfg.use_cache = True
+        super().__init__(cfg, model=model, table_rows=table_rows,
+                         device=device)
+        self.cache_rows = cfg.cache_rows(self.num_rows)
+        self.pinned_rows = int(cfg.pinned_rows or 0)
+        assert self.pinned_rows <= self.num_rows
+        # program arrays travel as int32; larger tables would wrap ids
+        assert self.num_rows < 2**31, \
+            f"table rows {self.num_rows} exceed int32 program ids"
+        self._unsynced = False
+        self._slot2id = None        # host residency mirror (serve views)
+        self.noflush_chunks = 0     # chunks that took the flush-free path
+        self.nopull_chunks = 0      # chunks that also took the pull-free path
+        self.memo_hits = 0          # the chunk memo is not ported
+        self.U_cap = int(cfg.sched_unique_slots or self.ids_per_worker)
+        self.F_cap = int(cfg.sched_flush_slots or self.U_cap)
+        # prefetch arrays exist only when the planner will hoist: the same
+        # three-way gate as CachePlanner (target AND window AND cap)
+        self.P_cap = (int(cfg.sched_prefetch_slots or 128)
+                      if (cfg.sched_pull_target and cfg.sched_hoist_window
+                          and int(cfg.sched_prefetch_slots or 128))
+                      else 0)
+        # the flush wire's capacity feeds the planner's per-owner budget
+        # (owner_cap); on one device there is no wire to size
+        self.flush_exchange = make_exchange(
+            self.num_rows, self.F_cap,
+            min(cfg.a2a_flush_capacity or self.F_cap, self.F_cap))
+
+    # ------------------------------------------------------------------
+    def make_planner(self, sparse_ids: np.ndarray, epochs: int = 1,
+                     n_threads: int = 8,
+                     assign_mode: str = "affinity") -> CachePlanner:
+        return CachePlanner(
+            sparse_ids, nrank=1, batch_size=self.cfg.batch_size,
+            cache_rows=self.cache_rows, num_shards=1,
+            rows_per_shard=self.exchange.rows_per_shard, epochs=epochs,
+            flush_cap=self.F_cap,
+            owner_cap=min(self.cfg.sched_flush_budget
+                          or self.flush_exchange.capacity,
+                          self.flush_exchange.capacity),
+            top_k=self.cfg.sched_top_k_tables or 0, n_threads=n_threads,
+            policy=self.cfg.cache_policy, assign_mode=assign_mode,
+            pinned_rows=self.pinned_rows,
+            bound=self.cfg.staleness_bound,
+            unique_cap=self.U_cap,
+            pull_target=self.cfg.sched_pull_target or 0,
+            hoist_window=self.cfg.sched_hoist_window,
+            prefetch_cap=self.P_cap,
+            queue_cap=self.cfg.sched_queue_size,
+            shuffle_seed=self.cfg.sched_shuffle_seed)
+
+    def init_cached_state(self, seed: Optional[int] = None
+                          ) -> CachedTrainState:
+        base = super().init_state(seed)
+        cache = torch.zeros((self.cache_rows, 2 * self.width),
+                            dtype=torch.float32, device=self.device)
+        # pinned tier: the hot block starts as the table's rows [0, P), so
+        # the two agree at step 0; its optimizer slots are f32
+        prows = max(self.pinned_rows, 1)
+        if self.pinned_rows:
+            hot = base.table[: self.pinned_rows].clone()
+        else:
+            hot = torch.zeros((1, self.width), dtype=self.cfg.table_dtype,
+                              device=self.device)
+        hot_slots = {k: torch.zeros((prows, self.width), dtype=torch.float32,
+                                    device=self.device)
+                     for k in self.embed_opt.slot_names}
+        return CachedTrainState(*base, cache=cache, hot_table=hot,
+                                hot_slots=hot_slots)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _write(dst, writes, off, src) -> None:
+        """dst[targets] = src[positions] for one write of one step."""
+        lo, mid, hi = off
+        if hi > lo:
+            dst.index_copy_(0, writes[mid:hi],
+                            src.index_select(0, writes[lo:mid]).to(dst.dtype))
+
+    def _flush_phase(self, table, table_slots, cache, step, elr,
+                     fids, fslots, writes, off):
+        W = self.width
+        # full [F, 2W] rows: the value half is written back unchanged with
+        # the delta half zeroed (slot C, padding, reads a zero row)
+        frows = embedding_gather(cache, fslots)
+        deltas = frows[:, W:]
+        row_mask = fids >= 0
+        # ids -1 read zero rows; they are masked and never written
+        rows = embedding_gather(table, fids)
+        row_slots = {k: embedding_gather(v, fids)
+                     for k, v in table_slots.items()}
+        new_rows, new_slots = self.embed_opt.apply_rows(
+            rows, deltas.to(rows.dtype), row_slots, step, lr=elr,
+            mask=row_mask)
+        self._write(table, writes, off["ft"], new_rows)
+        for k in table_slots:
+            self._write(table_slots[k], writes, off["ft"], new_slots[k])
+        zeroed = torch.cat([frows[:, :W], torch.zeros_like(deltas)], dim=1)
+        self._write(cache, writes, off["fc"], zeroed)
+
+    def _cached_step_body(self, state: CachedTrainState, d, y, a, k: int,
+                          writes, off, do_flush: bool, do_pull: bool):
+        """One step of a staged chunk: `a` holds the chunk's [K, ...]
+        program tensors, `k` the step. The table, its slots and the cache
+        are updated in place (JAX donates them); the dense params, the hot
+        block and its slots are new tensors."""
+        W, U = self.width, self.U_cap
+        B = y.shape[0]
+        inv = a["inv"][k]
+        step = state.step + 1
+        elr = self._elr_fn(step)
+        table, table_slots, cache = state.table, state.table_slots, \
+            state.cache
+        if do_flush:
+            self._flush_phase(table, table_slots, cache, step, elr,
+                              a["fids"][k], a["fslots"][k], writes, off)
+        if do_pull:
+            pull_ids = a["pull_ids"][k]
+            pulled = embedding_gather(table, pull_ids)
+            # prefetched rows: both planes (their slots are virgin, so the
+            # delta plane is already 0)
+            pf = pulled[U:].to(torch.float32)
+            self._write(cache, writes, off["pf"],
+                        torch.cat([pf, torch.zeros_like(pf)], dim=1))
+        # phase 4: one fused read of value + delta planes (after the flush
+        # zeroing, which is what makes the set-write of phase 5 exact)
+        res2 = embedding_gather(cache, a["slots"][k])
+        resident, delta_old = res2[:, :W], res2[:, W:]
+        if do_pull:
+            emb_uniq = torch.where((pull_ids[:U] >= 0).unsqueeze(1),
+                                   pulled[:U].to(torch.float32), resident)
+        else:
+            emb_uniq = resident
+        if self.pinned_rows:
+            # K4's bounds check is the pinned mask: ids -1 and ids >= P
+            # read zero rows, as the masked fill read of JAX does
+            uniq = a["uniq"][k]
+            emb_uniq = emb_uniq + hot_onehot_gather(
+                state.hot_table, uniq).to(torch.float32)
+        emb = emb_uniq.index_select(0, inv).reshape(B, -1, W)
+        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb, d, y)
+        dense, dense_slots = self.dense_opt.apply_dense(
+            state.dense, dgrads, state.dense_slots, step,
+            lr=self._lr_fn(step))
+
+        # phase 5: value plane = forward value - lr*grad quantized through
+        # the table dtype; delta plane = post-flush delta + grad
+        g_uniq = hot_onehot_push(inv, emb_grad.reshape(-1, W), U)
+        new_data = (emb_uniq - elr * g_uniq).to(
+            self.cfg.table_dtype).to(torch.float32)
+        self._write(cache, writes, off["up"],
+                    torch.cat([new_data, delta_old + g_uniq], dim=1))
+
+        if self.pinned_rows:
+            # exact synchronous SGD on the hot block: uniq holds each id
+            # once, so the segment sum is a plain scatter of g_uniq
+            hot_delta = hot_onehot_push(uniq, g_uniq, self.pinned_rows)
+            hot_new, hot_slots = self.embed_opt.apply_rows(
+                state.hot_table.to(torch.float32), hot_delta,
+                state.hot_slots, step, lr=elr)
+            hot_table = hot_new.to(state.hot_table.dtype)
+        else:
+            hot_table, hot_slots = state.hot_table, state.hot_slots
+        new_state = CachedTrainState(
+            table=table, table_slots=table_slots, dense=dense,
+            dense_slots=dense_slots, step=step, cache=cache,
+            hot_table=hot_table, hot_slots=hot_slots)
+        return new_state, loss
+
+    # ------------------------------------------------------------------
+    # staging
+    # ------------------------------------------------------------------
+    def _to_device(self, host: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """Host arrays -> device tensors through ONE copy: every array is
+        packed, 16-byte aligned, into one (pinned, on a card) uint8
+        buffer, copied without waiting, and viewed back per array."""
+        offs, total = {}, 0
+        for name, arr in host.items():
+            offs[name] = total
+            total += -(-arr.nbytes // 16) * 16
+        pin = self.device.type == "cuda"
+        buf = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=pin)
+        view = buf.numpy()
+        for name, arr in host.items():
+            o = offs[name]
+            view[o:o + arr.nbytes] = np.ascontiguousarray(arr).view(
+                np.uint8).reshape(-1)
+        dev = buf.to(self.device, non_blocking=True)
+        out = {}
+        for name, arr in host.items():
+            o = offs[name]
+            out[name] = dev[o:o + arr.nbytes].view(
+                _TORCH[arr.dtype]).reshape(arr.shape)
+        return out
+
+    def _stage_chunk(self, K, assign, slots, pulls, fids, fslots, pfids,
+                     pfslots, uniq, inv, raw_dense=None, raw_sparse=None,
+                     raw_labels=None, *, index_feed: bool) -> StagedChunk:
+        """Stage one popped chunk (the first K rows of each array) for
+        `train_epoch_staged`. The sparse rows never ship: the planner's
+        uniq/inv replace them. Returns a StagedChunk whose variant follows
+        JAX's per-chunk rule, a pure function of the planner stream."""
+        cfg = self.cfg
+        C, U = self.cache_rows, self.U_cap
+        slots, uniq, inv = slots[:K], uniq[:K], inv[:K]
+        pulls = np.asarray(pulls[:K]).view(np.uint8).astype(bool)
+        fids, fslots = fids[:K], fslots[:K]
+        pfids, pfslots = pfids[:K], pfslots[:K]
+        has_flush = (fids >= 0).any(axis=1)
+        has_pull = pulls.any(axis=1) | (pfids >= 0).any(axis=1)
+        noflush = bool(cfg.sched_noflush_variant and not has_flush.any())
+        nopull = bool(noflush and cfg.sched_nopull_variant
+                      and not has_pull.any())
+        flush = tuple(bool(f) or not cfg.sched_noflush_variant
+                      for f in has_flush)
+        pull = tuple(bool(p) or not cfg.sched_nopull_variant
+                     for p in has_pull)
+
+        host = {}
+        if index_feed:
+            host["idx"] = np.asarray(assign[:K], np.int32)
+        else:
+            idx = assign[:K]
+            host["d"] = np.asarray(raw_dense[idx], np.float32)
+            host["y"] = np.asarray(raw_labels[idx], np.float32)
+        host["slots"] = np.asarray(slots, np.int32)
+        host["inv"] = np.asarray(inv, np.int32)
+        if any(pull):
+            pull_ids = np.where(pulls & (uniq >= 0), uniq, -1)
+            host["pull_ids"] = np.concatenate([pull_ids, pfids],
+                                              axis=1).astype(np.int32)
+        if any(flush):
+            host["fids"] = np.asarray(fids, np.int32)
+            host["fslots"] = np.asarray(fslots, np.int32)
+        if self.pinned_rows:
+            host["uniq"] = np.asarray(uniq, np.int32)
+
+        # the kept positions and targets of every write, per step
+        rows = self.padded_rows
+        masks = {
+            "ft": ((fids >= 0) & (fids < rows), fids),
+            "fc": ((fslots >= 0) & (fslots < C), fslots),
+            "pf": ((pfids >= 0) & (pfslots >= 0) & (pfslots < C), pfslots),
+            "up": ((uniq >= 0) & (slots >= 0) & (slots < C), slots),
+        }
+        parts: List[np.ndarray] = []
+        offsets, n = [], 0
+        for k in range(K):
+            off = {}
+            for name, (mask, target) in masks.items():
+                pos, tgt = _kept(mask[k], target[k])
+                off[name] = (n, n + len(pos), n + 2 * len(pos))
+                parts += [pos, tgt]
+                n += 2 * len(pos)
+            offsets.append(off)
+        host["writes"] = (np.concatenate(parts).astype(np.int64) if n
+                          else np.zeros(1, np.int64))
+        dev = self._to_device(host)
+        writes = dev.pop("writes")
+        return StagedChunk(K=int(K), variant=2 if nopull else 1 if noflush
+                           else 0, index_feed=index_feed, flush=flush,
+                           pull=pull, arrays=dev, writes=writes,
+                           offsets=tuple(offsets))
+
+    def stage_dataset(self, raw_dense, raw_sparse, raw_labels):
+        """The whole dataset's dense features and labels on the device,
+        for `train_epoch_cached(device_data=...)`: per-chunk staging then
+        ships int32 sample indices instead of sample rows, and the step
+        gathers its rows on the device. The sparse ids are accepted but
+        never staged: the planner's uniq/inv replace them."""
+        return (torch.as_tensor(np.asarray(raw_dense, np.float32),
+                                device=self.device),
+                torch.as_tensor(np.asarray(raw_labels, np.float32),
+                                device=self.device))
+
+    def stage_program_chunks(self, planner, steps_per_chunk: int,
+                             max_chunks: Optional[int] = None, raw=None):
+        """Pop and stage up to `max_chunks` chunks ahead of time, for
+        `train_epoch_staged`. Default staging is index-feed (pair with
+        `stage_dataset`); `raw=(dense, sparse, labels)` stages direct-feed
+        chunks, whose sample rows go to the device with the programs."""
+        staged = []
+        while max_chunks is None or len(staged) < max_chunks:
+            out = planner.pop_chunk(steps_per_chunk)
+            if out[0] == 0:
+                break
+            if raw is None:
+                staged.append(self._stage_chunk(*out, index_feed=True))
+            else:
+                staged.append(self._stage_chunk(
+                    *out, raw_dense=raw[0], raw_sparse=raw[1],
+                    raw_labels=raw[2], index_feed=False))
+        return staged
+
+    # ------------------------------------------------------------------
+    # host-facing API
+    # ------------------------------------------------------------------
+    def _run_chunk(self, state, staged: StagedChunk, device_data=None):
+        a = staged.arrays
+        if staged.index_feed:
+            assert device_data is not None, \
+                "an index-feed chunk needs stage_dataset data"
+            dev_d, dev_y = device_data
+        losses = []
+        for k in range(staged.K):
+            if staged.index_feed:
+                idx = a["idx"][k]
+                d, y = dev_d.index_select(0, idx), dev_y.index_select(0, idx)
+            else:
+                d, y = a["d"][k], a["y"][k]
+            state, loss = self._cached_step_body(
+                state, d, y, a, k, staged.writes, staged.offsets[k],
+                staged.flush[k], staged.pull[k])
+            losses.append(loss)
+        return state, {"loss": torch.stack(losses),
+                       "overflow": torch.zeros(staged.K, dtype=torch.int32,
+                                               device=self.device)}
+
+    def train_step_cached(self, state, planner: CachePlanner, raw_dense,
+                          raw_sparse, raw_labels):
+        """Pop one program and run it: (state, {"loss", "overflow"}), or
+        (state, None) at the end of the stream."""
+        prog = planner.pop()
+        if prog is None:
+            return state, None
+        self._unsynced = True
+        P = max(self.P_cap, 1)
+        pf_i = (prog.prefetch_ids if prog.prefetch_ids is not None
+                else np.full(P, -1, np.int32))
+        pf_s = (prog.prefetch_slots if prog.prefetch_slots is not None
+                else np.full(P, self.cache_rows, np.int32))
+        one = lambda x: np.asarray(x).reshape(1, -1)
+        staged = self._stage_chunk(
+            1, one(prog.assign), one(prog.slots),
+            one(prog.pulls).astype(np.uint8), one(prog.flush_ids),
+            one(prog.flush_slots), one(pf_i), one(pf_s), one(prog.uniq),
+            one(prog.inv), raw_dense, raw_sparse, raw_labels,
+            index_feed=False)
+        state, stats = self._run_chunk(state, staged)
+        return state, {"loss": stats["loss"][0],
+                       "overflow": stats["overflow"][0]}
+
+    def train_epoch_cached(self, state, planner: CachePlanner, raw_dense,
+                           raw_sparse, raw_labels, steps: int,
+                           device_data=None):
+        """Pop up to `steps` programs in one chunk and run them. With
+        `device_data` (from `stage_dataset`) the sample rows are gathered
+        on the device by assignment index; the raw_* arrays are then
+        ignored. Returns (state, None) at the end of the stream."""
+        (K, assign, slots, pulls, fids, fslots,
+         pfids, pfslots, uniq, inv) = planner.pop_chunk(steps)
+        if K == 0:
+            return state, None
+        if self._slot2id is not None:
+            self._track_residency(K, slots, pfids, pfslots, uniq)
+        return self.train_epoch_staged(
+            state, self._stage_chunk(
+                K, assign, slots, pulls, fids, fslots, pfids, pfslots,
+                uniq, inv, raw_dense, raw_sparse, raw_labels,
+                index_feed=device_data is not None),
+            device_data=device_data)
+
+    def train_epoch_staged(self, state, staged: StagedChunk,
+                           device_data=None):
+        """Run one staged chunk (from `_stage_chunk` /
+        `stage_program_chunks`). Index-feed chunks need `device_data`."""
+        self._unsynced = True
+        if staged.variant >= 1:
+            self.noflush_chunks += 1
+        if staged.variant == 2:
+            self.nopull_chunks += 1
+        return self._run_chunk(state, staged, device_data)
+
+    @staticmethod
+    def to_base_state(state: CachedTrainState) -> TrainState:
+        """View without cache arrays, for the base-engine eval path.
+        Call sync_cache first so the owner table is up to date (it also
+        writes the pinned hot block back into table[0:P])."""
+        return TrainState(table=state.table, table_slots=state.table_slots,
+                          dense=state.dense, dense_slots=state.dense_slots,
+                          step=state.step)
+
+    def _warn_if_unsynced(self):
+        if self._unsynced:
+            warnings.warn(
+                "evaluating a cached state before sync_cache: the owner "
+                "table is missing unflushed cache deltas"
+                + (" and the trained pinned hot block"
+                   if self.pinned_rows else "")
+                + "; call sync_cache(state, planner) first for exact "
+                  "results", UserWarning, stacklevel=3)
+
+    def evaluate(self, state, dense_x, sparse_ids, labels, batch=None):
+        if isinstance(state, CachedTrainState):
+            self._warn_if_unsynced()
+            state = self.to_base_state(state)
+        return super().evaluate(state, dense_x, sparse_ids, labels, batch)
+
+    def predict(self, state, dense_x, sparse_ids):
+        if isinstance(state, CachedTrainState):
+            self._warn_if_unsynced()
+            state = self.to_base_state(state)
+        return super().predict(state, dense_x, sparse_ids)
+
+    def _flush_only(self, state: CachedTrainState, fids: np.ndarray,
+                    fslots: np.ndarray) -> CachedTrainState:
+        """The flush phase alone, at step + 1, on host arrays [Wf]."""
+        host = {"fids": np.asarray(fids, np.int32)[None],
+                "fslots": np.asarray(fslots, np.int32)[None]}
+        off, parts, n = {}, [], 0
+        for name, (mask, target) in {
+                "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
+                "fc": ((fslots >= 0) & (fslots < self.cache_rows),
+                       fslots)}.items():
+            pos, tgt = _kept(mask, target)
+            off[name] = (n, n + len(pos), n + 2 * len(pos))
+            parts += [pos, tgt]
+            n += 2 * len(pos)
+        host["writes"] = (np.concatenate(parts).astype(np.int64) if n
+                          else np.zeros(1, np.int64))
+        dev = self._to_device(host)
+        step = state.step + 1
+        self._flush_phase(state.table, state.table_slots, state.cache, step,
+                          self._elr_fn(step), dev["fids"][0],
+                          dev["fslots"][0], dev["writes"], off)
+        return state
+
+    @torch.no_grad()
+    def sync_cache(self, state, planner: CachePlanner):
+        """Flush all residual dirty deltas to the owner table (end-of-run
+        sync before eval/checkpoint), and write the pinned hot block back
+        into the table's rows [0, P). In place."""
+        C = self.cache_rows
+        # dump first: it raises if the program stream was not drained,
+        # before any state changes
+        ids_z, slots_z = planner.dirty_rows(0)
+        if self.pinned_rows:
+            state.table[: self.pinned_rows].copy_(
+                state.hot_table.to(state.table.dtype))
+        self._unsynced = False
+        max_n = len(ids_z)
+        if max_n == 0:
+            return state
+        # final-sync width: the per-step flush is F_cap wide, but the end
+        # dump can hold the whole resident dirty set; JAX flushes it in a
+        # few wide calls of <= 128K rows, and so does the port
+        Wf = self.F_cap
+        if max_n > 4 * self.F_cap:
+            Wf = 1 << min(int(np.ceil(np.log2(max_n))), 17)
+        for off in range(0, max_n, Wf):
+            fids = np.full(Wf, -1, np.int64)
+            fslots = np.full(Wf, C, np.int32)
+            chunk_ids = ids_z[off:off + Wf]
+            fids[:len(chunk_ids)] = chunk_ids
+            fslots[:len(chunk_ids)] = slots_z[off:off + Wf]
+            state = self._flush_only(state, fids, fslots)
+        return state
+
+    # ------------------------------------------------------------------
+    # serve-exact mid-stream views: the engine mirrors slot -> id
+    # residency on the host from the programs it dispatches and computes
+    # the synced values of every dirty row with the flush math, without
+    # touching the training state (JAX: cached.py:1142-1268)
+    # ------------------------------------------------------------------
+    def enable_residency_tracking(self, mirror: Optional[np.ndarray] = None
+                                  ) -> None:
+        """Start mirroring cache residency on the host. Must be enabled
+        before the first dispatched chunk (or pass the `mirror` saved by a
+        checkpoint when resuming). train_epoch_cached tracks at pop time
+        (pop == dispatch there)."""
+        if mirror is not None:
+            mirror = np.asarray(mirror, np.int64)
+            assert mirror.shape == (1, self.cache_rows), mirror.shape
+            self._slot2id = mirror.copy()
+        else:
+            self._slot2id = np.full((1, self.cache_rows), -1, np.int64)
+
+    def _track_residency(self, K, slots, pfids, pfslots, uniq) -> None:
+        C = self.cache_rows
+        # prefetch inserts first (their slots are virgin), then batch-key
+        # writes win any later reuse
+        pi, ps = pfids[:K].reshape(-1), pfslots[:K].reshape(-1)
+        ok = (pi >= 0) & (ps < C)
+        self._slot2id[0][ps[ok]] = pi[ok]
+        u, s = uniq[:K].reshape(-1), slots[:K].reshape(-1)
+        ok = (u >= 0) & (s < C)   # pinned keys carry the C sentinel
+        self._slot2id[0][s[ok]] = u[ok]
+
+    @torch.no_grad()
+    def serve_overlay(self, state: CachedTrainState
+                      ) -> Dict[str, np.ndarray]:
+        """Synced values of every dirty cached row, as host arrays:
+        {"rows": physical row indices, "values": [N, W] table-dtype rows,
+        "slot/<name>": [N, W] slot rows, "mirror": the residency mirror,
+        and (pinned tier) "hot_rows"/"hot_values"}; bf16 arrays are their
+        bit patterns (`V2`), as a JAX checkpoint stores them. Apply with
+        `apply_serve_overlay` (train/checkpoint.py) onto the base view of
+        the same state. Dirtiness is `delta != 0` (exact for sgd/adagrad;
+        JAX's caveats hold). The flush math here widens rows and deltas
+        to f32, where the flush itself casts the delta to the table
+        dtype, as in JAX."""
+        from herald_tpu_torch.bridge import tensor_to_numpy
+        assert self._slot2id is not None, \
+            "call enable_residency_tracking() before training"
+        W = self.width
+        dirty = (state.cache[:, W:] != 0).any(dim=1).cpu().numpy()
+        out: Dict[str, np.ndarray] = {"mirror": self._slot2id.copy()}
+        resident = np.nonzero(self._slot2id[0] >= 0)[0]
+        sel = resident[dirty[resident]]
+        gslots, gids = sel, self._slot2id[0][sel]
+        # duplicate ids: keep the last occurrence (JAX's rule)
+        _, last = np.unique(gids[::-1], return_index=True)
+        keep = np.sort(len(gids) - 1 - last)
+        gslots, gids = gslots[keep], gids[keep]
+        if len(gids):
+            phys = self.exchange.phys_index(gids)
+            slot_t = torch.as_tensor(gslots, device=self.device)
+            phys_t = torch.as_tensor(phys, device=self.device)
+            deltas = embedding_gather(state.cache, slot_t)[:, W:]
+            rows = embedding_gather(state.table, phys_t)
+            sl = {k: embedding_gather(v, phys_t)
+                  for k, v in state.table_slots.items()}
+            step = state.step + 1
+            mask = torch.ones(len(gids), dtype=torch.bool,
+                              device=self.device)
+            new_rows, new_sl = self.embed_opt.apply_rows(
+                rows.to(torch.float32), deltas.to(torch.float32), sl, step,
+                lr=self._elr_fn(step), mask=mask)
+            out["rows"] = phys
+            out["values"] = tensor_to_numpy(
+                new_rows.to(state.table.dtype))[0]
+            for k, v in new_sl.items():
+                out[f"slot/{k}"] = tensor_to_numpy(
+                    v.to(state.table_slots[k].dtype))[0]
+        else:
+            out["rows"] = np.zeros(0, np.int64)
+            out["values"] = tensor_to_numpy(torch.zeros(
+                (0, W), dtype=self.cfg.table_dtype))[0]
+        if self.pinned_rows:
+            out["hot_rows"] = self.exchange.phys_index(
+                np.arange(self.pinned_rows, dtype=np.int64))
+            out["hot_values"] = tensor_to_numpy(state.hot_table)[0]
+        return out

@@ -9,9 +9,11 @@ Layout under <path>/ (each save in <path>/v<step>/, named by <path>/LATEST):
     blocks.p<i>.json   block metadata: leaf key + global offsets per block
 
 Leaf keys are the JAX pytree paths joined with "/": "table",
-"table_slots/<slot>", "dense/W1", "dense_slots/W1/<slot>", "step". A
-CachedTrainState checkpoint is read as its five base leaves (the JAX
-`to_base_state` view); the cache arrays are the cached engine's.
+"table_slots/<slot>", "dense/W1", "dense_slots/W1/<slot>", "step", and
+for a CachedTrainState also "cache", "hot_table", "hot_slots/<slot>".
+`load_checkpoint` reads the five base leaves of either state type (the
+JAX `to_base_state` view); `load_cached_checkpoint` reads a whole
+CachedTrainState, e.g. to resume a scheduled run mid-stream.
 A table saved row-sharded over S devices is laid out strided
 (parallel/exchange.py: logical row r at (r % S) * rps + r // S) and is
 remapped to the port's single-device layout on load.
@@ -28,9 +30,11 @@ import numpy as np
 import torch
 
 from herald_tpu_torch.bridge import tensor_from_numpy, tensor_to_numpy
+from herald_tpu_torch.train.cached import CachedTrainState
 from herald_tpu_torch.train.engine import TrainState
 
 _BASE_LEAVES = ("table", "table_slots", "dense", "dense_slots", "step")
+_CACHED_LEAVES = _BASE_LEAVES + ("cache", "hot_table", "hot_slots")
 
 
 def _version_dir(path: str) -> str:
@@ -51,7 +55,7 @@ def _storage_dtype(name: str) -> np.dtype:
     return np.dtype("V2") if name == "bfloat16" else np.dtype(name)
 
 
-def _leaf_items(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
+def _leaf_items(state) -> List[Tuple[str, torch.Tensor]]:
     items = [("table", state.table)]
     items += [(f"table_slots/{k}", v)
               for k, v in sorted(state.table_slots.items())]
@@ -60,10 +64,14 @@ def _leaf_items(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
               for k, v in sorted(state.dense_slots.items())
               for s, x in sorted(v.items())]
     items.append(("step", state.step))
+    if isinstance(state, CachedTrainState):
+        items += [("cache", state.cache), ("hot_table", state.hot_table)]
+        items += [(f"hot_slots/{k}", v)
+                  for k, v in sorted(state.hot_slots.items())]
     return items
 
 
-def save_checkpoint(state: TrainState, path: str,
+def save_checkpoint(state, path: str,
                     extras: Optional[Dict[str, Dict]] = None) -> None:
     """Single-process save in the JAX layout: every leaf replicated, one
     (empty) shard file. Writes <path>/v<step>/ and only then repoints
@@ -103,7 +111,7 @@ def save_checkpoint(state: TrainState, path: str,
     write_atomic("replicated.npz", savez(replicated))
     for name, arrs in (extras or {}).items():
         write_atomic(f"{name}.npz", savez(arrs))
-    manifest = {"state_type": "TrainState", "num_processes": 1,
+    manifest = {"state_type": type(state).__name__, "num_processes": 1,
                 "layout": layout, "shapes": shapes, "dtypes": dtypes}
     write_atomic("manifest.json", dump_json(manifest, indent=2))
     tmp = os.path.join(path, "LATEST.tmp")
@@ -173,12 +181,10 @@ def _insert(tree: Dict, parts: List[str], value) -> None:
     tree[parts[-1]] = value
 
 
-def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
-                    ) -> TrainState:
-    """Read the base leaves of a TrainState or CachedTrainState
-    checkpoint (written by either package) onto `device`. With
-    `padded_rows`, table leaves saved under another shard count or row
-    padding are remapped to one device's layout of that many rows."""
+def _read_leaves(path: str, device, padded_rows: Optional[int],
+                 wanted: Tuple[str, ...]) -> Tuple[Dict, Dict]:
+    """(manifest, field trees) of the leaves whose first path part is in
+    `wanted`, read onto `device`."""
     path = _version_dir(path)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -189,12 +195,13 @@ def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
             f"multi-host checkpoints must live on storage shared by every "
             f"process")
     reader = _BlockReader(path, int(manifest["num_processes"]))
-    fields: Dict = {"table_slots": {}, "dense": {}, "dense_slots": {}}
+    fields: Dict = {"table_slots": {}, "dense": {}, "dense_slots": {},
+                    "hot_slots": {}}
     try:
         with np.load(repl_path) as repl:
             for key, where in manifest["layout"].items():
                 parts = key.split("/")
-                if parts[0] not in _BASE_LEAVES:
+                if parts[0] not in wanted:
                     continue
                 name = manifest["dtypes"][key]
                 shape = tuple(manifest["shapes"][key])
@@ -215,7 +222,31 @@ def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
     # {"W1": {}, ...}, as the engine builds it and JAX keeps it
     for k in fields["dense"]:
         fields["dense_slots"].setdefault(k, {})
+    return manifest, fields
+
+
+def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
+                    ) -> TrainState:
+    """Read the base leaves of a TrainState or CachedTrainState
+    checkpoint (written by either package) onto `device`. With
+    `padded_rows`, table leaves saved under another shard count or row
+    padding are remapped to one device's layout of that many rows."""
+    _, fields = _read_leaves(path, device, padded_rows, _BASE_LEAVES)
+    del fields["hot_slots"]
     return TrainState(**fields)
+
+
+def load_cached_checkpoint(path: str, device) -> CachedTrainState:
+    """Read a whole single-device CachedTrainState checkpoint (written by
+    either package, e.g. mid-stream) onto `device`. The cache arrays
+    belong to the planner stream that wrote them, so the layout must be
+    the training run's own: nothing is remapped."""
+    manifest, fields = _read_leaves(path, device, None, _CACHED_LEAVES)
+    if manifest["state_type"] != "CachedTrainState":
+        raise ValueError(f"checkpoint {path!r} holds a "
+                         f"{manifest['state_type']}, not a "
+                         f"CachedTrainState")
+    return CachedTrainState(**fields)
 
 
 def load_extra(path: str, name: str) -> Optional[Dict[str, np.ndarray]]:

@@ -64,6 +64,34 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+class ExchangeSpec(NamedTuple):
+    """The one-device form of `herald_tpu/parallel/exchange.py`'s spec:
+    every row is local, the table pads to a multiple of 8 rows and a
+    logical row is its own physical position. The row-sharded form comes
+    with the hybrid exchange (ROADMAP queue 1, item 7)."""
+    num_rows: int
+    rows_per_shard: int
+    capacity: int
+    num_shards: int = 1
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_shards * self.rows_per_shard
+
+    def phys_index(self, ids):
+        return (ids % self.num_shards) * self.rows_per_shard \
+            + ids // self.num_shards
+
+
+def make_exchange(num_rows: int, ids_per_step: int,
+                  capacity: Optional[int] = None) -> ExchangeSpec:
+    """`exchange.make_exchange` for one shard: capacity defaults to the
+    ids of one step."""
+    rows_per_shard = -(-num_rows // 8) * 8
+    return ExchangeSpec(num_rows, rows_per_shard,
+                        ids_per_step if capacity is None else int(capacity))
+
+
 def _write_rows(dst: torch.Tensor, idx: torch.Tensor,
                 vals: torch.Tensor) -> None:
     """dst[idx] = vals in dst's dtype, dropping indices outside dst (the
@@ -94,9 +122,14 @@ class Engine:
         torch.backends.cudnn.allow_tf32 = False
         self.width = self.model.emb_width(cfg.embedding_dim)
         self.num_rows = table_rows or self.model.table_rows
-        # the JAX package pads the table to a multiple of 8 rows
+        # one device: the JAX local engine's num_shards = 1, and its
+        # exchange pads the table to a multiple of 8 rows
         # (parallel/exchange.py:93-94); kept so checkpoints interchange
-        self.padded_rows = -(-self.num_rows // 8) * 8
+        self.num_shards = 1
+        self.ids_per_worker = cfg.batch_size * self.model.spec.num_sparse
+        self.exchange = make_exchange(self.num_rows, self.ids_per_worker,
+                                      cfg.a2a_pull_capacity)
+        self.padded_rows = self.exchange.padded_rows
         self.dense_opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
         self.embed_opt = get_optimizer(cfg.embed_optimizer,
                                        cfg.embed_learning_rate)

@@ -1,5 +1,5 @@
-"""Step timing: the port's own copy of `StepTimer` from
-`herald_tpu/utils/profiler.py`."""
+"""Step timing and cache counters: the port's own copies of `StepTimer`
+and `cache_report` from `herald_tpu/utils/profiler.py`."""
 
 from __future__ import annotations
 
@@ -44,3 +44,20 @@ class StepTimer:
             "p50_ms": float(np.percentile(t, 50) * 1e3),
             "p99_ms": float(np.percentile(t, 99) * 1e3),
         }
+
+
+def cache_report(planner, num_steps: int, ids_per_step: int
+                 ) -> Dict[str, float]:
+    """Summarize planner counters like CacheSparseTable.overall_miss_rate /
+    overall_data_rate (`python/hetu/cstable.py:202-224`): transfer counts
+    relative to the vanilla pull-everything-every-step baseline."""
+    p = planner.perf()
+    total_unique = max(num_steps * ids_per_step, 1)
+    pulls = p["miss_pull"] + p["update_pull"]
+    pushes = p["miss_push"] + p["update_push"]
+    return {
+        **p,
+        "miss_rate": pulls / total_unique,
+        "data_rate": (pulls + pushes) / (2 * total_unique),
+        "plan_time_us": planner.iter_time_us(),
+    }

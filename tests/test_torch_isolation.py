@@ -45,6 +45,12 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "import herald_tpu_torch.launch, herald_tpu_torch.launch.cli\n"
             "import herald_tpu_torch.optim.schedules\n"
             "import herald_tpu_torch.utils.profiler\n"
+            "import herald_tpu_torch.train.cached\n"
+            "import herald_tpu_torch.ops.kernels.hot_gather\n"
+            "import herald_tpu_torch.sched.build\n"
+            "import herald_tpu_torch.sched.planner\n"
+            "import herald_tpu_torch.sched.sizing\n"
+            "import herald_tpu_torch.sched.replay\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'ml_dtypes', 'herald_tpu')\n"
             "       and sys.modules[m] is not None]\n"
@@ -66,11 +72,18 @@ def test_engine_without_device_raises_when_no_card(monkeypatch):
                                           "64"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.run_training(args)
+    args = cli.build_parser().parse_args(["--scheduled", "--samples", "64",
+                                          "--rows", "64"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.run_training(args)
     cfg = HeraldConfig(model="wdl_criteo", batch_size=4, embedding_dim=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, table_rows=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_scorer("/nonexistent", cfg, table_rows=64)
+    from herald_tpu_torch.train.cached import CachedEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CachedEngine(cfg, table_rows=64)
     # an explicit device (argument or config field) is honoured
     assert Engine(cfg, table_rows=64, device="cpu").device.type == "cpu"
     cfg.device = "cpu"

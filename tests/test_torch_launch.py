@@ -12,6 +12,11 @@ reordered pair moves the AUC by 1/(positives * negatives)).
 A port run resumed from its own checkpoint is bit-exact against the
 uninterrupted run: on the CPU, and through K3's fixed summation order on
 the card (chip_smoke.py checks that).
+
+The scheduled branch (`--scheduled`) is held to the JAX launcher's with
+`--prestage 0` (the per-chunk path, the only one the port runs) from one
+JAX `CachedTrainState` checkpoint at step 0, with the same tolerances; its
+planner counters are host integers and equal.
 """
 
 import json
@@ -138,7 +143,7 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scheduled"], "--scheduled"),
+    (["--scheduled", "--int8-flush"], "--int8-flush"),
     (["--assign-only"], "--assign-only"),
     (["--fae"], "--fae"),
     (["--comm", "hybrid"], "--comm hybrid"),
@@ -156,6 +161,7 @@ def test_flags_not_ported_raise(argv, match):
 
 
 def test_serve_view_flag_raises_as_in_jax():
+    # outside --scheduled only: the scheduled branch writes the overlay
     with pytest.raises(ValueError, match="--ckpt-serve-view"):
         _port(["--ckpt-serve-view"])
 
@@ -186,3 +192,108 @@ def test_step_timer_reports_like_jax():
     a, b = mine.report(), theirs.report()
     assert a.keys() == b.keys() and a["steps"] == b["steps"] == 3
     assert 0 <= a["min_ms"] <= a["p50_ms"] <= a["max_ms"]
+
+
+# ----------------------------------------------------------------------
+# the scheduled branch
+# ----------------------------------------------------------------------
+
+SCHED = ["--scheduled", "--lr", "0.5", "--nepoch", "2",
+         "--cache-limit-ratio", "0.3"]
+
+
+def _jax_init_cached_ckpt(path, pinned=0):
+    from herald_tpu.train.cached import CachedEngine as JaxCachedEngine
+    cfg = JaxConfig(model="wdl_criteo", batch_size=16, embedding_dim=8,
+                    learning_rate=0.5, seed=5, use_cache=True,
+                    use_scheduler=True, cache_limit_ratio=0.3,
+                    pinned_rows=pinned)
+    jax_save(JaxCachedEngine(cfg, table_rows=ROWS).init_cached_state(5),
+             path)
+
+
+@pytest.mark.parametrize("pinned", [0, 64])
+def test_scheduled_launcher_matches_jax_from_one_checkpoint(tmp_path,
+                                                            pinned):
+    _jax_init_cached_ckpt(str(tmp_path / "init"), pinned)
+    argv = SCHED + ["--pinned-rows", str(pinned), "--resume",
+                    str(tmp_path / "init")]
+    port = _port(argv)
+    jx = _jax(argv + ["--prestage", "0"])
+    assert port["mode"] == jx["mode"] == "scheduled"
+    assert port["steps"] == 2 * (1280 // 16)
+    assert set(port) == set(jx) | {"device", "noflush_chunks",
+                                   "nopull_chunks", "prestage"}
+    assert port["prestage"] == "not ported (ROADMAP item 10)"
+    _close(port, jx)
+    # the first epoch's eval is approximate (unsynced cache), the last one
+    # runs after sync_cache, in both
+    assert [e.get("val_approx_unsynced_cache") for e in port["epochs"]] \
+        == [e.get("val_approx_unsynced_cache") for e in jx["epochs"]] \
+        == [True, None]
+    pc, jc = dict(port["cache"]), dict(jx["cache"])
+    pc.pop("plan_time_us"), jc.pop("plan_time_us")
+    assert pc == jc and pc["miss_pull"] > 0
+    assert port["chunk_memo_hits"] == 0 and not port["chunk_memo_active"]
+    assert port["examples_per_sec_steady"] > 0
+
+
+def test_scheduled_resume_across_a_midstream_checkpoint_is_bit_exact(
+        tmp_path):
+    from herald_tpu_torch.train.checkpoint import (load_cached_checkpoint,
+                                                   load_extra)
+    common = SCHED + ["--bf16-table", "--scan-steps", "4",
+                      "--pinned-rows", "32", "--ckpt-serve-view"]
+    whole = _port(common + ["--ckpt", str(tmp_path / "whole")])
+    first = _port(common + ["--ckpt", str(tmp_path / "part"),
+                            "--ckpt-every", "24", "--max-steps", "100"])
+    assert first["steps"] == 100 and first["stopped_early"]
+    assert first["val_auc"] is None          # unsynced: no final eval
+    mid = load_cached_checkpoint(str(tmp_path / "part"), "cpu")
+    assert int(mid.step) == 100
+    assert load_extra(str(tmp_path / "part"), "serve_overlay") is not None
+    rest = _port(common + ["--resume", str(tmp_path / "part"),
+                           "--ckpt", str(tmp_path / "rest")])
+    assert rest["steps"] == whole["steps"] - 100
+    assert rest["val_auc"] == whole["val_auc"]
+    a = load_cached_checkpoint(str(tmp_path / "whole"), "cpu")
+    b = load_cached_checkpoint(str(tmp_path / "rest"), "cpu")
+    assert int(a.step) == int(b.step) == whole["steps"]
+    assert a.table.dtype == torch.bfloat16
+    for x, y in ((a.table, b.table), (a.cache, b.cache),
+                 (a.hot_table, b.hot_table)):
+        assert torch.equal(x, y)
+    assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)
+    # the synced table holds the trained hot block
+    assert torch.equal(a.table[:32], a.hot_table)
+
+
+def test_scheduled_max_steps_on_an_epoch_boundary_keeps_its_eval():
+    """The JAX launcher drops that epoch's eval (cli.py:993); the port
+    records it, approximate since the cache is not synced."""
+    rep = _port(SCHED + ["--max-steps", "80"])
+    assert rep["steps"] == 80 and rep["stopped_early"]
+    assert [e["epoch"] for e in rep["epochs"]] == [0]
+    assert rep["epochs"][0]["val_approx_unsynced_cache"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--pinned-rows", "64"],
+    ["--plan-cache", "TAPE"],
+    ["--autosize", "--autosize-flush-budget", "--device-data"],
+], ids=["pinned", "plan-cache", "autosize"])
+def test_scheduled_options_run(tmp_path, extra):
+    extra = [str(tmp_path / "tape") if a == "TAPE" else a for a in extra]
+    rep = _port(SCHED + extra)
+    assert rep["steps"] == 160 and rep["overflow_rows"] == 0
+    assert rep["val_auc"] is not None and np.isfinite(rep["train_loss_last"])
+    if "--plan-cache" in extra:
+        again = _port(SCHED + extra)       # replays the recorded tape
+        assert again["cache"]["plan_time_us"] == 0
+        assert again["train_loss_last"] == rep["train_loss_last"]
+        assert again["val_auc"] == rep["val_auc"]
+    if "--autosize" in extra:
+        plain = _port(SCHED)
+        # exact sizing does not change the math, only the program widths
+        assert rep["train_loss_last"] == plain["train_loss_last"]
+        assert rep["val_auc"] == plain["val_auc"]

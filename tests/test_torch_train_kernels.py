@@ -235,8 +235,8 @@ def test_launch_counters_stay_put_on_the_cpu():
     segment_sum_grads(torch.ones(4, 8), torch.tensor([0, 1, 1, 3]), 4)
     scatter_add_rows(torch.zeros(8, 8), torch.tensor([1, 1]),
                      torch.ones(2, 8))
-    assert set(KERNELS) == {"embedding_gather", "hot_onehot_push",
-                            "rows_scatter_add"}
+    assert set(KERNELS) == {"embedding_gather", "hot_onehot_gather",
+                            "hot_onehot_push", "rows_scatter_add"}
     assert {k: f.launches for k, f in KERNELS.items()} == before
 
 

@@ -10,7 +10,8 @@ measured.
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, train:adam, launch, scheduled, scheduled:pinned,
-kernel:hot_onehot_gather, launch:scheduled, the kernels summary, the
+kernel:hot_onehot_gather, launch:scheduled, kernel:fm_second_order,
+serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the kernels summary, the
 card's name and power limit, and last {"ok": true, "device": {...}}.
 Every phase that fails raises: the script then exits non-zero and prints
 no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda),
@@ -23,6 +24,13 @@ lr 0.01 on batches of synthetic_ctr_data(seed=0). The scheduled phases
 run bench_scheduled's configuration: the same table and data (256
 batches), a cache of 10% of the rows (3,376,257 x 256 f32, 3.46 GB) and
 program widths sized from a host probe pass.
+
+The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
+batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
+fused to 513 columns (34.64 GB in bfloat16): K5 (fm_second_order, forward
+and backward) against its plain versions, serving, SGD training at lr
+0.01 (8 steps held against the plain versions of K1, K2, K3 and K5), the
+launcher, and the scheduled engine with a 10% cache (13.86 GB).
 """
 
 from __future__ import annotations
@@ -48,8 +56,13 @@ from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.data import (DATASETS, frequency_remap,
                                    synthetic_ctr_data)
 from herald_tpu_torch.models import bce_with_logits
+from herald_tpu_torch.models.base import mlp_apply
 from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
                                           embedding_gather_ref,
+                                          fm_second_order,
+                                          fm_second_order_backward,
+                                          fm_second_order_bwd_ref,
+                                          fm_second_order_ref,
                                           hot_onehot_gather,
                                           hot_onehot_gather_ref,
                                           hot_onehot_push,
@@ -178,6 +191,7 @@ def _gather_cases():
         for R, D, N, oob in ((512, 128, 60, 0.0),      # test_pallas_kernels
                              (1001, 13, 300, 0.1),     # R % 8 != 0, tail
                              (100_000, 128, 6656, 0.1),
+                             (100_000, 513, 13_000, 0.1),   # dfm's width
                              (512, 128, 0, 0.0)):
             table = torch.randn((R, D), generator=g, device="cuda").to(dt)
             ids = rng.integers(0, R, N)
@@ -359,6 +373,7 @@ def _scatter_cases():
             for R, D, N, oob in ((104, 128, 6, 0.0),   # test_pallas_kernels
                                  (1001, 13, 300, 0.0),
                                  (100_000, 128, 3491, 0.1),
+                                 (100_000, 513, 13_000, 0.1),  # dfm's
                                  (512, 128, 0, 0.0)):
                 ids = rng.permutation(R)[:N]
                 bad = rng.random(N) < oob
@@ -451,33 +466,89 @@ def _request(url, data=None):
         return e.code, json.loads(e.read())
 
 
+def _served_by_entry_point(ckpt, cfg_path, rows, dense, sparse):
+    """The probabilities `python -m herald_tpu_torch.serve` gives for one
+    request, from a checkpoint and its config, in a subprocess stopped
+    after it answers."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt", str(ckpt),
+         "--config", str(cfg_path), "--rows", str(rows), "--port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        seen = []
+        for line in proc.stdout:          # until it says where it serves
+            seen.append(line)
+            m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                break
+        else:
+            raise AssertionError("serve entry point did not start:\n"
+                                 + "".join(seen))
+        code, resp = _request(f"http://127.0.0.1:{m.group(1)}/score",
+                              {"dense": dense.tolist(),
+                               "sparse": sparse.tolist()})
+        assert code == 200, (code, resp)
+        return np.asarray(resp["probs"], np.float32)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+
+
 @torch.inference_mode()
-def reference_scores(eng: Engine, state, dense, sparse) -> np.ndarray:
-    """The engine's eval step with K1 replaced by its plain version, padded
-    and chunked as the Scorer does."""
+def reference_scores(eng: Engine, state, dense, sparse,
+                     apply=None) -> np.ndarray:
+    """The engine's eval step with K1 replaced by its plain version, and
+    the tower by `apply` (default: the model's own), padded and chunked as
+    the Scorer does."""
+    apply = apply or eng.model.apply
+    B = eng.cfg.batch_size
     out = []
-    for i in range(0, len(sparse), BATCH):
-        d, s = dense[i:i + BATCH], sparse[i:i + BATCH]
+    for i in range(0, len(sparse), B):
+        d, s = dense[i:i + B], sparse[i:i + B]
         m = len(s)
-        d = np.concatenate([d, np.repeat(d[-1:], BATCH - m, axis=0)])
-        s = np.concatenate([s, np.repeat(s[-1:], BATCH - m, axis=0)])
+        d = np.concatenate([d, np.repeat(d[-1:], B - m, axis=0)])
+        s = np.concatenate([s, np.repeat(s[-1:], B - m, axis=0)])
         ids = torch.as_tensor(s.astype(np.int32), device="cuda")
         uniq, inv = torch.unique(ids.reshape(-1), sorted=True,
                                  return_inverse=True)
         emb = embedding_gather_ref(state.table, uniq)[inv].reshape(
-            BATCH, -1, eng.width)
-        logits = eng.model.apply(state.dense, emb.float(),
-                                 torch.as_tensor(d, device="cuda"))
+            B, -1, eng.width)
+        logits = apply(state.dense, emb.float(),
+                       torch.as_tensor(d, device="cuda"))
         out.append(torch.sigmoid(logits)[:m].cpu().numpy())
     return np.concatenate(out)
 
 
-def phase_serve(eng: Engine, state) -> dict:
+def plain_dfm_apply(params, emb, dense):
+    """DeepFM's tower with K5 replaced by its plain version: the JAX
+    package's inline formula (herald_tpu/models/dfm.py:37-53), whose
+    backward is autograd's."""
+    first, second = emb[:, :, 0], emb[:, :, 1:]
+    y1 = (dense @ params["FM_W"]).reshape(-1) + first.sum(dim=1)
+    y2 = fm_second_order_ref(second)
+    n = sum(1 for k in params if re.fullmatch(r"W\d+", k))
+    h = mlp_apply(params, second.reshape(emb.shape[0], -1), n)
+    return y1 + y2 + h.reshape(-1)
+
+
+def _want(per_unit: dict, units: int) -> dict:
+    """Each kernel's expected launches: `per_unit` per batch or step."""
+    return {name: per_unit.get(name, 0) * units for name in KERNELS}
+
+
+def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
+                per_batch=None, tol=1e-6) -> dict:
     """The main path: HTTP requests, predict latency, throughput and
     evaluate, all through Engine.predict. Kernel counts are zeroed just
-    before and read just after."""
+    before and read just after: `per_batch` launches of each kernel for
+    every scored batch (default: one K1). The served scores are held to
+    the eval step with the plain versions within `tol`."""
+    per_batch = per_batch or {"embedding_gather": 1}
+    B = eng.cfg.batch_size
     spec = eng.model.spec
-    dense, sparse, labels = synthetic_ctr_data(spec, 64 * BATCH, seed=1,
+    dense, sparse, labels = synthetic_ctr_data(spec, 64 * B, seed=1,
                                                num_rows=FULL_ROWS)
     scorer = Scorer(eng, state)
     srv = make_server(scorer, 0)
@@ -485,15 +556,16 @@ def phase_serve(eng: Engine, state) -> dict:
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     served = {}
+    requests = (1, B, 2 * B + 88)
     for k in KERNELS.values():
         k.launches = 0
-    expected = 0                          # K1 launches: one per batch
+    batches = 0
     try:
         code, health = _request(url + "/health")
         assert code == 200 and health == {"status": "ok",
-                                          "model": "wdl_criteo",
-                                          "step": 0, "batch": BATCH}, health
-        for n in (1, 256, 600):
+                                          "model": eng.model.name,
+                                          "step": 0, "batch": B}, health
+        for n in requests:
             code, resp = _request(url + "/score",
                                   {"dense": dense[:n].tolist(),
                                    "sparse": sparse[:n].tolist()})
@@ -502,7 +574,7 @@ def phase_serve(eng: Engine, state) -> dict:
             assert p.shape == (n,) and np.isfinite(p).all() \
                 and (p >= 0).all() and (p <= 1).all()
             served[n] = p
-            expected += -(-n // BATCH)
+            batches += -(-n // B)
         code, err = _request(url + "/score", {"sparse": [[0, 1]]})
         assert code == 400 and "error" in err, (code, err)
         code, err = _request(url + "/score",
@@ -514,57 +586,57 @@ def phase_serve(eng: Engine, state) -> dict:
         srv.server_close()
         thread.join(timeout=30)
 
-    d, s = dense[:BATCH], sparse[:BATCH]
+    d, s = dense[:B], sparse[:B]
     lat = []
     for _ in range(60):
         t0 = time.perf_counter()
         eng.predict(state, d, s)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    expected += 60
+    batches += 60
     nb = 200
     t0 = time.perf_counter()
     for i in range(nb):
-        j = (i % 64) * BATCH
-        eng.predict(state, dense[j:j + BATCH], sparse[j:j + BATCH])
+        j = (i % 64) * B
+        eng.predict(state, dense[j:j + B], sparse[j:j + B])
     torch.cuda.synchronize()
-    ex_s = nb * BATCH / (time.perf_counter() - t0)
-    expected += nb
+    ex_s = nb * B / (time.perf_counter() - t0)
+    batches += nb
     t0 = time.perf_counter()
     ev = eng.evaluate(state, dense, sparse, labels)
     eval_s = time.perf_counter() - t0
-    expected += 64
+    batches += 64
     launches = {name: k.launches for name, k in KERNELS.items()}
-    if launches != {"embedding_gather": expected, "hot_onehot_gather": 0,
-                    "hot_onehot_push": 0, "rows_scatter_add": 0}:
-        raise AssertionError(f"the serving path launched {launches}, "
-                             f"expected embedding_gather {expected} times "
-                             f"and no training kernel")
+    if launches != _want(per_batch, batches):
+        raise AssertionError(f"the {label} path launched {launches}, "
+                             f"expected {_want(per_batch, batches)}")
     if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
         raise AssertionError(f"evaluate gave {ev}")
 
     # where one predict's time goes (outside the counted window)
     busy, per, host = device_profile(
-        lambda i: eng.predict(state, dense[(i % 64) * BATCH:][:BATCH],
-                              sparse[(i % 64) * BATCH:][:BATCH]), 50)
+        lambda i: eng.predict(state, dense[(i % 64) * B:][:B],
+                              sparse[(i % 64) * B:][:B]), 50)
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
     profile = {"device_busy_ms": busy, "host_ms_profiled": host,
                "device_idle_share": None if busy is None else 1 - busy / host,
                "top_device_ms": top}
 
-    ref = reference_scores(eng, state, dense[:600], sparse[:600])
-    err = float(np.abs(served[600] - ref).max())
-    if err > 1e-6:
+    n3 = requests[-1]
+    ref = reference_scores(eng, state, dense[:n3], sparse[:n3], plain_apply)
+    err = float(np.abs(served[n3] - ref).max())
+    if err > tol:
         raise AssertionError(f"served probs differ from the plain path by "
-                             f"{err}")
-    for n in (1, 256):
+                             f"{err} (gate {tol})")
+    for n in requests[:2]:
         # the same rows in another request: equal within f32 rounding
-        assert np.abs(served[n] - served[600][:n]).max() <= 1e-6, n
-    out = {"phase": "serve", "table_shape": list(state.table.shape),
+        assert np.abs(served[n] - served[n3][:n]).max() <= 1e-6, n
+    out = {"phase": label, "model": eng.model.name, "batch": B,
+           "table_shape": list(state.table.shape),
            "table_dtype": str(state.table.dtype),
            "table_gb": state.table.numel() * state.table.element_size()
-           / 1e9, "requests": [1, 256, 600], "max_abs_err_vs_plain": err,
-           "predict_ms_median": statistics.median(lat),
+           / 1e9, "requests": list(requests), "max_abs_err_vs_plain": err,
+           "gate": tol, "predict_ms_median": statistics.median(lat),
            "predict_ms_p90": float(np.percentile(lat, 90)),
            "examples_per_s": ex_s, "throughput_batches": nb,
            "evaluate": ev, "evaluate_batches": 64, "evaluate_s": eval_s,
@@ -600,54 +672,32 @@ def phase_checkpoint() -> None:
         if not np.array_equal(got, want):
             raise AssertionError("restored scorer differs: max "
                                  f"{np.abs(got - want).max()}")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt", ckpt,
-             "--config", str(cfg_path), "--rows", str(rows), "--port", "0"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        try:
-            seen = []
-            for line in proc.stdout:          # until it says where it serves
-                seen.append(line)
-                m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)",
-                              line)
-                if m:
-                    break
-            else:
-                raise AssertionError("serve entry point did not start:\n"
-                                     + "".join(seen))
-            url = f"http://127.0.0.1:{m.group(1)}"
-            code, resp = _request(url + "/score",
-                                  {"dense": dense.tolist(),
-                                   "sparse": sparse.tolist()})
-            assert code == 200, (code, resp)
-            cli = np.asarray(resp["probs"], np.float32)
-            if not np.array_equal(cli, want):
-                raise AssertionError("entry point differs: max "
-                                     f"{np.abs(cli - want).max()}")
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-            proc.stdout.close()
+        cli = _served_by_entry_point(ckpt, cfg_path, rows, dense, sparse)
+        if not np.array_equal(cli, want):
+            raise AssertionError("entry point differs: max "
+                                 f"{np.abs(cli - want).max()}")
     emit({"phase": "checkpoint", "rows": rows, "emb": EMB,
           "requests": len(sparse), "identical": True,
           "entry_point": "python -m herald_tpu_torch.serve"})
 
 
-def _stage(dense, sparse, labels, lo, k):
-    """k batches from row lo, on the card as [k, BATCH, ...] tensors (the
+def _stage(dense, sparse, labels, lo, k, batch=BATCH):
+    """k batches from row lo, on the card as [k, batch, ...] tensors (the
     input pipeline's job; bench.py stages the same way)."""
-    n = k * BATCH
+    n = k * batch
     return tuple(torch.as_tensor(a[lo:lo + n].astype(dt).reshape(
-        k, BATCH, -1), device="cuda")
+        k, batch, -1), device="cuda")
         for a, dt in ((dense, np.float32), (sparse, np.int32),
                       (labels, np.float32)))
 
 
-def reference_train_step(eng: Engine, state: TrainState, d, s, y):
+def reference_train_step(eng: Engine, state: TrainState, d, s, y,
+                         apply=None):
     """The engine's SGD step with K1, K2 and K3 replaced by their plain
-    versions; K3's plain version runs on the host, where `index_add_`
-    adds in position order, the order the kernel uses."""
+    versions and the tower by `apply` (default: the model's own); K3's
+    plain version runs on the host, where `index_add_` adds in position
+    order, the order the kernel uses."""
+    apply = apply or eng.model.apply
     step = state.step + 1
     B, F = s.shape
     uniq, inv = torch.unique(s.reshape(-1), sorted=True, return_inverse=True)
@@ -655,31 +705,51 @@ def reference_train_step(eng: Engine, state: TrainState, d, s, y):
         B, F, eng.width).float().requires_grad_(True)
     params = {k: v.detach().requires_grad_(True)
               for k, v in state.dense.items()}
-    loss = bce_with_logits(eng.model.apply(params, emb, d), y)
+    loss = bce_with_logits(apply(params, emb, d), y)
     grads = torch.autograd.grad(loss, [*params.values(), emb])
     dense, dense_slots = eng.dense_opt.apply_dense(
         state.dense, dict(zip(params, grads[:-1])), state.dense_slots, step,
         lr=eng._lr_fn(step))
     g_uniq = hot_onehot_push_ref(inv.cpu(), grads[-1].reshape(
-        -1, eng.width).cpu(), uniq.numel()).cuda()
+        -1, eng.width).cpu(), uniq.numel()).to(state.table.device)
     rows_scatter_add_ref(state.table, uniq, -eng._elr_fn(step) * g_uniq)
     return TrainState(state.table, state.table_slots, dense, dense_slots,
                       step), loss.detach()
 
 
-def phase_train(eng: Engine, state: TrainState) -> dict:
-    """The main training path at full width (bench_engine's shape and
-    configuration): a warm-up chunk, then three timed chunks of 64 steps
-    through Engine.train_epoch, each ended by a host readback of its last
-    loss. Exactly one K1, one K2 and one K3 launch per step. Then a
-    profile of single steps, and 8 steps held against the plain-kernel
-    reference from a clone of the state."""
+def _row_sums(table: torch.Tensor) -> torch.Tensor:
+    """Per row, the sum of its elements' bit patterns (int64), a chunk of
+    rows at a time: a fingerprint that any change of a row's bits moves
+    but for collisions, without a second copy of the table."""
+    words = table.view(torch.int16) if table.element_size() == 2 \
+        else table.view(torch.int32)
+    out = torch.empty(table.shape[0], dtype=torch.int64, device=table.device)
+    step = 1 << 20
+    for lo in range(0, table.shape[0], step):
+        out[lo:lo + step] = words[lo:lo + step].to(torch.int64).sum(dim=1)
+    return out
+
+
+def phase_train(eng: Engine, state: TrainState, label="train", K=64,
+                plain_apply=None, per_step=None) -> dict:
+    """The main training path at full width: a warm-up chunk, then three
+    timed chunks of K steps through Engine.train_epoch, each ended by a
+    host readback of its last loss; `per_step` launches of each kernel
+    every step (default: one K1, K2 and K3). Then a profile of single
+    steps, and 8 steps held against the plain-kernel reference: the rows
+    the 8 steps touch are copied into a compact table that the reference
+    updates through remapped ids, and the other rows of the engine's table
+    must keep their bits (row fingerprints before and after). Gates: each
+    loss within 1e-5 of its value (relative), touched rows within one
+    bf16 ulp, dense params within 1e-5."""
+    per_step = per_step or {"embedding_gather": 1, "hot_onehot_push": 1,
+                            "rows_scatter_add": 1}
+    B = eng.cfg.batch_size
     spec = eng.model.spec
-    K = 64
-    dense, sparse, labels = synthetic_ctr_data(spec, 2 * K * BATCH, seed=0,
+    dense, sparse, labels = synthetic_ctr_data(spec, 2 * K * B, seed=0,
                                                num_rows=FULL_ROWS)
-    chunks = [_stage(dense, sparse, labels, 0, K),
-              _stage(dense, sparse, labels, K * BATCH, K)]
+    chunks = [_stage(dense, sparse, labels, 0, K, B),
+              _stage(dense, sparse, labels, K * B, K, B)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in KERNELS.values():
@@ -694,11 +764,9 @@ def phase_train(eng: Engine, state: TrainState) -> dict:
         times.append(time.perf_counter() - t0)
         losses.append(stats["loss"])
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    if launches != {"embedding_gather": 4 * K, "hot_onehot_gather": 0,
-                    "hot_onehot_push": 4 * K, "rows_scatter_add": 4 * K}:
-        raise AssertionError(f"the training path launched {launches}; "
-                             f"expected one K1, K2 and K3 per step "
-                             f"({4 * K} each) and no K4")
+    if launches != _want(per_step, 4 * K):
+        raise AssertionError(f"the {label} path launched {launches}; "
+                             f"expected {_want(per_step, 4 * K)}")
     losses = torch.cat(losses).cpu()
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError("non-finite training loss")
@@ -714,44 +782,49 @@ def phase_train(eng: Engine, state: TrainState) -> dict:
                                             key=lambda kv: -kv[1])[:8])}
 
     # 8 steps against the plain-kernel reference, from one state
-    ref = TrainState(state.table.clone(), {},
+    d1, s1, y1 = chunks[1]
+    touched = torch.unique(s1[:8].reshape(-1).long())
+    before = _row_sums(state.table)
+    ref = TrainState(state.table[touched].clone(), {},
                      {k: v.clone() for k, v in state.dense.items()},
                      {k: {} for k in state.dense}, state.step.clone())
-    d1, s1, y1 = chunks[1]
     got_l, want_l = [], []
     for i in range(8):
         state, st = eng.train_step(state, d1[i], s1[i], y1[i])
-        ref, loss = reference_train_step(eng, ref, d1[i], s1[i], y1[i])
+        local = torch.searchsorted(touched, s1[i].long()).to(torch.int32)
+        ref, loss = reference_train_step(eng, ref, d1[i], local, y1[i],
+                                         plain_apply)
         got_l.append(float(st["loss"]))
         want_l.append(float(loss))
-    touched = torch.unique(s1[:8].reshape(-1)).long()
-    differ = (state.table != ref.table).any(dim=1)
+    differ = before != _row_sums(state.table)
     differ[touched] = False
     if bool(differ.any()):
         raise AssertionError(f"{int(differ.sum())} rows no step touched "
-                             f"differ from the reference")
-    a, b = state.table[touched].float(), ref.table[touched].float()
+                             f"changed")
+    a, b = state.table[touched].float(), ref.table.float()
     row_err = float((a - b).abs().max())
-    loss_err = max(abs(x - y) for x, y in zip(got_l, want_l))
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(got_l, want_l))
     dense_err = max(float((state.dense[k] - ref.dense[k]).abs().max())
                     for k in ref.dense)
-    # bf16 rows within one ulp (2^-7 relative), losses within 1e-5
-    if loss_err > 1e-5 or not torch.allclose(a, b, rtol=2 ** -7, atol=0):
+    if loss_err > 1e-5 or dense_err > 1e-5 \
+            or not torch.allclose(a, b, rtol=2 ** -7, atol=0):
         raise AssertionError(f"training differs from the plain-kernel "
-                             f"reference: loss {loss_err}, rows {row_err}")
-    identical = bool(torch.equal(state.table, ref.table))
-    del ref, a, b, differ
-    out = {"phase": "train", "table_shape": list(state.table.shape),
+                             f"reference: loss {loss_err}, rows {row_err}, "
+                             f"dense {dense_err}")
+    identical = bool(torch.equal(state.table[touched], ref.table))
+    del ref, a, b, differ, before
+    out = {"phase": label, "model": eng.model.name, "batch": B,
+           "table_shape": list(state.table.shape),
            "table_dtype": str(state.table.dtype), "optimizer": "sgd",
            "lr": eng.cfg.learning_rate, "steps_timed": 3 * K,
-           "chunk_s": times, "train_examples_per_s": K * BATCH / med,
+           "chunk_s": times, "train_examples_per_s": K * B / med,
            "step_ms_median": med / K * 1e3, "launches": launches,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
            "peak_mem_gb": peak, "step_profile": profile,
-           "reference_steps": 8, "reference_loss_max_err": loss_err,
+           "reference_steps": 8, "reference_loss_max_rel_err": loss_err,
            "reference_row_max_err": row_err,
            "reference_dense_max_err": dense_err,
-           "reference_table_identical": identical,
+           "reference_touched_rows_identical": identical,
            "touched_rows": int(touched.numel())}
     emit(out)
     return out
@@ -779,8 +852,7 @@ def phase_train_adam() -> dict:
     losses = stats["loss"].cpu()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    want = {"embedding_gather": 8 * 4, "hot_onehot_gather": 0,
-            "hot_onehot_push": 8, "rows_scatter_add": 0}
+    want = _want({"embedding_gather": 4, "hot_onehot_push": 1}, 8)
     if launches != want:
         raise AssertionError(f"the adam path launched {launches}, expected "
                              f"{want}")
@@ -858,32 +930,8 @@ def phase_launch() -> dict:
         dense, sparse, _ = synthetic_ctr_data(eng.model.spec, BATCH, seed=3,
                                               num_rows=rows)
         want = eng.predict(a, dense, sparse).cpu().numpy()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt",
-             str(tmp / "whole"), "--config", str(tmp / "cfg.json"),
-             "--rows", str(rows), "--port", "0"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        try:
-            seen = []
-            for line in proc.stdout:
-                seen.append(line)
-                m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)",
-                              line)
-                if m:
-                    break
-            else:
-                raise AssertionError("serve entry point did not start:\n"
-                                     + "".join(seen))
-            code, resp = _request(f"http://127.0.0.1:{m.group(1)}/score",
-                                  {"dense": dense.tolist(),
-                                   "sparse": sparse.tolist()})
-            assert code == 200, (code, resp)
-            served = np.asarray(resp["probs"], np.float32)
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-            proc.stdout.close()
+        served = _served_by_entry_point(tmp / "whole", tmp / "cfg.json",
+                                        rows, dense, sparse)
         if not np.array_equal(served, want):
             raise AssertionError(f"served scores differ from Engine.predict "
                                  f"by {np.abs(served - want).max()}")
@@ -921,19 +969,19 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def _sched_setup(pinned: int):
-    """bench_scheduled's configuration at full width, with the program
-    widths sized from a host probe pass (bench.py:130-151): data, config,
-    engine. With a pinned tier the ids are frequency-remapped first, as
-    the launcher does."""
-    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
-                       embedding_dim=EMB, learning_rate=0.01,
-                       table_dtype=torch.bfloat16, use_cache=True,
-                       use_scheduler=True, cache_limit_ratio=0.1,
-                       pinned_rows=pinned)
+def _sched_setup(pinned: int, model="wdl_criteo", batch=BATCH, emb=EMB,
+                 iters=SCHED_ITERS):
+    """bench_scheduled's configuration at full width (or `model` at its
+    own), with the program widths sized from a host probe pass
+    (bench.py:130-151): data, config, engine. With a pinned tier the ids
+    are frequency-remapped first, as the launcher does."""
+    cfg = HeraldConfig(model=model, batch_size=batch, embedding_dim=emb,
+                       learning_rate=0.01, table_dtype=torch.bfloat16,
+                       use_cache=True, use_scheduler=True,
+                       cache_limit_ratio=0.1, pinned_rows=pinned)
     spec = DATASETS["criteo"]
     dense, sparse, labels = synthetic_ctr_data(
-        spec, BATCH * SCHED_ITERS, seed=0, num_rows=FULL_ROWS)
+        spec, batch * iters, seed=0, num_rows=FULL_ROWS)
     if pinned:
         sparse, _ = frequency_remap(sparse, FULL_ROWS)
     data = (dense.astype(np.float32), sparse.astype(np.int32),
@@ -950,12 +998,13 @@ def _sched_setup(pinned: int):
     return cfg, eng, data, time.perf_counter() - t0
 
 
-def _expected_launches(tape, steps: int, pinned: bool) -> dict:
+def _expected_launches(tape, steps: int, pinned: bool, fm=False) -> dict:
     """Each kernel's launches over the first `steps` steps of a program
     stream: per step one K1 read of the cache slots and one K3 sum of the
     grads; one K1 pull on a step with pulls or prefetches; two K1 reads
     (cache rows, table rows; SGD keeps no table slots) on a step with
-    flushes; with a pinned tier one K4 read and a second K3 sum."""
+    flushes; with a pinned tier one K4 read and a second K3 sum; for an
+    FM model one K5 forward and one K5 backward per step."""
     fids, pulls, pfids = (np.asarray(tape[k][:steps])
                           for k in ("fids", "pulls", "pfids"))
     has_flush = (fids >= 0).any(axis=1)
@@ -965,6 +1014,8 @@ def _expected_launches(tape, steps: int, pinned: bool) -> dict:
             "hot_onehot_gather": steps if pinned else 0,
             "hot_onehot_push": steps * (2 if pinned else 1),
             "rows_scatter_add": 0,
+            "fm_second_order": steps if fm else 0,
+            "fm_second_order_backward": steps if fm else 0,
             "steps_with_flush": int(has_flush.sum()),
             "steps_with_pull": int(has_pull.sum())}
 
@@ -1045,17 +1096,91 @@ def _eval_after_sync(eng, state) -> dict:
     return ev
 
 
+def _tape_run(eng, data, tmp: Path, iters: int, epochs: int,
+              fm=False) -> dict:
+    """Tape mode of a scheduled phase: a plan tape of epochs + 1 epochs
+    recorded with plan_cache, every chunk of 32 staged ahead in direct
+    feed, `epochs` counted epochs timed to a readback of their last loss
+    (bench.py:236-239; the best warm epoch is the rate), then one more
+    epoch whose first chunks count the host's waits for the card (sync
+    debug mode) and whose other chunks are profiled; then sync_cache and
+    evaluate."""
+    dense, sparse, labels = data
+    total, counted = (epochs + 1) * iters, epochs * iters
+    per_epoch = iters // 32
+    batch = eng.cfg.batch_size
+    out = {}
+    t0 = time.perf_counter()
+    planner = plan_cache(eng, sparse, str(tmp / "tape"), epochs=epochs + 1)
+    out["tape_record_s"] = time.perf_counter() - t0
+    tape = {k: np.load(tmp / "tape" / f"{k}.npy", mmap_mode="r")
+            for k in ("fids", "pulls", "pfids")}
+    want = _expected_launches(tape, counted, pinned=False, fm=fm)
+    torch.cuda.reset_peak_memory_stats()
+    holder = [eng.init_cached_state(0)]
+    t0 = time.perf_counter()
+    staged = eng.stage_program_chunks(planner, 32, raw=data)
+    torch.cuda.synchronize()
+    out["tape_stage_s"] = time.perf_counter() - t0
+    assert len(staged) == total // 32, len(staged)
+
+    def run_chunk(i):
+        holder[0], stats = eng.train_epoch_staged(holder[0], staged[i])
+        return stats
+
+    def tape_epoch(e):
+        pending = [run_chunk(e * per_epoch + c) for c in range(per_epoch)]
+        return {"loss": torch.cat([p["loss"] for p in pending]),
+                "overflow": torch.cat([p["overflow"] for p in pending])}
+
+    for k in KERNELS.values():
+        k.launches = 0
+    epochs_out = []
+    times, _ = _epochs_timed(
+        lambda e: epochs_out.append(tape_epoch(e)) or epochs_out[-1], epochs)
+    launches = _check_launches(f"the {eng.model.name} scheduled path "
+                               f"(tape)", want)
+    overflow = int(sum(int(o["overflow"].sum()) for o in epochs_out))
+    losses = torch.cat([o["loss"] for o in epochs_out]).cpu()
+    if overflow or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"tape run: overflow {overflow}, finite "
+                             f"{bool(torch.isfinite(losses).all())}")
+    warm = times[2:] if eng.nopull_chunks else times[1:]
+    chunks = {"full": epochs * per_epoch - eng.noflush_chunks,
+              "flush_free": eng.noflush_chunks - eng.nopull_chunks,
+              "pull_free": eng.nopull_chunks}
+    base, n_wait = epochs * per_epoch, max(1, per_epoch // 4)
+    waits, sites = _count_host_waits(lambda: [run_chunk(base + c)
+                                              for c in range(n_wait)])
+    profile = _profile_chunks(lambda i: run_chunk(base + n_wait + i),
+                              per_epoch - n_wait, 32)
+    profile["host_waits_per_step"] = waits / (32 * n_wait)
+    profile["host_wait_sites"] = sites
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = eng.sync_cache(holder[0], planner)
+    del holder, staged, epochs_out
+    out.update({
+        "scheduled_examples_per_s": batch * iters / min(warm),
+        "epoch_examples_per_s": [batch * iters / t for t in times],
+        "epoch_s": times, "step_ms": min(warm) / iters * 1e3,
+        "chunks_tape": chunks, "launches_tape": launches,
+        "expected_tape": want, "overflow": overflow,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "cache": cache_report(planner, total, eng.ids_per_worker),
+        "step_profile": profile, "peak_mem_gb": peak,
+        "evaluate": _eval_after_sync(eng, state)})
+    planner.close()
+    return out
+
+
 def phase_scheduled() -> dict:
     """The scheduled engine at bench_scheduled's full width, two modes.
-    Tape: a plan tape recorded with plan_cache, every chunk of 32 staged
-    ahead in direct feed, epochs timed to a readback of their last loss.
-    Live: the planner in situ, stage_dataset (index feed), chunks of 64,
-    a queue of 256. Each mode runs SCHED_EPOCHS timed epochs (the counted
-    main path) and one more: tape mode profiles it, live mode drains the
-    stream with it. Then sync_cache and evaluate."""
+    Tape: `_tape_run`. Live: the planner in situ, stage_dataset (index
+    feed), chunks of 64, a queue of 256, SCHED_EPOCHS timed epochs (the
+    counted main path) and one more that drains the stream. Then
+    sync_cache and evaluate."""
     cfg, eng, (dense, sparse, labels), probe_s = _sched_setup(0)
     total = (SCHED_EPOCHS + 1) * SCHED_ITERS
-    counted = SCHED_EPOCHS * SCHED_ITERS
     out = {"phase": "scheduled", "probe_s": probe_s,
            "cache_rows": eng.cache_rows, "U_cap": eng.U_cap,
            "F_cap": eng.F_cap, "P_cap": eng.P_cap,
@@ -1063,77 +1188,9 @@ def phase_scheduled() -> dict:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         # --- tape mode ---
-        t0 = time.perf_counter()
-        planner = plan_cache(eng, sparse, str(Path(tmp) / "tape"),
-                             epochs=SCHED_EPOCHS + 1)
-        out["tape_record_s"] = time.perf_counter() - t0
-        tape = {k: np.load(Path(tmp) / "tape" / f"{k}.npy", mmap_mode="r")
-                for k in ("fids", "pulls", "pfids")}
-        want = _expected_launches(tape, counted, pinned=False)
-        torch.cuda.reset_peak_memory_stats()
-        state = eng.init_cached_state(0)
-        t0 = time.perf_counter()
-        staged = eng.stage_program_chunks(planner, 32,
-                                          raw=(dense, sparse, labels))
-        torch.cuda.synchronize()
-        out["tape_stage_s"] = time.perf_counter() - t0
-        assert len(staged) == total // 32, len(staged)
-        per_epoch = SCHED_ITERS // 32
-        holder = [state]
-
-        def run_chunk(i):
-            holder[0], stats = eng.train_epoch_staged(holder[0], staged[i])
-            return stats
-
-        def tape_epoch(e):
-            pending = [run_chunk(e * per_epoch + c)
-                       for c in range(per_epoch)]
-            return {"loss": torch.cat([p["loss"] for p in pending]),
-                    "overflow": torch.cat([p["overflow"]
-                                           for p in pending])}
-
-        for k in KERNELS.values():
-            k.launches = 0
-        epochs_out = []
-        times, last = _epochs_timed(
-            lambda e: epochs_out.append(tape_epoch(e)) or epochs_out[-1],
-            SCHED_EPOCHS)
-        launches = _check_launches("the scheduled path (tape)", want)
-        overflow = int(sum(int(o["overflow"].sum()) for o in epochs_out))
-        losses = torch.cat([o["loss"] for o in epochs_out]).cpu()
-        if overflow or not bool(torch.isfinite(losses).all()):
-            raise AssertionError(f"tape run: overflow {overflow}, finite "
-                                 f"{bool(torch.isfinite(losses).all())}")
-        warm = times[2:] if eng.nopull_chunks else times[1:]
-        chunks_tape = {"full": SCHED_EPOCHS * per_epoch
-                       - eng.noflush_chunks,
-                       "flush_free": eng.noflush_chunks - eng.nopull_chunks,
-                       "pull_free": eng.nopull_chunks}
-        # one more epoch, profiled, with PyTorch's sync debug mode counting
-        # the host's waits for the card
-        base = SCHED_EPOCHS * per_epoch
-        waits, sites = _count_host_waits(lambda: [run_chunk(base + c)
-                                                  for c in range(2)])
-        profile = _profile_chunks(lambda i: run_chunk(base + 2 + i),
-                                  per_epoch - 2, 32)
-        profile["host_waits_per_step"] = waits / 64
-        profile["host_wait_sites"] = sites
-        state = eng.sync_cache(holder[0], planner)
-        del holder, staged, epochs_out
-        out.update({
-            "scheduled_examples_per_s": BATCH * SCHED_ITERS / min(warm),
-            "epoch_examples_per_s": [BATCH * SCHED_ITERS / t
-                                     for t in times],
-            "epoch_s": times, "step_ms": min(warm) / SCHED_ITERS * 1e3,
-            "chunks_tape": chunks_tape, "launches_tape": launches,
-            "expected_tape": want, "overflow": overflow,
-            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-            "cache": cache_report(planner, total, eng.ids_per_worker),
-            "step_profile": profile,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "evaluate": _eval_after_sync(eng, state)})
-        planner.close()
-        del state
+        out.update(_tape_run(eng, (dense, sparse, labels), Path(tmp),
+                             SCHED_ITERS, SCHED_EPOCHS))
+        want = out["expected_tape"]
         _free()
 
         # --- live mode: the same stream, planned in situ ---
@@ -1481,32 +1538,8 @@ def phase_launch_scheduled() -> dict:
         dense, sparse, _ = synthetic_ctr_data(eng.model.spec, BATCH, seed=3,
                                               num_rows=rows)
         want = eng.predict(synced, dense, sparse).cpu().numpy()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "herald_tpu_torch.serve", "--ckpt",
-             str(tmp / "part"), "--config", str(tmp / "cfg.json"),
-             "--rows", str(rows), "--port", "0"],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        try:
-            seen = []
-            for line in proc.stdout:
-                seen.append(line)
-                m = re.search(r"serving .* at http://127\.0\.0\.1:(\d+)",
-                              line)
-                if m:
-                    break
-            else:
-                raise AssertionError("serve entry point did not start:\n"
-                                     + "".join(seen))
-            code, resp = _request(f"http://127.0.0.1:{m.group(1)}/score",
-                                  {"dense": dense.tolist(),
-                                   "sparse": sparse.tolist()})
-            assert code == 200, (code, resp)
-            served = np.asarray(resp["probs"], np.float32)
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-            proc.stdout.close()
+        served = _served_by_entry_point(tmp / "part", tmp / "cfg.json",
+                                        rows, dense, sparse)
         serve_err = float(np.abs(served - want).max())
         # the overlay widens rows and deltas to f32 before the update;
         # the flush rounds the delta to bf16 first: a row can land one
@@ -1528,6 +1561,204 @@ def phase_launch_scheduled() -> dict:
     emit(out)
     return out
 
+
+
+# ----------------------------------------------------------------------
+# DeepFM: dfm_criteo at batch 1024, embedding 512 over the full table
+# (BASELINE.md:26-27, benchmarks/secondary_sweep.py:29), with K5
+# ----------------------------------------------------------------------
+
+DFM, DFM_BATCH, DFM_EMB = "dfm_criteo", 1024, 512
+DFM_ITERS, DFM_EPOCHS = 64, 3
+DFM_SERVE = {"embedding_gather": 1, "fm_second_order": 1}
+DFM_TRAIN = {"embedding_gather": 1, "hot_onehot_push": 1,
+             "rows_scatter_add": 1, "fm_second_order": 1,
+             "fm_second_order_backward": 1}
+
+
+def _fm_cases(views):
+    """(label, emb) cases on the card: the shape of
+    tests/test_pallas_kernels.py:39-46, a B no multiple of 128, the
+    2nd-order view of [B, F, D+1] activations (storage offset 1), f32 and
+    bf16, and the main path's own views."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, F, D, fused in ((128, 26, 16, False), (130, 26, 16, False),
+                               (130, 26, 16, True), (1000, 26, 512, True),
+                               (3, 2, 700, True)):
+            base = torch.randn((B, F, D + fused), generator=g,
+                               device=DEVICE).to(dt)
+            yield (f"{str(dt)[6:]} B={B} F={F} D={D}"
+                   f"{' view of D+1' if fused else ''}",
+                   base[:, :, 1:] if fused else base)
+    for i in (0, len(views) - 1):
+        yield f"main path: f32 view of dfm_criteo batch {i}", views[i]
+
+
+def phase_kernel_fm(table: torch.Tensor, sparse: np.ndarray) -> tuple:
+    """K5 forward and backward against their plain versions. Forward:
+    within 1e-6 * sum_d (s_d^2 + q_d) per sample, two launches bit-equal.
+    Backward: bit-exact against the plain version given the forward's s,
+    two launches bit-equal, and within 1e-6 * |g| * max|s| per sample (one
+    bf16 ulp more for bf16) of the plain version with s recomputed. Then
+    timed at the training shape: the 2nd-order views of the f32 [1024, 26,
+    513] activations of 8 batches of the full dfm_criteo table."""
+    k = 8
+    views = []
+    for i in range(k):
+        ids = torch.as_tensor(sparse[i * DFM_BATCH:(i + 1) * DFM_BATCH]
+                              .astype(np.int32), device=DEVICE)
+        act = embedding_gather(table, ids.reshape(-1)).reshape(
+            DFM_BATCH, -1, table.shape[1]).float()
+        views.append(act[:, :, 1:])
+    cases, fwd_err, bwd_err = 0, 0.0, 0.0
+    for label, v in _fm_cases(views):
+        out, s = fm_second_order(v, return_s=True)
+        want = fm_second_order_ref(v)
+        e = v.float()
+        scale = (e.sum(dim=1) ** 2 + (e * e).sum(dim=1)).sum(dim=1)
+        err = (out - want).abs()
+        if not bool((err <= 1e-6 * scale).all()):
+            raise AssertionError(f"fm_second_order differs from its plain "
+                                 f"version ({label}): max {float(err.max())}")
+        if not torch.equal(out, fm_second_order(v)):
+            raise AssertionError(f"fm_second_order is not deterministic "
+                                 f"({label})")
+        g = torch.randn(v.shape[0], device=DEVICE)
+        grad = fm_second_order_backward(v, g, s)
+        if not torch.equal(grad, fm_second_order_bwd_ref(v, g, s)) \
+                or not torch.equal(grad, fm_second_order_backward(v, g, s)):
+            raise AssertionError(f"fm_second_order_backward is not the "
+                                 f"plain version bit for bit, or not "
+                                 f"deterministic ({label})")
+        want_g = fm_second_order_bwd_ref(v, g).float()
+        gate = 1e-6 * (g.abs() * s.abs().amax(dim=1))[:, None, None]
+        if v.dtype == torch.bfloat16:
+            # one bf16 ulp: at most 2^-7 of the value's magnitude
+            gate = gate + 2 ** -7 * want_g.abs()
+        gerr = (grad.float() - want_g).abs()
+        if not bool((gerr <= gate).all()):
+            raise AssertionError(f"fm_second_order_backward differs from "
+                                 f"its plain version with s recomputed "
+                                 f"({label}): max {float(gerr.max())}")
+        fwd_err = max(fwd_err, float(err.max()))
+        bwd_err = max(bwd_err, float(gerr.max()))
+        cases += 1
+    torch.cuda.synchronize()
+
+    B, F, D = views[0].shape
+    g = torch.randn(B, device=DEVICE)
+    ss = [fm_second_order(v, return_s=True)[1] for v in views]
+    fns = {
+        "fwd": (lambda i: fm_second_order(views[i % k]),
+                lambda i: fm_second_order_ref(views[i % k])),
+        "bwd": (lambda i: fm_second_order_backward(views[i % k], g,
+                                                   ss[i % k]),
+                lambda i: fm_second_order_bwd_ref(views[i % k], g,
+                                                  ss[i % k]))}
+    fwd_bytes = B * F * D * 4 + B * 4
+    bwd_bytes = 2 * B * F * D * 4 + B * D * 4 + B * 4
+    out = []
+    for what, name, marker, nbytes, err in (
+            ("fwd", "fm_second_order", "fm_forward", fwd_bytes, fwd_err),
+            ("bwd", "fm_second_order_backward", "fm_backward", bwd_bytes,
+             bwd_err)):
+        kern, plain = fns[what]
+        prof_k, prof_p = device_profile(kern, k), device_profile(plain, k)
+        top_p = dict(sorted(prof_p[1].items(), key=lambda kv: -kv[1])[:4])
+        out.append({"name": name, "cases": cases, "max_abs_err": err,
+                    "shape": [B, F, D], "launches_per_shape": k,
+                    "kernel_ms": cuda_ms(kern, k),
+                    "plain_ms": cuda_ms(plain, k),
+                    "library_ms": None, "library_device_ms": None,
+                    "kernel_device_ms": _own_ms(prof_k[1], marker),
+                    "plain_device_ms": prof_p[0],
+                    "plain_top_device_ms": top_p,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "bytes_per_launch": nbytes})
+    emit({"phase": "kernel:fm_second_order", "forward": out[0],
+          "backward": out[1],
+          "bound_note": "forward: emb read once, out written once; "
+                        "backward: emb, s and g read once, grad written "
+                        "once; 3 and 2 flops an element, far below the "
+                        "f32 rate",
+          "library_note": "none: no single PyTorch call computes this "
+                          "function"})
+    del views, ss
+    return out[0], out[1]
+
+
+def phase_launch_dfm() -> dict:
+    """The entry point at the dfm configuration's full width, in a
+    subprocess: the table built in its own process (free the parent's
+    first), 96 steps in chunks of 8, the final evaluation and its report.
+    Then a 4,096-row run's checkpoint served by `python -m
+    herald_tpu_torch.serve`, equal to the Scorer on the restored state."""
+    t0 = time.perf_counter()
+    rep = _report(_run(["herald_tpu_torch.launch", "--model", DFM,
+                        "--batch-size", str(DFM_BATCH), "--embedding-size",
+                        str(DFM_EMB), "--bf16-table", "--rows",
+                        str(FULL_ROWS), "--samples", "131072",
+                        "--scan-steps", "8", "--max-steps", "96"]))
+    command_s = time.perf_counter() - t0
+    if rep["steps"] != 96 or rep["model"] != DFM \
+            or not np.isfinite(rep["train_loss_last"]) \
+            or not 0.0 <= rep["val_auc"] <= 1.0:
+        raise AssertionError(f"dfm launch report: {rep}")
+    # a 4,096-row run's checkpoint (513 wide) through the serve entry
+    # point, against Engine.predict on the restored state
+    rows = 4096
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        _run(["herald_tpu_torch.launch", "--model", DFM, "--batch-size",
+              "64", "--embedding-size", str(DFM_EMB), "--bf16-table",
+              "--rows", str(rows), "--samples", "4096", "--nepoch", "1",
+              "--lr", "0.5", "--ckpt", str(tmp / "ckpt"), "--save-config",
+              str(tmp / "cfg.json")])
+        cfg = HeraldConfig.from_json((tmp / "cfg.json").read_text())
+        eng = Engine(cfg, table_rows=rows, device=DEVICE)
+        state = load_checkpoint(str(tmp / "ckpt"), DEVICE)
+        assert tuple(state.table.shape) == (rows, DFM_EMB + 1)
+        dense, sparse, _ = synthetic_ctr_data(eng.model.spec, 150, seed=3,
+                                              num_rows=rows)
+        want = Scorer(eng, state).score(dense, sparse)
+        served = _served_by_entry_point(tmp / "ckpt", tmp / "cfg.json",
+                                        rows, dense, sparse)
+    if not np.array_equal(served, want):
+        raise AssertionError(f"served dfm scores differ from the scorer by "
+                             f"{np.abs(served - want).max()}")
+    # the launcher's StepTimer leaves out its first 5 chunks of 8 steps:
+    # the median of the other 7 is its steady step time
+    out = {"phase": "launch:dfm", "command_s": command_s,
+           "served_checkpoint_rows": rows, "served_equal_scorer": True,
+           "steady_examples_per_s": 8 * DFM_BATCH
+           / (rep["timing"]["p50_ms"] / 1e3),
+           "report": {k: rep[k] for k in (
+               "model", "steps", "train_loss_last", "val_auc", "val_acc",
+               "examples_per_sec", "timing", "device")}}
+    emit(out)
+    return out
+
+
+def phase_scheduled_dfm() -> dict:
+    """CachedEngine at the dfm configuration's full width, tape mode
+    (`_tape_run`): a cache of 10% of the rows (3,376,257 x 1,026 f32,
+    13.9 GB), program widths from a host probe pass, 64 batches of
+    synthetic_ctr_data (seed=0), DFM_EPOCHS counted epochs."""
+    cfg, eng, data, probe_s = _sched_setup(0, DFM, DFM_BATCH, DFM_EMB,
+                                           DFM_ITERS)
+    out = {"phase": "scheduled:dfm", "probe_s": probe_s,
+           "cache_rows": eng.cache_rows, "U_cap": eng.U_cap,
+           "F_cap": eng.F_cap, "P_cap": eng.P_cap,
+           "cache_gb": eng.cache_rows * 2 * eng.width * 4 / 1e9}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        out.update(_tape_run(eng, data, Path(tmp), DFM_ITERS, DFM_EPOCHS,
+                             fm=True))
+    _free()
+    emit(out)
+    return out
 
 
 def _entry(name, route_src, replaces, by_path, k) -> dict:
@@ -1579,9 +1810,34 @@ def main() -> None:
     del hot, uniqs
     _free()
     phase_launch_scheduled()
+
+    # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
+    torch.cuda.reset_peak_memory_stats()
+    cfg = HeraldConfig(model=DFM, batch_size=DFM_BATCH,
+                       embedding_dim=DFM_EMB, table_dtype=torch.bfloat16,
+                       learning_rate=0.01)
+    eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+    state = eng.init_state(0)
+    assert tuple(state.table.shape) == (33_762_584, DFM_EMB + 1)
+    _, sparse, _ = synthetic_ctr_data(eng.model.spec, 8 * DFM_BATCH, seed=0,
+                                      num_rows=FULL_ROWS)
+    k5, k5b = phase_kernel_fm(state.table, sparse)
+    _free()
+    serve_dfm = phase_serve(eng, state, "serve:dfm", plain_dfm_apply,
+                            DFM_SERVE, tol=1e-5)
+    train_dfm = phase_train(eng, state, "train:dfm", 32, plain_dfm_apply,
+                            DFM_TRAIN)
+    del state, eng
+    _free()
+    phase_launch_dfm()
+    sched_dfm = phase_scheduled_dfm()
+
     paths = {"serve": serve["launches"], "train": train["launches"],
              "scheduled": sched["launches_tape"],
-             "scheduled:pinned": pinned["launches"]}
+             "scheduled:pinned": pinned["launches"],
+             "serve:dfm": serve_dfm["launches"],
+             "train:dfm": train_dfm["launches"],
+             "scheduled:dfm": sched_dfm["launches_tape"]}
 
     def by_path(name):
         return {p: counts[name] for p, counts in paths.items()}
@@ -1594,7 +1850,11 @@ def main() -> None:
         _entry("rows_scatter_add", "rows_scatter_add.cu", 183,
                by_path("rows_scatter_add"), k2),
         _entry("hot_onehot_gather", "hot_onehot_gather.cu", 234,
-               by_path("hot_onehot_gather"), k4)]})
+               by_path("hot_onehot_gather"), k4),
+        _entry("fm_second_order", "fm_second_order.cu", 309,
+               by_path("fm_second_order"), k5),
+        _entry("fm_second_order_backward", "fm_second_order.cu", 309,
+               by_path("fm_second_order_backward"), k5b)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,14 @@
 
     python -m herald_tpu_torch.launch --model wdl_criteo --bf16-table \
         --nepoch 1 --batch-size 256 --embedding-size 128 [--device cuda|cpu]
+    python -m herald_tpu_torch.launch --model dfm_criteo --bf16-table \
+        --batch-size 1024 --embedding-size 512 --rows 33762577
     python -m herald_tpu_torch.launch --scheduled [--pinned-rows P \
         --plan-cache DIR --device-data --autosize] [--device cuda|cpu]
 
-The flags are herald_tpu.launch's, plus `--device`. Two of its branches
-are ported:
+The flags are herald_tpu.launch's, plus `--device`; `--model` takes every
+name of `herald_tpu_torch.models.available_models()` except the `fae_*`
+ones, which need the FAE engine. Two of its branches are ported:
 - the plain local trainer (`cli.py:1126-1238`): init or `--resume`,
   chunks of `--scan-steps` steps through `Engine.train_epoch`, checkpoints
   at `--ckpt-every` crossings and at the end, `--max-steps`, a validation
@@ -309,11 +312,18 @@ _NOT_PORTED = (
 
 
 def _refuse_unported(args, cfg) -> None:
+    from herald_tpu_torch.models import get_model
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(
                 f"{flag} is not ported to herald_tpu_torch yet "
                 f"(ROADMAP queue 1, {item})")
+    if get_model(cfg.model).train_engine == "fae":
+        # herald_tpu.launch trains a fae_* model as if given --fae
+        raise NotImplementedError(
+            f"--model {cfg.model} trains on the FAE engine (it implies "
+            f"--fae), which is not ported to herald_tpu_torch yet "
+            f"(ROADMAP queue 1, item 11 (FAE engine))")
     if cfg.mp_shards > 1:
         raise NotImplementedError(
             "--mp-shards > 1 is not ported to herald_tpu_torch yet "

@@ -3,7 +3,9 @@
 A model is a pair of plain functions over a flat dict of tensors: the
 engine owns the embedding table and hands the tower the looked-up
 activations `emb [B, F, W]` plus the dense features; `apply` returns
-logits [B]. The registry holds only the models this port has.
+logits [B]. The registry holds every model of the JAX package and the
+four `fae_*` aliases (`models/__init__.py`). The tensor-parallel fields
+`tp_plan` and `apply_tp` come with ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -51,10 +53,16 @@ class ModelDef:
 
     name: str
     spec: DatasetSpec
+    # table width given the configured embedding dim (DeepFM fuses its
+    # 1st- and 2nd-order tables into one [rows, D+1] table)
     emb_width: Callable[[int], int]
     init_dense: Callable[..., Dict]       # (gen, emb_dim) -> params
     apply: Callable[..., torch.Tensor]    # (params, emb, dense) -> logits [B]
+    default_lr: float = 0.01
     num_embed_rows: Optional[int] = None  # override spec.num_embed_rows
+    # "engine" (the default) or "fae": the hot/cold FAE engine, which the
+    # launcher refuses until it is ported (ROADMAP queue 1 item 11)
+    train_engine: str = "engine"
 
     @property
     def table_rows(self) -> int:
@@ -74,8 +82,7 @@ def get_model(name: str) -> ModelDef:
     import herald_tpu_torch.models  # noqa: F401
     if name not in _REGISTRY:
         raise ValueError(
-            f"model {name!r} is not ported to herald_tpu_torch yet; "
-            f"available: {sorted(_REGISTRY)}")
+            f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

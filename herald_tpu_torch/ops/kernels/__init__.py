@@ -2,6 +2,13 @@
 package (`herald_tpu/ops/pallas/kernels.py`), each with its plain PyTorch
 version and a launch counter. Built at first use (`build.py`)."""
 
+from herald_tpu_torch.ops.kernels.fm import (
+    FMSecondOrder,
+    fm_second_order,
+    fm_second_order_backward,
+    fm_second_order_bwd_ref,
+    fm_second_order_ref,
+)
 from herald_tpu_torch.ops.kernels.gather import (
     embedding_gather,
     embedding_gather_ref,
@@ -23,4 +30,6 @@ from herald_tpu_torch.ops.kernels.segment import (
 KERNELS = {"embedding_gather": embedding_gather,
            "hot_onehot_gather": hot_onehot_gather,
            "hot_onehot_push": hot_onehot_push,
-           "rows_scatter_add": rows_scatter_add}
+           "rows_scatter_add": rows_scatter_add,
+           "fm_second_order": fm_second_order,
+           "fm_second_order_backward": fm_second_order_backward}

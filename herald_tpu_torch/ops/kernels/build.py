@@ -20,8 +20,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("embedding_gather", "hot_onehot_gather", "hot_onehot_push",
-           "rows_scatter_add")
+SOURCES = ("embedding_gather", "fm_second_order", "hot_onehot_gather",
+           "hot_onehot_push", "rows_scatter_add")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -2,7 +2,8 @@
 against herald_tpu's `CachedEngine`: one bridged JAX state, and one
 planner stream (each engine's own planner over the same ids, which the
 planner makes identical: tests/test_torch_planner.py) or one plan tape,
-fed into both (wdl_criteo, 2,000 rows, embedding 8, batch 32).
+fed into both (wdl_criteo, and dfm_criteo for its 9-wide rows; 2,000
+rows, embedding 8, batch 32).
 
 Tolerances:
 - f32 table: per-step loss within 1e-6; cache (both planes), table, hot
@@ -155,6 +156,25 @@ def test_cached_steps_match_jax(case, dt):
     if case == "pinned":
         # the hot block is written back into the table's rows [0, P)
         assert torch.equal(st.table[:64], st.hot_table)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_dfm_cached_steps_match_jax(dt):
+    """DeepFM (dfm_criteo, width 9, the FM term through K5's plain
+    versions) under heavy eviction, so every phase moves 9-wide rows."""
+    jeng, jst, eng, st = _engines(table_dtype=_DT[dt], model="dfm_criteo",
+                                  cache_limit=900)
+    d, s, y = _data(B * 8)
+    jp = jeng.make_planner(s, epochs=1, n_threads=1)
+    tp = eng.make_planner(s, epochs=1, n_threads=1)
+    for i in range(jp.batch_num):
+        jst, jstats = jeng.train_step_cached(jst, jp, d, s, y)
+        st, stats = eng.train_step_cached(st, tp, d, s, y)
+        tol = 1e-6 if dt == "f32" else 1e-5
+        assert abs(float(stats["loss"]) - float(jstats["loss"])) <= tol, i
+    assert st.cache.shape[1] == 18 and tp.perf()["miss_push"] > 0
+    _close_state(st, jst, dt, W=9)
+    _close_state(eng.sync_cache(st, tp), jeng.sync_cache(jst, jp), dt, W=9)
 
 
 def test_pinned_adagrad_matches_jax():

@@ -47,6 +47,10 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "import herald_tpu_torch.utils.profiler\n"
             "import herald_tpu_torch.train.cached\n"
             "import herald_tpu_torch.ops.kernels.hot_gather\n"
+            "import herald_tpu_torch.ops.kernels.fm\n"
+            "import herald_tpu_torch.models.dfm, herald_tpu_torch.models.dcn\n"
+            "import herald_tpu_torch.models.linear\n"
+            "import herald_tpu_torch.models.misc\n"
             "import herald_tpu_torch.sched.build\n"
             "import herald_tpu_torch.sched.planner\n"
             "import herald_tpu_torch.sched.sizing\n"

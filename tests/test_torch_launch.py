@@ -111,9 +111,22 @@ def test_jax_adam_checkpoint_resumed_by_the_port(tmp_path):
 
 
 def test_resume_across_a_checkpoint_is_bit_exact(tmp_path):
-    common = ["--bf16-table", "--lr", "0.5", "--nepoch", "2",
-              "--scan-steps", "4"]
+    _resume_is_bit_exact(tmp_path, "wdl_criteo")
+
+
+def test_dfm_trains_and_resumes_bit_exact(tmp_path):
+    """DeepFM through the launcher: its fused [rows, 9] table and the FM
+    term (K5's plain versions on the CPU)."""
+    a = _resume_is_bit_exact(tmp_path, "dfm_criteo")
+    assert a.table.shape == (ROWS, 9)
+    assert set(a.dense) == {"W1", "W2", "W3", "FM_W"}
+
+
+def _resume_is_bit_exact(tmp_path, model):
+    common = ["--model", model, "--bf16-table", "--lr", "0.5", "--nepoch",
+              "2", "--scan-steps", "4"]
     whole = _port(common + ["--ckpt", str(tmp_path / "whole")])
+    assert whole["model"] == model and np.isfinite(whole["train_loss_last"])
     first = _port(common + ["--ckpt", str(tmp_path / "part"),
                             "--ckpt-every", "30", "--max-steps", "100"])
     assert first["steps"] == 100 and first["stopped_early"]
@@ -128,6 +141,7 @@ def test_resume_across_a_checkpoint_is_bit_exact(tmp_path):
     assert torch.equal(a.table, b.table)
     assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)
     assert a.dense_slots == b.dense_slots == {k: {} for k in a.dense}
+    return a
 
 
 def test_log_dir_writes_report_losses_and_trace(tmp_path):
@@ -153,6 +167,7 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
     (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
     (["--int8-flush"], "--int8-flush"),
     (["--platform", "cpu"], "--platform"),
+    (["--model", "fae_dfm_avazu"], "fae_dfm_avazu.*item 11"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:

@@ -31,17 +31,17 @@ ROWS = 1200
 B = 16
 
 
-def _data(n, seed):
-    return synthetic_ctr_data(get_model("wdl_criteo").spec, n, seed=seed,
+def _data(n, seed, model="wdl_criteo"):
+    return synthetic_ctr_data(get_model(model).spec, n, seed=seed,
                               num_rows=ROWS)
 
 
-def _jax_trained(tmp_path, table_dtype=np.float32, **kw):
-    cfg = JaxConfig(model="wdl_criteo", batch_size=B, embedding_dim=8,
+def _jax_trained(tmp_path, table_dtype=np.float32, model="wdl_criteo", **kw):
+    cfg = JaxConfig(model=model, batch_size=B, embedding_dim=8,
                     comm_mode="local", learning_rate=0.5,
                     table_dtype=table_dtype, **kw)
     eng = JaxEngine(cfg, table_rows=ROWS)
-    dense, sparse, labels = _data(B * 6, seed=3)
+    dense, sparse, labels = _data(B * 6, seed=3, model=model)
     state, _ = eng.train_epoch(eng.init_state(0), dense, sparse, labels)
     ckpt = str(tmp_path / "ckpt")
     jax_save_checkpoint(state, ckpt)
@@ -90,6 +90,39 @@ def test_jax_bf16_checkpoint_loads_bit_exact(tmp_path):
                       device="cpu").score(dense[:B], sparse[:B])
     want = np.asarray(jeng.predict(jst, dense[:B], sparse[:B]))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_jax_dfm_checkpoint_serves_jax_scores(tmp_path, dt):
+    """A trained JAX DeepFM (table width 9, the FM term through K5's plain
+    version here) serves the JAX scores. JAX cannot restore its own bf16
+    checkpoint (ROADMAP queue 3), so there the reference is its predict
+    on the trained state."""
+    jcfg, jeng, jst, ckpt, dense, sparse = _jax_trained(
+        tmp_path, table_dtype=jnp.bfloat16 if dt == "bf16" else np.float32,
+        model="dfm_criteo")
+    n = 2 * B + 5
+    if dt == "f32":
+        want = jax_load_scorer(ckpt, jcfg, table_rows=ROWS).score(
+            dense[:n], sparse[:n])
+    else:
+        want = np.concatenate([
+            np.asarray(jeng.predict(jst, *_padded(dense, sparse, i, n)))
+            for i in range(0, n, B)])[:n]
+    scorer = load_scorer(ckpt, _port_cfg(jcfg), table_rows=ROWS,
+                         device="cpu")
+    assert scorer.state.table.shape == (ROWS, 9)
+    got = scorer.score(dense[:n], sparse[:n])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _padded(dense, sparse, i, n):
+    """Rows [i, min(i + B, n)) padded to B by repeating the last, as the
+    Scorer pads."""
+    d, s = dense[i:min(i + B, n)], sparse[i:min(i + B, n)]
+    pad = B - len(s)
+    return (np.concatenate([d, np.repeat(d[-1:], pad, axis=0)]),
+            np.concatenate([s, np.repeat(s[-1:], pad, axis=0)]))
 
 
 def test_port_checkpoint_restores_bit_exact_in_jax(tmp_path):

@@ -11,8 +11,9 @@ Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, train:adam, launch, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, kernel:fm_second_order,
-serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the kernels summary, the
-card's name and power limit, and last {"ok": true, "device": {...}}.
+kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
+kernels summary, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 Every phase that fails raises: the script then exits non-zero and prints
 no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda),
 g++ and this checkout; it uses no network beyond 127.0.0.1.
@@ -28,7 +29,9 @@ program widths sized from a host probe pass.
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
 fused to 513 columns (34.64 GB in bfloat16): K5 (fm_second_order, forward
-and backward) against its plain versions, serving, SGD training at lr
+and backward) against its plain versions, K1 and K2 timed at width 513
+(K3 is timed at dfm's shape in its own phase, before the dfm table
+exists), serving, SGD training at lr
 0.01 (8 steps held against the plain versions of K1, K2, K3 and K5), the
 launcher, and the scheduled engine with a 10% cache (13.86 GB).
 """
@@ -55,7 +58,7 @@ import torch
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.data import (DATASETS, frequency_remap,
                                    synthetic_ctr_data)
-from herald_tpu_torch.models import bce_with_logits
+from herald_tpu_torch.models import bce_with_logits, get_model
 from herald_tpu_torch.models.base import mlp_apply
 from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
                                           embedding_gather_ref,
@@ -222,7 +225,15 @@ def phase_kernel(table: torch.Tensor, batches) -> dict:
                                  f"plain version ({label}): max {err}")
         worst = max(worst, err)
         cases.append(label)
+    out = {"name": "embedding_gather", "cases": len(cases),
+           "max_abs_err": worst, **_gather_timing(table, batches)}
+    emit({"phase": "kernel:embedding_gather", **out})
+    return out
 
+
+def _gather_timing(table: torch.Tensor, batches) -> dict:
+    """K1 on the full table, each launch on the unique ids of another
+    batch: events, device time, plain version and `index_select`."""
     k = len(batches)
     mean_n = sum(int(b.numel()) for b in batches) / k
     row_bytes = table.shape[1] * table.element_size()
@@ -240,17 +251,14 @@ def phase_kernel(table: torch.Tensor, batches) -> dict:
         for what, f in (("kernel", embedding_gather),
                         ("plain", embedding_gather_ref),
                         ("library", lambda t, i: torch.index_select(t, 0, i)))}
-    out = {"name": "embedding_gather", "cases": len(cases),
-           "max_abs_err": worst, "batches": k, "mean_unique_ids": mean_n,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
-           "kernel_device_ms": device_ms["kernel"],
-           "plain_device_ms": device_ms["plain"],
-           "library_device_ms": device_ms["library"],
-           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "bytes_per_launch": bytes_moved}
-    emit({"phase": "kernel:embedding_gather", **out})
-    return out
+    return {"batches": k, "width": table.shape[1], "mean_unique_ids": mean_n,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "kernel_device_ms": device_ms["kernel"],
+            "plain_device_ms": device_ms["plain"],
+            "library_device_ms": device_ms["library"],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved}
 
 
 def _own_ms(per: dict, marker: str):
@@ -259,9 +267,34 @@ def _own_ms(per: dict, marker: str):
     return ms or None
 
 
-def _push_cases(inverses, uniques):
+def _inverses(sparse: np.ndarray, batch: int, k: int):
+    """The unique ids (int32, on the card), inverses (int64, on the card)
+    and unique counts of k batches, computed with numpy."""
+    batches, inverses, uniques = [], [], []
+    for i in range(k):
+        u, inv = np.unique(sparse[i * batch:(i + 1) * batch].reshape(-1),
+                           return_inverse=True)
+        batches.append(torch.as_tensor(u.astype(np.int32), device="cuda"))
+        inverses.append(torch.as_tensor(inv.reshape(-1), device="cuda"))
+        uniques.append(len(u))
+    return batches, inverses, uniques
+
+
+# K3's kernels, as torch.profiler names them
+K3_KERNELS = ("count_ids", "alloc_segments", "place_positions", "sort_big",
+              "sum_segments")
+
+
+def _k3_ms(per: dict):
+    """Device ms of K3's own kernels in a profile (its scratch memset is a
+    fill kernel that other zeros share)."""
+    return sum(v for name, v in per.items()
+               if any(m in name for m in K3_KERNELS)) or None
+
+
+def _push_cases(inverses, uniques, dfm_inverses, dfm_uniques):
     """(label, ids, grads_ints, grads_random, num_rows) cases on the
-    card, f32 and bf16 grads."""
+    card: f32 and bf16 grads, int32 and int64 ids."""
     rng = np.random.default_rng(1)
     g = torch.Generator(device="cuda").manual_seed(1)
     shapes = []
@@ -280,33 +313,87 @@ def _push_cases(inverses, uniques):
                         3000 + rng.integers(0, 100, bad.sum()))
     shapes.append(("H=3000 D=128 N=6656 10% out of range", ids, 3000, 128))
     shapes.append(("H=700 D=128 N=0", np.zeros(0, np.int64), 700, 128))
+    # num_rows > N: most rows have no position and are written as zeros
+    shapes.append(("H=4096 D=128 N=500 empty rows",
+                   rng.integers(0, 4096, 500), 4096, 128))
+    # one id at 3,000 of 6,656 positions: sorted in shared memory (more
+    # than the 512 a piece ranks itself)
+    ids = rng.integers(0, 3000, 6656)
+    ids[rng.permutation(6656)[:3000]] = 11
+    shapes.append(("H=3000 D=128 N=6656 one id at 3000", ids, 3000, 128))
+    # one segment of every position at dfm's width: 832 pieces of 32,
+    # sorted in device memory (more than the 8,192 a block sorts in
+    # shared memory)
+    n_dfm = dfm_inverses[0].numel()
+    shapes.append((f"one id at all {n_dfm} positions H={dfm_uniques[0]} "
+                   f"D=513", np.full(n_dfm, 5), dfm_uniques[0], 513))
+    # dfm's main path: batch 0's inverse into its unique count
+    shapes.append((f"dfm batch 0 N={n_dfm} U={dfm_uniques[0]} D=513",
+                   dfm_inverses[0].cpu().numpy(), dfm_uniques[0], 513))
+    # wdl's main path: serving batch 0's inverse into its unique count
+    shapes.append((f"wdl batch 0 N={inverses[0].numel()} U={uniques[0]} "
+                   f"D={EMB}", inverses[0].cpu().numpy(), uniques[0], EMB))
     for label, ids, H, D in shapes:
+        n = len(ids)
         for dt in (torch.float32, torch.bfloat16):
-            n = len(ids)
-            yield (f"{label} {str(dt)[6:]}",
-                   torch.as_tensor(ids, dtype=torch.int32, device="cuda"),
-                   torch.randint(-8, 9, (n, D), generator=g, device="cuda"
-                                 ).to(dt),
-                   torch.randn((n, D), generator=g, device="cuda").to(dt), H)
-    # full width: the inverse of serving batch 0 into its unique count
-    for dt in (torch.float32, torch.bfloat16):
-        n = inverses[0].numel()
-        yield (f"full width batch 0 N={n} U={uniques[0]} {str(dt)[6:]}",
-               inverses[0],
-               torch.randint(-8, 9, (n, EMB), generator=g, device="cuda"
-                             ).to(dt),
-               torch.randn((n, EMB), generator=g, device="cuda").to(dt),
-               uniques[0])
+            gi = torch.randint(-8, 9, (n, D), generator=g, device="cuda"
+                               ).to(dt)
+            gr = torch.randn((n, D), generator=g, device="cuda").to(dt)
+            for idt in (torch.int32, torch.int64):
+                yield (f"{label} {str(dt)[6:]} {str(idt)[6:]} ids",
+                       torch.as_tensor(ids, dtype=idt, device="cuda"),
+                       gi, gr, H)
 
 
-def phase_kernel_push(inverses, uniques) -> dict:
+def _push_timing(inverses, uniques, dim: int) -> dict:
+    """K3 at one training shape, f32 grads [N, dim]: each launch on the
+    inverse of another batch into its unique count. The whole call's
+    device time (the memset and every kernel, listed by name), its events
+    time, the plain version and zeros + `index_add_`."""
+    k = len(inverses)
+    n = inverses[0].numel()
+    grads = torch.randn((n, dim), device="cuda")
+    mean_u = sum(uniques) / k
+    bytes_moved = (n * inverses[0].element_size() + n * dim * 4
+                   + mean_u * dim * 4)
+
+    def kern(i):
+        return hot_onehot_push(inverses[i % k], grads, uniques[i % k])
+
+    def plain(i):
+        return hot_onehot_push_ref(inverses[i % k], grads, uniques[i % k])
+
+    def library(i):
+        return torch.zeros((uniques[i % k], dim), device="cuda").index_add_(
+            0, inverses[i % k], grads)
+
+    times = {what: cuda_ms(f, k) for what, f in
+             (("kernel", kern), ("plain", plain), ("library", library))}
+    prof = {what: device_profile(f, k) for what, f in
+            (("kernel", kern), ("plain", plain), ("library", library))}
+    by_name = dict(sorted(prof["kernel"][1].items(), key=lambda kv: -kv[1]))
+    return {"n": n, "dim": dim, "launches_per_shape": k,
+            "mean_unique_ids": mean_u,
+            "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+            "library_ms": times["library"],
+            "kernel_device_ms": prof["kernel"][0],
+            "kernel_device_ms_by_name": by_name,
+            "own_kernels_device_ms": _k3_ms(by_name),
+            "plain_device_ms": prof["plain"][0],
+            "library_device_ms": prof["library"][0],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved}
+
+
+def phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques) -> dict:
     """K3 against its plain version: integer-valued grads (exact sums)
     bit for bit, random grads within 1e-6 * sum|g| per element, and two
-    launches bit-identical. Then timed at the training shape: the inverse
-    of each of the 64 serving batches (N = 6,656) into its unique count,
-    f32 grads."""
+    launches bit-identical. Then timed at both training shapes: wdl, the
+    inverses of the 64 serving batches (N = 6,656) at width 128; dfm, the
+    inverses of 8 dfm batches (N = 26,624) at width 513."""
     cases, worst = 0, 0.0
-    for label, ids, gi, gr, H in _push_cases(inverses, uniques):
+    for label, ids, gi, gr, H in _push_cases(inverses, uniques,
+                                             dfm_inverses, dfm_uniques):
         got = hot_onehot_push(ids, gi, H)
         if not torch.equal(got, hot_onehot_push_ref(ids, gi, H)):
             raise AssertionError(f"hot_onehot_push differs from its plain "
@@ -326,40 +413,13 @@ def phase_kernel_push(inverses, uniques) -> dict:
         cases += 1
     torch.cuda.synchronize()
 
-    k = len(inverses)
-    grads = torch.randn((inverses[0].numel(), EMB), device="cuda")
-    mean_u = sum(uniques) / k
-    n = inverses[0].numel()
-    bytes_moved = (n * inverses[0].element_size() + n * EMB * 4
-                   + mean_u * EMB * 4)
-
-    def kern(i):
-        return hot_onehot_push(inverses[i % k], grads, uniques[i % k])
-
-    def plain(i):
-        return hot_onehot_push_ref(inverses[i % k], grads, uniques[i % k])
-
-    def library(i):
-        return torch.zeros((uniques[i % k], EMB), device="cuda").index_add_(
-            0, inverses[i % k], grads)
-
-    times = {what: cuda_ms(f, k) for what, f in
-             (("kernel", kern), ("plain", plain), ("library", library))}
-    prof = {what: device_profile(f, k) for what, f in
-            (("kernel", kern), ("plain", plain), ("library", library))}
     out = {"name": "hot_onehot_push", "cases": cases, "max_abs_err": worst,
-           "launches_per_shape": k, "n": n, "mean_unique_ids": mean_u,
-           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
-           "library_ms": times["library"],
-           "kernel_device_ms": _own_ms(prof["kernel"][1], "segment_rows"),
-           "wrapper_device_ms": prof["kernel"][0],
-           "wrapper_top_device_ms": prof["kernel"][1],
-           "plain_device_ms": prof["plain"][0],
-           "library_device_ms": prof["library"][0],
-           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
-           "bound_note": "ids + grads read once, output written once; the "
-                         "wrapper's position sort is left out"}
+           **_push_timing(inverses, uniques, EMB),
+           "dfm": _push_timing(dfm_inverses, dfm_uniques, DFM_EMB + 1),
+           "bound_note": "ids + f32 grads read once, output written once; "
+                         "the kernel's own scratch is left out",
+           "device_note": "kernel_device_ms is the whole call: the "
+                          "scratch memset and the five kernels"}
     emit({"phase": "kernel:hot_onehot_push", **out})
     return out
 
@@ -414,8 +474,18 @@ def phase_kernel_scatter(table: torch.Tensor, batches) -> dict:
     table.index_copy_(0, ids.long(), keep)
     cases += 1
     torch.cuda.synchronize()
+    out = {"name": "rows_scatter_add", "cases": cases, "max_abs_err": 0.0,
+           **_scatter_timing(table, batches)}
+    emit({"phase": "kernel:rows_scatter_add", **out})
+    return out
 
+
+def _scatter_timing(table: torch.Tensor, batches) -> dict:
+    """K2 into the full table with zero f32 deltas (which leave the table
+    as it is and move the same bytes), each launch on the unique ids of
+    another batch: events, device time, plain version and `index_add_`."""
     k = len(batches)
+    keep = table[batches[0].long()].clone()
     zeros = [torch.zeros((b.numel(), table.shape[1]), device="cuda")
              for b in batches]
     mean_n = sum(int(b.numel()) for b in batches) / k
@@ -439,20 +509,17 @@ def phase_kernel_scatter(table: torch.Tensor, batches) -> dict:
             (("kernel", kern), ("plain", plain), ("library", library))}
     if not torch.equal(table[batches[0].long()], keep):
         raise AssertionError("zero deltas changed the table")
-    out = {"name": "rows_scatter_add", "cases": cases, "max_abs_err": 0.0,
-           "batches": k, "mean_unique_ids": mean_n,
-           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
-           "library_ms": times["library"],
-           "kernel_device_ms": _own_ms(prof["kernel"][1], "scatter_rows"),
-           "wrapper_device_ms": prof["kernel"][0],
-           "plain_device_ms": prof["plain"][0],
-           "library_device_ms": prof["library"][0],
-           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
-           "bound_note": "ids + f32 deltas read once, touched bf16 rows "
-                         "read and written once"}
-    emit({"phase": "kernel:rows_scatter_add", **out})
-    return out
+    return {"batches": k, "width": table.shape[1], "mean_unique_ids": mean_n,
+            "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+            "library_ms": times["library"],
+            "kernel_device_ms": _own_ms(prof["kernel"][1], "scatter_rows"),
+            "wrapper_device_ms": prof["kernel"][0],
+            "plain_device_ms": prof["plain"][0],
+            "library_device_ms": prof["library"][0],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved,
+            "bound_note": "ids + f32 deltas read once, touched bf16 rows "
+                          "read and written once"}
 
 
 def _request(url, data=None):
@@ -696,7 +763,8 @@ def reference_train_step(eng: Engine, state: TrainState, d, s, y,
     """The engine's SGD step with K1, K2 and K3 replaced by their plain
     versions and the tower by `apply` (default: the model's own); K3's
     plain version runs on the host, where `index_add_` adds in position
-    order, the order the kernel uses."""
+    order, the kernel's order for ids of at most 32 positions (it adds
+    longer segments in pieces of 32)."""
     apply = apply or eng.model.apply
     step = state.step + 1
     B, F = s.shape
@@ -778,6 +846,7 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
         lambda i: eng.train_step(state, d0[i % K], s0[i % K], y0[i % K]), 20)
     profile = {"device_busy_ms": busy, "host_ms_profiled": host,
                "device_idle_share": None if busy is None else 1 - busy / host,
+               "hot_onehot_push_device_ms": _k3_ms(per),
                "top_device_ms": dict(sorted(per.items(),
                                             key=lambda kv: -kv[1])[:8])}
 
@@ -1069,6 +1138,7 @@ def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
     return {"steps": steps, "device_busy_ms": busy,
             "host_ms_profiled": host,
             "device_idle_share": None if busy is None else 1 - busy / host,
+            "hot_onehot_push_device_ms": _k3_ms(per),
             "top_device_ms": dict(sorted(per.items(),
                                          key=lambda kv: -kv[1])[:8])}
 
@@ -1761,17 +1831,37 @@ def phase_scheduled_dfm() -> dict:
     return out
 
 
-def _entry(name, route_src, replaces, by_path, k) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
-            "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
-            "device_ms": k["kernel_device_ms"], "plain_ms": k["plain_ms"],
+def _times(k: dict) -> dict:
+    return {"ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"],
+            "plain_ms": k["plain_ms"],
             "plain_device_ms": k["plain_device_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
             "library_device_ms": k["library_device_ms"]}
+
+
+def _entry(name, route_src, replaces, by_path, k) -> dict:
+    """One kernel's line of the summary; K1, K2 and K3 carry the same
+    numbers at dfm's width 513 under "dfm"."""
+    out = {"name": name, "route": "cuda",
+           "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
+           "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
+           "launches": sum(by_path.values()), "launches_by_path": by_path,
+           "max_abs_err": k["max_abs_err"], **_times(k)}
+    if "dfm" in k:
+        out["dfm"] = _times(k["dfm"])
+    return out
+
+
+def phase_kernel_dfm_width(table: torch.Tensor, batches, k1, k2) -> None:
+    """K1 and K2 timed at dfm's width: the full 513-wide bf16 table, each
+    launch on the unique ids of another dfm batch (their 513-wide
+    correctness cases ran in kernel:embedding_gather and
+    kernel:rows_scatter_add)."""
+    k1["dfm"] = _gather_timing(table, batches)
+    k2["dfm"] = _scatter_timing(table, batches)
+    emit({"phase": "kernel:dfm_width", "embedding_gather": k1["dfm"],
+          "rows_scatter_add": k2["dfm"]})
 
 
 def main() -> None:
@@ -1786,15 +1876,17 @@ def main() -> None:
     # (K1's and K2's shape) and their inverses (K3's)
     _, sparse, _ = synthetic_ctr_data(eng.model.spec, 64 * BATCH, seed=0,
                                       num_rows=FULL_ROWS)
-    batches, inverses, uniques = [], [], []
-    for i in range(64):
-        u, inv = np.unique(sparse[i * BATCH:(i + 1) * BATCH].reshape(-1),
-                           return_inverse=True)
-        batches.append(torch.as_tensor(u.astype(np.int32), device="cuda"))
-        inverses.append(torch.as_tensor(inv.reshape(-1), device="cuda"))
-        uniques.append(len(u))
+    batches, inverses, uniques = _inverses(sparse, BATCH, 64)
+    # 8 dfm batches (1,024 rows) of the same data, for K3 at dfm's shape
+    # now and K1, K2 and K5 once the dfm table exists
+    _, dfm_sparse, _ = synthetic_ctr_data(get_model(DFM).spec,
+                                          8 * DFM_BATCH, seed=0,
+                                          num_rows=FULL_ROWS)
+    dfm_batches, dfm_inverses, dfm_uniques = _inverses(dfm_sparse,
+                                                       DFM_BATCH, 8)
     k1 = phase_kernel(state.table, batches)
-    k3 = phase_kernel_push(inverses, uniques)
+    k3 = phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques)
+    del dfm_inverses
     k2 = phase_kernel_scatter(state.table, batches)
     serve = phase_serve(eng, state)
     phase_checkpoint()
@@ -1819,9 +1911,10 @@ def main() -> None:
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
     state = eng.init_state(0)
     assert tuple(state.table.shape) == (33_762_584, DFM_EMB + 1)
-    _, sparse, _ = synthetic_ctr_data(eng.model.spec, 8 * DFM_BATCH, seed=0,
-                                      num_rows=FULL_ROWS)
-    k5, k5b = phase_kernel_fm(state.table, sparse)
+    k5, k5b = phase_kernel_fm(state.table, dfm_sparse)
+    _free()
+    phase_kernel_dfm_width(state.table, dfm_batches, k1, k2)
+    del dfm_batches
     _free()
     serve_dfm = phase_serve(eng, state, "serve:dfm", plain_dfm_apply,
                             DFM_SERVE, tol=1e-5)

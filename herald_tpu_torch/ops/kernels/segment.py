@@ -6,24 +6,38 @@ contract, `(ids [N], grads [N, D] f32/bf16, num_rows) -> f32 [num_rows, D]`:
 duplicates accumulate and ids outside [0, num_rows) are dropped. The
 Pallas kernel's block-multiple rule on `num_rows` does not apply.
 
-On the card the sum is deterministic: the wrapper orders the positions by
-id (`torch.sort(..., stable=True)`, index bookkeeping) and the kernel adds
-each segment's rows in position order, so the same inputs give the same
-bits on every launch. `hot_onehot_push` launches it for tensors on the card
-and uses the plain version `hot_onehot_push_ref` only for tensors on the
-CPU, which adds in the same position order.
+Bound on the card: bytes, each grad row read once and each output row
+written once (77.6 MB, 0.023 ms at DeepFM's training shape of 26,624 x 513
+f32 grads into ~11,100 rows). The kernel groups the positions itself, with
+no library sort: integer atomics count each id and hand out slots, a
+block-parallel pass gives each segment its range of slots and its work
+(a warp for a segment of at most `WARP_ROWS` positions, a block for each
+piece of at most `PIECE` positions of a longer one), and the positions
+are placed. Every piece ranks its positions in ascending order (segments
+of more than 512 are sorted first), its warps sum runs of `WARP_ROWS`
+rows that are added in warp order, and a long segment's f32 partials are
+added in piece order: the same inputs give the same bits on every launch.
+The .cu header states the order of additions.
+
+`hot_onehot_push` launches it for tensors on the card and uses the plain
+version `hot_onehot_push_ref` only for tensors on the CPU. The wrapper
+allocates the output and the scratch (`scratch_sizes`) and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from herald_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PIECE = 32          # most positions a block piece sums (kPiece in the .cu)
+WARP_ROWS = 4       # segments up to this size take one warp (kWarpRows)
+_INT32_MAX = 2**31 - 1
 
 
 def hot_onehot_push_ref(ids: torch.Tensor, grads: torch.Tensor,
@@ -36,13 +50,27 @@ def hot_onehot_push_ref(ids: torch.Tensor, grads: torch.Tensor,
     return out.index_add_(0, ids[valid], grads[valid].to(torch.float32))
 
 
+def scratch_sizes(n: int, num_rows: int) -> Tuple[int, int, int]:
+    """(zeroed int32 words, plain int32 words, f32 partial rows) of the
+    kernel's scratch for n positions into num_rows rows. Bounds that hold
+    for any ids: at most num_rows warp units (segments of at most
+    WARP_ROWS positions); at most n // (WARP_ROWS + 1) block pieces
+    (ceil(L / PIECE) <= L / (WARP_ROWS + 1) for L > WARP_ROWS), each with
+    a partial row; at most n // (PIECE + 1) long segments."""
+    max_pieces = n // (WARP_ROWS + 1)
+    max_long = n // (PIECE + 1)
+    zeroed = 4 + num_rows + max_long          # 2 cursors, counts, tickets
+    # descriptors of 4 words (warp units, pieces, long segments), slots,
+    # positions, segment offsets
+    plain = 4 * (num_rows + max_pieces + max_long) + 2 * n + num_rows
+    return zeroed, plain, max(1, max_pieces)
+
+
 @functools.cache
 def _launcher():
     fn = build.load("hot_onehot_push").herald_hot_onehot_push
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,17 +97,27 @@ def hot_onehot_push(ids: torch.Tensor, grads: torch.Tensor,
     if num_rows < 0:
         raise ValueError(f"hot_onehot_push: num_rows {num_rows} < 0")
     N, D = grads.shape
+    if N >= _INT32_MAX or num_rows + N // PIECE >= _INT32_MAX:
+        raise ValueError(f"hot_onehot_push: N = {N} and num_rows = "
+                         f"{num_rows} exceed the kernel's int32 indices")
     out = torch.empty((num_rows, D), dtype=torch.float32, device=grads.device)
     if num_rows == 0 or D == 0:
         return out
     grads = grads.contiguous()
-    sorted_ids, order = torch.sort(ids, stable=True)
+    ids = ids.contiguous()
+    zero_words, plain_words, partial_rows = scratch_sizes(N, num_rows)
+    zeroed = torch.zeros(zero_words, dtype=torch.int32, device=grads.device)
+    scratch = torch.empty(plain_words, dtype=torch.int32, device=grads.device)
+    partials = torch.empty((partial_rows, D), dtype=torch.float32,
+                           device=grads.device)
     fn = _launcher()
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(sorted_ids.data_ptr(), order.data_ptr(), grads.data_ptr(),
-                out.data_ptr(), N, num_rows, D, _DTYPE_CODES[grads.dtype],
-                int(ids.dtype == torch.int64), stream)
+        rc = fn(ids.data_ptr(), grads.data_ptr(), out.data_ptr(),
+                zeroed.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+                N, num_rows, D, zero_words, plain_words, partial_rows,
+                _DTYPE_CODES[grads.dtype], int(ids.dtype == torch.int64),
+                stream)
     if rc != 0:
         raise RuntimeError(f"hot_onehot_push: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -30,6 +30,8 @@ from herald_tpu_torch.ops.kernels import (KERNELS, hot_onehot_push,
                                           hot_onehot_push_ref,
                                           rows_scatter_add,
                                           rows_scatter_add_ref)
+from herald_tpu_torch.ops.kernels.segment import (PIECE, WARP_ROWS,
+                                                  scratch_sizes)
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -171,6 +173,100 @@ def test_hot_onehot_push_bf16_grads_no_block_rule_and_empty():
     z = hot_onehot_push(torch.zeros(0, dtype=torch.int32),
                         torch.zeros((0, 16)), 7)
     assert z.shape == (7, 16) and not z.any()
+
+
+def _segment_case(name, seed):
+    """(ids, num_rows, D) at the shapes the kernel's grouping must take:
+    every num_rows a multiple of 64, so the Pallas kernel's block rule
+    holds at block_rows=64."""
+    rng = np.random.default_rng(seed)
+    if name == "hot id at 2000 positions":     # 63 pieces of 32
+        N, H, D = 2600, 128, 64
+        ids = rng.integers(0, H, N)
+        ids[rng.permutation(N)[:2000]] = 17
+    elif name == "D=513":                      # dfm's width, 4-byte rows
+        N, H, D = 1500, 256, 513
+        ids = rng.integers(0, H, N)
+    elif name == "num_rows > N":               # most rows empty
+        N, H, D = 300, 1024, 16
+        ids = rng.integers(0, H, N)
+    else:                                      # 10% out of range
+        N, H, D = 2000, 192, 40
+        ids = rng.integers(0, H, N)
+        bad = rng.random(N) < 0.1
+        ids[bad] = np.where(rng.random(bad.sum()) < 0.5, -3, H + 9)
+    return ids, H, D
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["hot id at 2000 positions", "D=513",
+                                  "num_rows > N", "10% out of range"])
+def test_hot_onehot_push_segment_shapes_vs_segment_sum_and_pallas(
+        case, id_dtype, name):
+    """Integer grads (exact sums) bit for bit against `segment_sum` and the
+    Pallas kernel in interpret mode; random grads within 1e-6 * sum|g|."""
+    jdt, tdt = DTYPES[name]
+    ids, H, D = _segment_case(case, 11)
+    rng = np.random.default_rng(12)
+    tids = torch.from_numpy(ids).to(id_dtype)
+    seg_ids = jnp.asarray(np.where(ids < 0, H, ids))   # drop, not wrap
+    g = jnp.asarray(rng.integers(-8, 9, (len(ids), D)), jdt)
+    got = hot_onehot_push(tids, _to_torch(g), H)
+    assert got.dtype == torch.float32 and got.shape == (H, D)
+    seg = jax.ops.segment_sum(g.astype(jnp.float32), seg_ids,
+                              num_segments=H)
+    pal = pallas_push(jnp.asarray(ids), g, num_rows=H, block_rows=64,
+                      interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(seg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+    gr = jnp.asarray(rng.standard_normal((len(ids), D)), jdt)
+    got = hot_onehot_push(tids, _to_torch(gr), H).numpy()
+    grf = gr.astype(jnp.float32)
+    want = np.asarray(jax.ops.segment_sum(grf, seg_ids, num_segments=H))
+    tol = 1e-6 * np.asarray(jax.ops.segment_sum(jnp.abs(grf), seg_ids,
+                                                num_segments=H))
+    assert (np.abs(got - want) <= tol).all()
+
+
+def _grouping(ids, num_rows):
+    """What the kernel's allocation makes of ids: (warp units, block
+    pieces, long segments). A segment of at most WARP_ROWS positions (an
+    empty one too) is a warp unit; a longer one is ceil(L / PIECE) block
+    pieces, and long if L > PIECE."""
+    valid = ids[(ids >= 0) & (ids < num_rows)]
+    L = np.bincount(valid, minlength=num_rows)
+    big = L > WARP_ROWS
+    return (int((~big).sum()), int((-(-L[big] // PIECE)).sum()),
+            int((L > PIECE).sum()))
+
+
+@pytest.mark.parametrize("case", ["one id", "all segments of 33",
+                                  "all segments of 5", "zipf", "empty",
+                                  "num_rows > N"])
+def test_hot_onehot_push_scratch_bounds_hold(case):
+    """`scratch_sizes` sizes the kernel's scratch from N and num_rows
+    alone (the host never reads the ids): its bounds must hold for the
+    ids that come closest to them."""
+    rng = np.random.default_rng(13)
+    n, H = 33 * 5 * 40, 4096
+    ids = {"one id": np.full(n, 7),
+           "all segments of 33": np.repeat(np.arange(n // 33), 33),
+           "all segments of 5": np.repeat(np.arange(n // 5), 5),
+           "zipf": np.minimum(rng.zipf(1.2, n) - 1, H - 1),
+           "empty": np.full(n, -1),
+           "num_rows > N": rng.permutation(H)[:n // 4]}[case]
+    n = len(ids)
+    zeroed, plain, partial_rows = scratch_sizes(n, H)
+    max_long = zeroed - 4 - H                  # cursors, counts, tickets
+    max_pieces = (plain - 2 * n - H) // 4 - H - max_long
+    assert max_pieces == partial_rows
+    units, pieces, n_long = _grouping(rng.permutation(ids), H)
+    assert units <= H and pieces <= max_pieces and n_long <= max_long
+    if case == "all segments of 33":           # the long bound is tight
+        assert n_long == max_long
+    if case == "all segments of 5":            # and the piece bound
+        assert pieces == max_pieces
 
 
 # ----------------------------------------------------------------------

@@ -34,6 +34,15 @@ and backward) against its plain versions, K1 and K2 timed at width 513
 exists), serving, SGD training at lr
 0.01 (8 steps held against the plain versions of K1, K2, K3 and K5), the
 launcher, and the scheduled engine with a 10% cache (13.86 GB).
+
+K1 is held bit for bit against its plain version in the table's dtype and
+widened to f32 (513-wide odd rows, int32 and int64 ids, 10% out of range
+included), and timed at both widths by position with f32 output, the
+main path's read, beside the route it replaced (K1 on the unique ids,
+`[inv]`, widen) and `index_select` + widen. K2 is held against its plain
+version on `-lr * grads` and timed with lr beside the route it replaced
+(`-lr * g`, then K2). Both record where their wrapper's host time goes.
+The serve phases count the eval step's waits for the card (none).
 """
 
 from __future__ import annotations
@@ -72,6 +81,10 @@ from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
                                           hot_onehot_push_ref,
                                           rows_scatter_add,
                                           rows_scatter_add_ref)
+from herald_tpu_torch.ops.kernels.gather import _launcher as gather_launcher
+from herald_tpu_torch.ops.kernels.gather import check_gather_args
+from herald_tpu_torch.ops.kernels.scatter import _launcher as scatter_launcher
+from herald_tpu_torch.ops.kernels.scatter import check_scatter_args
 from herald_tpu_torch.sched.build import planner_lib_path
 from herald_tpu_torch.sched.replay import ReplayPlanner, plan_cache
 from herald_tpu_torch.sched.sizing import (TrafficProfile,
@@ -187,48 +200,136 @@ def phase_build() -> None:
 
 
 def _gather_cases():
-    """(label, table, ids) cases on the card; ids as int32 and int64."""
+    """(label, table, ids, out_dtype) cases on the card: ids as int32 and
+    int64, output in the table's dtype and in f32."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     for dt in (torch.float32, torch.bfloat16):
-        for R, D, N, oob in ((512, 128, 60, 0.0),      # test_pallas_kernels
-                             (1001, 13, 300, 0.1),     # R % 8 != 0, tail
-                             (100_000, 128, 6656, 0.1),
-                             (100_000, 513, 13_000, 0.1),   # dfm's width
-                             (512, 128, 0, 0.0)):
+        for R, D, N, oob, odd in ((512, 128, 60, 0.0, False),  # pallas test
+                                  (1001, 13, 300, 0.1, False),  # R % 8, tail
+                                  (100_000, 128, 6656, 0.1, False),
+                                  (100_000, 513, 13_000, 0.1, False),  # dfm
+                                  # odd rows of 513: no row 16-byte aligned
+                                  (100_000, 513, 13_000, 0.1, True),
+                                  (512, 128, 0, 0.0, False)):
             table = torch.randn((R, D), generator=g, device="cuda").to(dt)
             ids = rng.integers(0, R, N)
+            if odd:
+                ids |= 1
             bad = rng.random(N) < oob
             ids[bad] = np.where(rng.random(bad.sum()) < 0.5,
                                 -rng.integers(1, 10 * R, bad.sum()),
                                 R + rng.integers(0, 10 * R, bad.sum()))
             for idt in (torch.int32, torch.int64):
-                label = f"{str(dt)[6:]} R={R} D={D} N={N} {str(idt)[6:]}"
-                yield label, table, torch.as_tensor(ids, dtype=idt,
-                                                    device="cuda")
+                for out in (None, torch.float32):
+                    label = (f"{str(dt)[6:]} R={R} D={D} N={N}"
+                             f"{' odd ids' if odd else ''} {str(idt)[6:]}"
+                             f" -> {str(out or dt)[6:]}")
+                    yield label, table, torch.as_tensor(
+                        ids, dtype=idt, device="cuda"), out
 
 
-def phase_kernel(table: torch.Tensor, batches) -> dict:
-    """K1 against its plain version (bit-exact), then timed at the
-    serving shape: the full table, each launch on the unique ids of
-    another 256-batch."""
+def phase_kernel(table: torch.Tensor, batches, positions, inverses
+                 ) -> dict:
+    """K1 against its plain version, bit-exact, in the table's dtype and
+    widened to f32; a dtype it does not write raises. Then timed at the
+    serving shape on the full table: by position with f32 output (the main
+    path: each launch on the 6,656 ids of another 256-batch) beside the
+    route it replaced and the library route, and on the unique ids of each
+    batch in bf16 (the read before rows were read by position)."""
     cases, worst = [], 0.0
-    for label, tab, ids in list(_gather_cases()) + [
-            ("serving bf16 full table, batch 0", table, batches[0])]:
-        got = embedding_gather(tab, ids)
-        want = embedding_gather_ref(tab, ids)
+    for label, tab, ids, od in list(_gather_cases()) + [
+            ("serving bf16 full table, batch 0 unique ids", table,
+             batches[0], None),
+            ("serving bf16 full table, batch 0 positions -> f32", table,
+             positions[0], torch.float32)]:
+        got = embedding_gather(tab, ids, od)
+        want = embedding_gather_ref(tab, ids, od)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max()) \
             if got.numel() else 0.0
-        if not torch.equal(got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"embedding_gather differs from its "
                                  f"plain version ({label}): max {err}")
         worst = max(worst, err)
         cases.append(label)
+    refused = _refusals(lambda: embedding_gather(
+        table[:8].float(), batches[0][:4], torch.bfloat16))
     out = {"name": "embedding_gather", "cases": len(cases),
-           "max_abs_err": worst, **_gather_timing(table, batches)}
+           "max_abs_err": worst, "refused_other_out_dtype": refused,
+           **_position_timing(table, positions, batches, inverses),
+           "unique_ids": _gather_timing(table, batches),
+           "wrapper_host_us": _wrapper_host_us(
+               lambda: embedding_gather(table, positions[0], torch.float32),
+               _gather_entry(table, positions[0]),
+               lambda: torch.index_select(table, 0, positions[0]),
+               lambda: check_gather_args("embedding_gather", table,
+                                         positions[0]),
+               lambda: torch.empty((positions[0].numel(), table.shape[1]),
+                                   dtype=torch.float32, device="cuda"))}
     emit({"phase": "kernel:embedding_gather", **out})
     return out
+
+
+def _refusals(*calls) -> int:
+    """How many of the calls raise ValueError; fails unless all do (a
+    wrapper never falls back to its plain version or the CPU)."""
+    for call in calls:
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("a wrapper took an argument it does not take")
+    return len(calls)
+
+
+def _gather_entry(table, ids):
+    """K1's C entry point on prepared arguments, bf16 -> f32: the part of a
+    wrapper call that is the ctypes call and the launch."""
+    fn = gather_launcher()
+    out = torch.empty((ids.numel(), table.shape[1]), dtype=torch.float32,
+                      device="cuda")
+    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0],
+            table.shape[1], ids.numel(), 1, 0, 0)
+    return lambda: fn(*args, torch._C._cuda_getCurrentRawStream(0))
+
+
+def _host_us(fn, calls: int = 2000, repeats: int = 5) -> float:
+    """Median host microseconds per call of fn() over `repeats` runs of
+    `calls` calls (the card keeps up: each call launches at most one
+    kernel of a few microseconds)."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _old_stream():
+    """The stream lookup of a `torch.cuda.device` context, which every
+    wrapper made on each call before `build.launch`."""
+    with torch.cuda.device("cuda:0"):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _wrapper_host_us(wrapper, entry, library, checks, alloc=None) -> dict:
+    """Where a wrapper call's host time goes, microseconds per call: its
+    argument checks, the output allocation (None: it allocates nothing),
+    the stream lookup (`build.launch`'s, and a `torch.cuda.device`
+    context's),
+    the ctypes call with its launch, the whole wrapper, and the library
+    call beside it."""
+    parts = {"checks": checks, "alloc": alloc,
+             "stream": lambda: (torch.cuda.current_device() == 0
+                                and torch._C._cuda_getCurrentRawStream(0)),
+             "stream_device_context": _old_stream, "ctypes_launch": entry,
+             "wrapper": wrapper, "library": library}
+    return {what: None if f is None else _host_us(f)
+            for what, f in parts.items()}
 
 
 def _gather_timing(table: torch.Tensor, batches) -> dict:
@@ -261,6 +362,49 @@ def _gather_timing(table: torch.Tensor, batches) -> dict:
             "bound_by": "bytes", "bytes_per_launch": bytes_moved}
 
 
+def _position_timing(table: torch.Tensor, positions, batches, inverses
+                     ) -> dict:
+    """K1 by position with f32 output on the full table, each launch on
+    the ids of another batch: events and device time, the plain version,
+    `index_select` + `.to(float32)` (the library route, two calls) and the
+    route it replaced (K1 on the unique ids, `[inv]`, `.to(float32)`, the
+    inverses precomputed)."""
+    k = len(positions)
+    n = positions[0].numel()
+    mean_u = sum(int(b.numel()) for b in batches) / k
+    D = table.shape[1]
+    # each distinct row read once (a repeat comes from L2), every position
+    # written once in f32, the ids read once
+    bytes_moved = (mean_u * D * table.element_size() + n * D * 4
+                   + n * positions[0].element_size())
+    fns = {
+        "kernel": lambda i: embedding_gather(table, positions[i % k],
+                                             torch.float32),
+        "plain": lambda i: embedding_gather_ref(table, positions[i % k],
+                                                torch.float32),
+        "library": lambda i: torch.index_select(
+            table, 0, positions[i % k]).to(torch.float32),
+        "replaced": lambda i: embedding_gather(table, batches[i % k])[
+            inverses[i % k]].to(torch.float32)}
+    ev = {what: cuda_ms(f, k) for what, f in fns.items()}
+    dev = {what: device_profile(f, k)[0] for what, f in fns.items()}
+    return {"batches": k, "width": D, "positions": n,
+            "mean_unique_ids": mean_u, "out_dtype": "float32",
+            "kernel_ms": ev["kernel"], "plain_ms": ev["plain"],
+            "library_ms": ev["library"], "replaced_ms": ev["replaced"],
+            "kernel_device_ms": dev["kernel"],
+            "plain_device_ms": dev["plain"],
+            "library_device_ms": dev["library"],
+            "replaced_device_ms": dev["replaced"],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved,
+            "bound_note": "distinct rows read once, positions written once "
+                          "in f32, ids read once",
+            "library_note": "index_select + .to(float32): two calls",
+            "replaced_note": "K1 on the unique ids + [inv] + "
+                             ".to(float32), the read it replaced"}
+
+
 def _own_ms(per: dict, marker: str):
     """Device ms per call of the kernels whose name holds `marker`."""
     ms = sum(v for k, v in per.items() if marker in k)
@@ -268,16 +412,19 @@ def _own_ms(per: dict, marker: str):
 
 
 def _inverses(sparse: np.ndarray, batch: int, k: int):
-    """The unique ids (int32, on the card), inverses (int64, on the card)
-    and unique counts of k batches, computed with numpy."""
-    batches, inverses, uniques = [], [], []
+    """The unique ids (int32, on the card), inverses (int64, on the card),
+    unique counts and ids by position (int32, on the card) of k batches,
+    computed with numpy."""
+    batches, inverses, uniques, positions = [], [], [], []
     for i in range(k):
-        u, inv = np.unique(sparse[i * batch:(i + 1) * batch].reshape(-1),
-                           return_inverse=True)
+        ids = sparse[i * batch:(i + 1) * batch].reshape(-1)
+        u, inv = np.unique(ids, return_inverse=True)
         batches.append(torch.as_tensor(u.astype(np.int32), device="cuda"))
         inverses.append(torch.as_tensor(inv.reshape(-1), device="cuda"))
         uniques.append(len(u))
-    return batches, inverses, uniques
+        positions.append(torch.as_tensor(ids.astype(np.int32),
+                                         device="cuda"))
+    return batches, inverses, uniques, positions
 
 
 # K3's kernels, as torch.profiler names them
@@ -425,57 +572,86 @@ def phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques) -> dict:
 
 
 def _scatter_cases():
-    """(label, table, unique ids, grads) cases on the card."""
+    """(label, table, unique ids, grads, lr) cases on the card: every
+    table and grad dtype without lr, and f32 grads with lr."""
     rng = np.random.default_rng(2)
     g = torch.Generator(device="cuda").manual_seed(2)
+    lr = torch.tensor(0.37, device="cuda")
     for tdt in (torch.float32, torch.bfloat16):
-        for gdt in (torch.float32, torch.bfloat16):
-            for R, D, N, oob in ((104, 128, 6, 0.0),   # test_pallas_kernels
-                                 (1001, 13, 300, 0.0),
-                                 (100_000, 128, 3491, 0.1),
-                                 (100_000, 513, 13_000, 0.1),  # dfm's
-                                 (512, 128, 0, 0.0)):
-                ids = rng.permutation(R)[:N]
+        for gdt, rate in ((torch.float32, None), (torch.bfloat16, None),
+                          (torch.float32, lr)):
+            for R, D, N, oob, odd in (
+                    (104, 128, 6, 0.0, False),   # test_pallas_kernels
+                    (1001, 13, 300, 0.0, False),
+                    (1001, 13, 300, 0.1, True),
+                    (100_000, 128, 3491, 0.1, False),
+                    (100_000, 513, 13_000, 0.1, False),  # dfm's width
+                    # odd rows of 513: no row 16-byte aligned
+                    (100_000, 513, 13_000, 0.1, True),
+                    (512, 128, 0, 0.0, False)):
+                ids = rng.permutation(np.arange(1, R, 2) if odd
+                                      else np.arange(R))[:N]
                 bad = rng.random(N) < oob
                 ids[bad] = np.where(rng.random(bad.sum()) < 0.5,
                                     -rng.integers(1, 10, bad.sum()),
                                     R + rng.integers(0, 10, bad.sum()))
                 yield (f"{str(tdt)[6:]} table {str(gdt)[6:]} grads R={R} "
-                       f"D={D} N={N}",
+                       f"D={D} N={N}{' odd ids' if odd else ''}"
+                       f"{' lr' if rate is not None else ''}",
                        torch.randn((R, D), generator=g, device="cuda"
                                    ).to(tdt),
                        torch.as_tensor(ids, device="cuda"),
                        (0.01 * torch.randn((N, D), generator=g,
-                                           device="cuda")).to(gdt))
+                                           device="cuda")).to(gdt), rate)
 
 
 def phase_kernel_scatter(table: torch.Tensor, batches) -> dict:
-    """K2 against its plain version, bit for bit, then at full width: the
-    unique ids of serving batch 0 into the 33.7M-row bf16 table with f32
-    deltas (the touched rows are restored after). Timed with zero deltas,
-    which leave the table as it is and move the same bytes."""
+    """K2 against its plain version, bit for bit (with lr: against the
+    plain version on `-lr * grads`); an lr it does not take raises. Then
+    at full width: the unique ids of serving batch 0 into the 33.7M-row
+    bf16 table with f32 deltas and lr (the touched rows are restored
+    after). Timed with zero deltas, which leave the table as it is and
+    move the same bytes: with lr (the main path) beside the route it
+    replaced, and without lr."""
     cases = 0
-    for label, tab, ids, grads in _scatter_cases():
-        want = rows_scatter_add_ref(tab.clone(), ids, grads)
-        got = rows_scatter_add(tab, ids, grads)
+    for label, tab, ids, grads, lr in _scatter_cases():
+        want = rows_scatter_add_ref(tab.clone(), ids,
+                                    grads if lr is None else -lr * grads)
+        got = rows_scatter_add(tab, ids, grads, lr)
         if not torch.equal(got, want):
             raise AssertionError(f"rows_scatter_add differs from its plain "
                                  f"version ({label})")
         cases += 1
     ids = batches[0]
+    lr = torch.tensor(0.01, device="cuda")
     keep = table[ids.long()].clone()
-    deltas = 1e-3 * torch.randn((ids.numel(), table.shape[1]),
-                                device="cuda")
-    rows_scatter_add(table, ids, deltas)
-    want = keep + deltas.to(table.dtype)
+    deltas = 0.1 * torch.randn((ids.numel(), table.shape[1]), device="cuda")
+    rows_scatter_add(table, ids, deltas, lr)
+    want = keep + (-lr * deltas).to(table.dtype)
     if not torch.equal(table[ids.long()], want):
         raise AssertionError("rows_scatter_add differs from its plain "
                              "version at full width")
     table.index_copy_(0, ids.long(), keep)
     cases += 1
+    small = torch.zeros((8, 4), device="cuda")
+    refused = _refusals(
+        lambda: rows_scatter_add(small, ids[:2], small[:2].bfloat16(), lr),
+        lambda: rows_scatter_add(small, ids[:2], small[:2], lr.cpu()),
+        lambda: rows_scatter_add(small, ids[:2], small[:2], lr[None]),
+        lambda: rows_scatter_add(small, ids[:2], small[:2], 0.01))
     torch.cuda.synchronize()
+    zeros = torch.zeros((ids.numel(), table.shape[1]), device="cuda")
+    fn = scatter_launcher()
+    args = (table.data_ptr(), ids.data_ptr(), zeros.data_ptr(),
+            lr.data_ptr(), table.shape[0], table.shape[1], ids.numel(), 1, 0,
+            0)
     out = {"name": "rows_scatter_add", "cases": cases, "max_abs_err": 0.0,
-           **_scatter_timing(table, batches)}
+           "refused_other_lr": refused, **_scatter_timing(table, batches),
+           "wrapper_host_us": _wrapper_host_us(
+               lambda: rows_scatter_add(table, ids, zeros, lr),
+               lambda: fn(*args, torch._C._cuda_getCurrentRawStream(0)),
+               lambda: table.index_add_(0, ids, zeros.to(table.dtype)),
+               lambda: check_scatter_args(table, ids, zeros, lr))}
     emit({"phase": "kernel:rows_scatter_add", **out})
     return out
 
@@ -483,43 +659,51 @@ def phase_kernel_scatter(table: torch.Tensor, batches) -> dict:
 def _scatter_timing(table: torch.Tensor, batches) -> dict:
     """K2 into the full table with zero f32 deltas (which leave the table
     as it is and move the same bytes), each launch on the unique ids of
-    another batch: events, device time, plain version and `index_add_`."""
+    another batch: with lr, events and device time, the plain version,
+    `index_add_` and the route it replaced (`-lr * g`, then K2 without
+    lr); and K2 without lr under "without_lr"."""
     k = len(batches)
     keep = table[batches[0].long()].clone()
     zeros = [torch.zeros((b.numel(), table.shape[1]), device="cuda")
              for b in batches]
+    lr = torch.tensor(0.01, device="cuda")
     mean_n = sum(int(b.numel()) for b in batches) / k
     row_bytes = table.shape[1] * table.element_size()
     bytes_moved = (mean_n * batches[0].element_size()
                    + mean_n * table.shape[1] * 4 + 2 * mean_n * row_bytes)
-
-    def kern(i):
-        return rows_scatter_add(table, batches[i % k], zeros[i % k])
-
-    def plain(i):
-        return rows_scatter_add_ref(table, batches[i % k], zeros[i % k])
-
-    def library(i):
-        return table.index_add_(0, batches[i % k],
-                                zeros[i % k].to(table.dtype))
-
-    times = {what: cuda_ms(f, k) for what, f in
-             (("kernel", kern), ("plain", plain), ("library", library))}
-    prof = {what: device_profile(f, k) for what, f in
-            (("kernel", kern), ("plain", plain), ("library", library))}
+    fns = {
+        "kernel": lambda i: rows_scatter_add(table, batches[i % k],
+                                             zeros[i % k], lr),
+        "plain": lambda i: rows_scatter_add_ref(table, batches[i % k],
+                                                zeros[i % k], lr),
+        "library": lambda i: table.index_add_(0, batches[i % k],
+                                              zeros[i % k].to(table.dtype)),
+        "replaced": lambda i: rows_scatter_add(table, batches[i % k],
+                                               -lr * zeros[i % k]),
+        "without_lr": lambda i: rows_scatter_add(table, batches[i % k],
+                                                 zeros[i % k])}
+    ev = {what: cuda_ms(f, k) for what, f in fns.items()}
+    prof = {what: device_profile(f, k) for what, f in fns.items()}
     if not torch.equal(table[batches[0].long()], keep):
         raise AssertionError("zero deltas changed the table")
     return {"batches": k, "width": table.shape[1], "mean_unique_ids": mean_n,
-            "kernel_ms": times["kernel"], "plain_ms": times["plain"],
-            "library_ms": times["library"],
+            "kernel_ms": ev["kernel"], "plain_ms": ev["plain"],
+            "library_ms": ev["library"], "replaced_ms": ev["replaced"],
             "kernel_device_ms": _own_ms(prof["kernel"][1], "scatter_rows"),
             "wrapper_device_ms": prof["kernel"][0],
             "plain_device_ms": prof["plain"][0],
             "library_device_ms": prof["library"][0],
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bytes_per_launch": bytes_moved,
-            "bound_note": "ids + f32 deltas read once, touched bf16 rows "
-                          "read and written once"}
+            "replaced_device_ms": prof["replaced"][0],
+            "without_lr": {
+                "kernel_ms": ev["without_lr"],
+                "kernel_device_ms": _own_ms(prof["without_lr"][1],
+                                            "scatter_rows")},
+            "bound_ms": (bytes_moved + 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved + 4,
+            "bound_note": "ids, f32 deltas and lr read once, touched bf16 "
+                          "rows read and written once",
+            "replaced_note": "-lr * g, then K2 without lr, as the SGD "
+                             "step called it before K2 took lr"}
 
 
 def _request(url, data=None):
@@ -680,6 +864,21 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
     if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
         raise AssertionError(f"evaluate gave {ev}")
 
+    # the eval step on a batch already on the card: it reads by position
+    # and never waits for the card (outside the counted window)
+    d_t = torch.as_tensor(dense[:B].astype(np.float32), device="cuda")
+    s_t = torch.as_tensor(sparse[:B].astype(np.int32), device="cuda")
+    torch.cuda.synchronize()
+    before = {name: k.launches for name, k in KERNELS.items()}
+    with torch.inference_mode():
+        waits, sites = _count_host_waits(
+            lambda: eng._eval_step_body(state, d_t, s_t))
+    step_launches = {name: k.launches - before[name]
+                     for name, k in KERNELS.items()}
+    if waits or step_launches != _want(per_batch, 1):
+        raise AssertionError(f"the {label} eval step waited {waits} times "
+                             f"({sites}) and launched {step_launches}")
+
     # where one predict's time goes (outside the counted window)
     busy, per, host = device_profile(
         lambda i: eng.predict(state, dense[(i % 64) * B:][:B],
@@ -708,6 +907,7 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
            "examples_per_s": ex_s, "throughput_batches": nb,
            "evaluate": ev, "evaluate_batches": 64, "evaluate_s": eval_s,
            "launches": launches, "predict_profile": profile,
+           "eval_step_host_waits": waits,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
@@ -760,8 +960,10 @@ def _stage(dense, sparse, labels, lo, k, batch=BATCH):
 
 def reference_train_step(eng: Engine, state: TrainState, d, s, y,
                          apply=None):
-    """The engine's SGD step with K1, K2 and K3 replaced by their plain
-    versions and the tower by `apply` (default: the model's own); K3's
+    """The engine's SGD step through the route it replaced (the unique
+    rows, `[inv]`, widen; `-lr * g`, then K2) with K1, K2 and K3 replaced
+    by their plain versions and the tower by `apply` (default: the
+    model's own); K3's
     plain version runs on the host, where `index_add_` adds in position
     order, the kernel's order for ids of at most 32 positions (it adds
     longer segments in pieces of 32)."""
@@ -1832,12 +2034,20 @@ def phase_scheduled_dfm() -> dict:
 
 
 def _times(k: dict) -> dict:
-    return {"ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"],
-            "plain_ms": k["plain_ms"],
-            "plain_device_ms": k["plain_device_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
-            "library_device_ms": k["library_device_ms"]}
+    """A timing's summary keys; K1's and K2's also carry the route they
+    replaced and the call before it (K1 on unique ids in bf16, K2 without
+    lr)."""
+    out = {"ms": k["kernel_ms"], "device_ms": k["kernel_device_ms"],
+           "plain_ms": k["plain_ms"],
+           "plain_device_ms": k["plain_device_ms"],
+           "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+           "library_ms": k["library_ms"],
+           "library_device_ms": k["library_device_ms"]}
+    out.update({key: k[key] for key in ("replaced_ms", "replaced_device_ms",
+                                        "without_lr") if key in k})
+    if "unique_ids" in k:
+        out["unique_ids"] = _times(k["unique_ids"])
+    return out
 
 
 def _entry(name, route_src, replaces, by_path, k) -> dict:
@@ -1853,12 +2063,16 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     return out
 
 
-def phase_kernel_dfm_width(table: torch.Tensor, batches, k1, k2) -> None:
-    """K1 and K2 timed at dfm's width: the full 513-wide bf16 table, each
-    launch on the unique ids of another dfm batch (their 513-wide
-    correctness cases ran in kernel:embedding_gather and
+def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
+                           inverses, k1, k2) -> None:
+    """K1 and K2 timed at dfm's width on the full 513-wide bf16 table, as
+    at wdl's: K1 by position with f32 output (each launch on the 26,624
+    ids of another dfm batch) beside the route it replaced, and on the
+    batch's unique ids in bf16; K2 on the unique ids with and without lr
+    (their 513-wide correctness cases ran in kernel:embedding_gather and
     kernel:rows_scatter_add)."""
-    k1["dfm"] = _gather_timing(table, batches)
+    k1["dfm"] = {**_position_timing(table, positions, batches, inverses),
+                 "unique_ids": _gather_timing(table, batches)}
     k2["dfm"] = _scatter_timing(table, batches)
     emit({"phase": "kernel:dfm_width", "embedding_gather": k1["dfm"],
           "rows_scatter_add": k2["dfm"]})
@@ -1876,17 +2090,16 @@ def main() -> None:
     # (K1's and K2's shape) and their inverses (K3's)
     _, sparse, _ = synthetic_ctr_data(eng.model.spec, 64 * BATCH, seed=0,
                                       num_rows=FULL_ROWS)
-    batches, inverses, uniques = _inverses(sparse, BATCH, 64)
+    batches, inverses, uniques, positions = _inverses(sparse, BATCH, 64)
     # 8 dfm batches (1,024 rows) of the same data, for K3 at dfm's shape
     # now and K1, K2 and K5 once the dfm table exists
     _, dfm_sparse, _ = synthetic_ctr_data(get_model(DFM).spec,
                                           8 * DFM_BATCH, seed=0,
                                           num_rows=FULL_ROWS)
-    dfm_batches, dfm_inverses, dfm_uniques = _inverses(dfm_sparse,
-                                                       DFM_BATCH, 8)
-    k1 = phase_kernel(state.table, batches)
+    dfm_batches, dfm_inverses, dfm_uniques, dfm_positions = _inverses(
+        dfm_sparse, DFM_BATCH, 8)
+    k1 = phase_kernel(state.table, batches, positions, inverses)
     k3 = phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques)
-    del dfm_inverses
     k2 = phase_kernel_scatter(state.table, batches)
     serve = phase_serve(eng, state)
     phase_checkpoint()
@@ -1913,8 +2126,9 @@ def main() -> None:
     assert tuple(state.table.shape) == (33_762_584, DFM_EMB + 1)
     k5, k5b = phase_kernel_fm(state.table, dfm_sparse)
     _free()
-    phase_kernel_dfm_width(state.table, dfm_batches, k1, k2)
-    del dfm_batches
+    phase_kernel_dfm_width(state.table, dfm_batches, dfm_positions,
+                           dfm_inverses, k1, k2)
+    del dfm_batches, dfm_positions, dfm_inverses
     _free()
     serve_dfm = phase_serve(eng, state, "serve:dfm", plain_dfm_apply,
                             DFM_SERVE, tol=1e-5)

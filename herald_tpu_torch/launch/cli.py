@@ -294,8 +294,8 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of herald_tpu.launch the port does not run yet, each with the
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
-    ("assign_only", "--assign-only", "item 8 (scheduled engine, "
-     "multi-rank: train_epoch_assigned)"),
+    ("assign_only", "--assign-only", "item 15 (assign-only mode on one "
+     "device)"),
     ("fae", "--fae", "item 11 (FAE engine)"),
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
     ("multihost", "--multihost", "items 7-9 (multi-rank engines and "

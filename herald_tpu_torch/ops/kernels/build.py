@@ -2,10 +2,11 @@
 
 Each source `csrc/<name>.cu` exposes a plain C interface and compiles on
 its own into `herald_tpu_torch/_build/lib<name>.<hash>.so` (the hash is of
-the source and the flags, so an edited source rebuilds). Nothing is built
-at import: the first launch builds what it needs, and `build_all` builds
-every kernel at once, one nvcc process per source, all started together.
-The build reads only the sources in this package.
+the source, the headers `csrc/*.cuh` and the flags, so an edited source
+rebuilds). Nothing is built at import: the first launch builds what it
+needs, and `build_all` builds every kernel at once, one nvcc process per
+source, all started together. The build reads only the sources in this
+package. `launch` calls a built entry point on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -40,7 +43,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}.{digest[:12]}.so"
 
 
@@ -80,3 +85,21 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """fn(*args, stream): a kernel's C entry point on PyTorch's current
+    stream of `device`, a card; raises with the CUDA error if the launch
+    failed. A launch goes to the calling thread's current device, so the
+    card is made current for the call, but only when it is not already:
+    a `torch.cuda.device` context on every call cost the host more than
+    the ctypes call (`chip_smoke.py`'s `wrapper_host_us`). The raw stream
+    handle is the one PyTorch's own Triton launcher reads."""
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")

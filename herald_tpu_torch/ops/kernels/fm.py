@@ -109,14 +109,10 @@ def fm_second_order(emb: torch.Tensor, return_s: bool = False):
         if return_s else None
     if B:
         fwd, _ = _launchers()
-        with torch.cuda.device(emb.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fwd(emb.data_ptr(), emb.stride(0), emb.stride(1), B, F, D,
+        build.launch("fm_second_order", fwd, emb.device, emb.data_ptr(),
+                     emb.stride(0), emb.stride(1), B, F, D,
                      _DTYPE_CODES[emb.dtype], out.data_ptr(),
-                     None if s is None else s.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"fm_second_order: kernel launch failed with "
-                               f"CUDA error {rc}")
+                     None if s is None else s.data_ptr())
         fm_second_order.launches += 1
     return (out, s) if return_s else out
 
@@ -143,14 +139,10 @@ def fm_second_order_backward(emb: torch.Tensor, g: torch.Tensor,
     g = g.to(torch.float32).contiguous()
     s = s.to(torch.float32).contiguous()
     _, bwd = _launchers()
-    with torch.cuda.device(emb.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = bwd(emb.data_ptr(), emb.stride(0), emb.stride(1), B, F, D,
+    build.launch("fm_second_order_backward", bwd, emb.device, emb.data_ptr(),
+                 emb.stride(0), emb.stride(1), B, F, D,
                  _DTYPE_CODES[emb.dtype], g.data_ptr(), s.data_ptr(),
-                 grad.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fm_second_order_backward: kernel launch failed "
-                           f"with CUDA error {rc}")
+                 grad.data_ptr())
     fm_second_order_backward.launches += 1
     return grad
 

@@ -1,17 +1,24 @@
 """K1 `embedding_gather`: out[i] = table[ids[i]], a zero row for ids
-outside [0, R).
+outside [0, R), in the table's dtype or widened from bf16 to f32.
 
 Port of the Pallas kernel `herald_tpu/ops/pallas/kernels.py:76-110` to a
 hand-written CUDA kernel (`csrc/embedding_gather.cu`). `embedding_gather`
 launches it for tensors on the card and uses the plain version
 `embedding_gather_ref` only for tensors on the CPU. The two are bit-exact:
-the kernel copies bytes.
+the kernel copies bytes, and widens bf16 to f32 by shifting its 16 bits
+up, which is exact.
+
+The engine reads its activations by position with f32 output: one launch
+over the batch's `B*F` ids gives the tower's f32 `[B, F, W]` input, with
+no dedup sort, no `[inv]` expansion and no widening copy. A row that
+several positions read comes from the card's L2 after the first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -20,13 +27,28 @@ from herald_tpu_torch.ops.kernels import build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor
+def out_dtype_of(table: torch.Tensor,
+                 out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The output dtype K1 writes: the table's own, or float32 from a bf16
+    table. Raises on any other."""
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if table.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return out_dtype
+    raise ValueError(f"embedding_gather: out_dtype {out_dtype} from a "
+                     f"{table.dtype} table; it writes the table's dtype or, "
+                     f"from bfloat16, float32")
+
+
+def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor,
+                         out_dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
     """Plain PyTorch version: bounds mask, `index_select` on the clamped
-    ids, zero the out-of-range rows."""
+    ids, zero the out-of-range rows, then `.to(out_dtype)`."""
+    dtype = out_dtype_of(table, out_dtype)
     valid = (ids >= 0) & (ids < table.shape[0])
     out = table.index_select(0, torch.where(valid, ids, 0))
-    return out.masked_fill_(~valid.unsqueeze(1), 0)
+    return out.masked_fill_(~valid.unsqueeze(1), 0).to(dtype)
 
 
 @functools.cache
@@ -34,7 +56,7 @@ def _launcher():
     fn = build.load("embedding_gather").herald_embedding_gather
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,26 +81,25 @@ def check_gather_args(name: str, table: torch.Tensor,
         raise ValueError(f"{name}: table and ids must be contiguous")
 
 
-def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table [R, D] f32/bf16, ids [N] int32/int64 -> [N, D] in the table
-    dtype. On the card this launches the CUDA kernel or raises."""
+def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """table [R, D] f32/bf16, ids [N] int32/int64 -> [N, D] in `out_dtype`
+    (default the table's; float32 from a bf16 table widens). On the card
+    this launches the CUDA kernel or raises."""
     if table.device.type == "cpu" and ids.device.type == "cpu":
-        return embedding_gather_ref(table, ids)
+        return embedding_gather_ref(table, ids, out_dtype)
+    dtype = out_dtype_of(table, out_dtype)
     check_gather_args("embedding_gather", table, ids)
     R, D = table.shape
     N = ids.shape[0]
-    out = torch.empty((N, D), dtype=table.dtype, device=table.device)
+    out = torch.empty((N, D), dtype=dtype, device=table.device)
     if N == 0 or D == 0:
         return out
-    fn = _launcher()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), R, D, N,
-                DTYPE_CODES[table.dtype], int(ids.dtype == torch.int64),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"embedding_gather: kernel launch failed with "
-                           f"CUDA error {rc}")
+    build.launch("embedding_gather", _launcher(), table.device,
+                 table.data_ptr(), ids.data_ptr(), out.data_ptr(), R, D, N,
+                 DTYPE_CODES[table.dtype], DTYPE_CODES[dtype],
+                 int(ids.dtype == torch.int64))
     embedding_gather.launches += 1
     return out
 

@@ -62,15 +62,10 @@ def hot_onehot_gather(hot_table: torch.Tensor, ids: torch.Tensor
     out = torch.empty((N, D), dtype=hot_table.dtype, device=hot_table.device)
     if N == 0 or D == 0:
         return out
-    fn = _launcher()
-    with torch.cuda.device(hot_table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(hot_table.data_ptr(), ids.data_ptr(), out.data_ptr(), H, D,
-                N, DTYPE_CODES[hot_table.dtype],
-                int(ids.dtype == torch.int64), stream)
-    if rc != 0:
-        raise RuntimeError(f"hot_onehot_gather: kernel launch failed with "
-                           f"CUDA error {rc}")
+    build.launch("hot_onehot_gather", _launcher(), hot_table.device,
+                 hot_table.data_ptr(), ids.data_ptr(), out.data_ptr(), H, D,
+                 N, DTYPE_CODES[hot_table.dtype],
+                 int(ids.dtype == torch.int64))
     hot_onehot_gather.launches += 1
     return out
 

@@ -110,17 +110,11 @@ def hot_onehot_push(ids: torch.Tensor, grads: torch.Tensor,
     scratch = torch.empty(plain_words, dtype=torch.int32, device=grads.device)
     partials = torch.empty((partial_rows, D), dtype=torch.float32,
                            device=grads.device)
-    fn = _launcher()
-    with torch.cuda.device(grads.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ids.data_ptr(), grads.data_ptr(), out.data_ptr(),
-                zeroed.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
-                N, num_rows, D, zero_words, plain_words, partial_rows,
-                _DTYPE_CODES[grads.dtype], int(ids.dtype == torch.int64),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"hot_onehot_push: kernel launch failed with "
-                           f"CUDA error {rc}")
+    build.launch("hot_onehot_push", _launcher(), grads.device,
+                 ids.data_ptr(), grads.data_ptr(), out.data_ptr(),
+                 zeroed.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
+                 N, num_rows, D, zero_words, plain_words, partial_rows,
+                 _DTYPE_CODES[grads.dtype], int(ids.dtype == torch.int64))
     hot_onehot_push.launches += 1
     return out
 

@@ -231,10 +231,11 @@ class CachedEngine(Engine):
                               a["fids"][k], a["fslots"][k], writes, off)
         if do_pull:
             pull_ids = a["pull_ids"][k]
-            pulled = embedding_gather(table, pull_ids)
+            # f32 rows, widened by K1 as it reads them
+            pulled = embedding_gather(table, pull_ids, torch.float32)
             # prefetched rows: both planes (their slots are virgin, so the
             # delta plane is already 0)
-            pf = pulled[U:].to(torch.float32)
+            pf = pulled[U:]
             self._write(cache, writes, off["pf"],
                         torch.cat([pf, torch.zeros_like(pf)], dim=1))
         # phase 4: one fused read of value + delta planes (after the flush
@@ -243,7 +244,7 @@ class CachedEngine(Engine):
         resident, delta_old = res2[:, :W], res2[:, W:]
         if do_pull:
             emb_uniq = torch.where((pull_ids[:U] >= 0).unsqueeze(1),
-                                   pulled[:U].to(torch.float32), resident)
+                                   pulled[:U], resident)
         else:
             emb_uniq = resident
         if self.pinned_rows:
@@ -633,14 +634,14 @@ class CachedEngine(Engine):
             slot_t = torch.as_tensor(gslots, device=self.device)
             phys_t = torch.as_tensor(phys, device=self.device)
             deltas = embedding_gather(state.cache, slot_t)[:, W:]
-            rows = embedding_gather(state.table, phys_t)
+            rows = embedding_gather(state.table, phys_t, torch.float32)
             sl = {k: embedding_gather(v, phys_t)
                   for k, v in state.table_slots.items()}
             step = state.step + 1
             mask = torch.ones(len(gids), dtype=torch.bool,
                               device=self.device)
             new_rows, new_sl = self.embed_opt.apply_rows(
-                rows.to(torch.float32), deltas.to(torch.float32), sl, step,
+                rows, deltas, sl, step,
                 lr=self._elr_fn(step), mask=mask)
             out["rows"] = phys
             out["values"] = tensor_to_numpy(

@@ -1,22 +1,27 @@
 """Engine, local mode (port of `herald_tpu/train/engine.py`).
 
-One device, the whole table on it. The eval step (`predict`, `evaluate`)
-dedups the batch's ids, reads the unique rows through K1
-(`ops/kernels/gather.py`), widens them to f32, runs the tower and a
-sigmoid. The train step (`train_step`, `train_epoch`) adds the backward
-pass and the sparse update:
+One device, the whole table on it. Every step reads the batch's rows by
+position: one K1 launch (`ops/kernels/gather.py`) over the `B*F` ids
+writes the tower's f32 `[B, F, W]` input, as the JAX one-device SGD path
+reads `table[ids]` and casts it (`engine.py:433-434`). The eval step
+(`predict`, `evaluate`) runs the tower and a sigmoid on it, with no dedup
+and no wait for the card. The train step (`train_step`, `train_epoch`)
+adds the backward pass and the sparse update, for which it dedups the ids
+(`torch.unique`, one wait a step):
 
-- SGD on the table (the JAX fast path, `engine.py:427-453`): the rows are
-  read through the same dedup and K1; the duplicate-id gradients are
-  summed over the inverse through K3 (`ops/kernels/segment.py`), and
-  `-lr * g` is added to each distinct row through K2
-  (`ops/kernels/scatter.py`). JAX adds every duplicate's `-lr * g`
-  straight into the table instead: the same sum, with one rounding per
-  row here where JAX rounds once per duplicate.
-- Every other table optimizer (the dedup path, `engine.py:315-355`): K3
-  sums the gradients per unique id, the rows and slots are read through
-  K1, `apply_rows` updates them, and `index_copy_` writes them back (an
-  XLA scatter-set in JAX, outside any Pallas kernel).
+- SGD on the table (the JAX fast path, `engine.py:427-453`): the
+  duplicate-id gradients are summed over the inverse through K3
+  (`ops/kernels/segment.py`), and K2 (`ops/kernels/scatter.py`) adds
+  `-lr * g` to each distinct row, scaling by the 0-d `lr` itself. JAX
+  adds every duplicate's `-lr * g` straight into the table instead: the
+  same sum, with one rounding per row here where JAX rounds once per
+  duplicate.
+- Every other table optimizer (the dedup path, `engine.py:315-355`): the
+  emb gradient is rounded to the table dtype, as autograd rounds that of
+  JAX's `emb.astype(f32)` (`engine.py:388-394`); K3 sums it per unique
+  id, the rows and slots are read through K1, `apply_rows` updates them,
+  and `index_copy_` writes them back (an XLA scatter-set in JAX, outside
+  any Pallas kernel).
 
 The table and its slots are updated in place: JAX donates them to the
 step, so the state handed in is consumed in both packages. The dense
@@ -165,28 +170,35 @@ class Engine:
                           dense_slots=dense_slots, step=step)
 
     # ------------------------------------------------------------------
-    def _dedup_read(self, table, ids):
-        """ids [B, F] -> (emb [B, F, W] in the table dtype, uniq, inv).
-        Reads each distinct id once through K1; ids outside the table give
-        zero rows (the JAX engine's `mode="fill"` read). `torch.unique` has
-        a dynamic size, so it waits once per batch for the device; the
-        JAX engine's static-size `jnp.unique` does not."""
+    def _read(self, table, ids):
+        """ids [B, F] -> f32 [B, F, W]: one K1 read by position, widened in
+        the kernel; ids outside the table give zero rows (the JAX engine's
+        `mode="fill"` read). A row that several positions read comes from
+        the card's L2 after the first, so on one device a dedup would save
+        the read nothing (the JAX eval path dedups for its multi-shard
+        exchange, `engine.py:301-313`)."""
         B, F = ids.shape
+        emb = embedding_gather(table, ids.reshape(-1), torch.float32)
+        return emb.reshape(B, F, self.width)
+
+    def _dedup_read(self, table, ids):
+        """ids [B, F] -> (f32 emb [B, F, W] read by position, uniq, inv):
+        the training steps' read, and the dedup their sparse update sums
+        and writes over. `torch.unique` has a dynamic size, so it waits
+        once per step for the device; the JAX engine's static-size
+        `jnp.unique` does not."""
         uniq, inv = torch.unique(ids.reshape(-1), sorted=True,
                                  return_inverse=True)
-        emb_uniq = embedding_gather(table, uniq)
-        return emb_uniq[inv].reshape(B, F, self.width), uniq, inv
+        return self._read(table, ids), uniq, inv
 
     def _loss_and_grads(self, dense, emb, dense_x, labels):
         """(loss, {name: dense grad}, emb grad): `value_and_grad` with
-        respect to the dense params and `emb`, whose grad comes back in
-        emb's dtype."""
+        respect to the dense params and the f32 `emb`."""
         params = {k: v.detach().requires_grad_(True)
                   for k, v in dense.items()}
         emb = emb.detach().requires_grad_(True)
         with torch.enable_grad():
-            logits = self.model.apply(params, emb.to(torch.float32),
-                                      dense_x)
+            logits = self.model.apply(params, emb, dense_x)
             loss = bce_with_logits(logits, labels)
             grads = torch.autograd.grad(loss, [*params.values(), emb])
         return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
@@ -223,8 +235,10 @@ class Engine:
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step))
+        # the grad of a table-dtype leaf cast to f32, as JAX's is
         table, table_slots = self._apply_sparse_grads(
-            state.table, state.table_slots, step, uniq, inv, emb_grad)
+            state.table, state.table_slots, step, uniq, inv,
+            emb_grad.to(state.table.dtype))
         new_state = TrainState(table=table, table_slots=table_slots,
                                dense=dense, dense_slots=dense_slots,
                                step=step)
@@ -236,22 +250,21 @@ class Engine:
         before `value_and_grad`, so its emb grad is f32, as here."""
         step = state.step + 1
         emb, uniq, inv = self._dedup_read(state.table, ids)
-        loss, dgrads, emb_grad = self._loss_and_grads(
-            state.dense, emb.to(torch.float32), dense_x, labels)
+        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
+                                                      dense_x, labels)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step))
-        lr = self._elr_fn(step)
         g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])   # f32
-        table = rows_scatter_add(state.table, uniq, -lr * g_uniq)
+        table = rows_scatter_add(state.table, uniq, g_uniq,
+                                 lr=self._elr_fn(step))
         new_state = TrainState(table=table, table_slots=state.table_slots,
                                dense=dense, dense_slots=dense_slots,
                                step=step)
         return new_state, {"loss": loss, "overflow": self._zero}
 
     def _eval_step_body(self, state: TrainState, dense_x, ids):
-        emb, _, _ = self._dedup_read(state.table, ids)
-        logits = self.model.apply(state.dense, emb.to(torch.float32),
+        logits = self.model.apply(state.dense, self._read(state.table, ids),
                                   dense_x)
         return torch.sigmoid(logits)
 

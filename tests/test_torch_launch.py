@@ -158,7 +158,8 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--scheduled", "--int8-flush"], "--int8-flush"),
-    (["--assign-only"], "--assign-only"),
+    (["--assign-only"], "--assign-only.*item 15 \\(assign-only mode on "
+                        "one device\\)"),
     (["--fae"], "--fae"),
     (["--comm", "hybrid"], "--comm hybrid"),
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),

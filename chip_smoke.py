@@ -6,13 +6,15 @@ width, plainly and through the scheduled, cached engine, and print what it
 measured.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase scheduled:pinned [--root DIR]
 
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, train:adam, launch, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
-kernels summary, the card's name and power limit, and last
+kernels summary, profiler (the torch.profiler sessions taken and those
+that lost kernel records), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 Every phase that fails raises: the script then exits non-zero and prints
 no "ok" line. It needs a CUDA card, nvcc (CUDA_HOME or /usr/local/cuda),
@@ -42,11 +44,26 @@ main path's read, beside the route it replaced (K1 on the unique ids,
 `[inv]`, widen) and `index_select` + widen. K2 is held against its plain
 version on `-lr * grads` and timed with lr beside the route it replaced
 (`-lr * g`, then K2). Both record where their wrapper's host time goes.
-The serve phases count the eval step's waits for the card (none).
+K4 is held bit for bit in both forms, the gather and the in-place add
+the pinned step runs (into contiguous and strided f32 rows, -0.0 in cold
+rows), and timed at the pinned step's shape beside the route the add
+replaced (gather, widen, add) and at FAE's shape. The serve phases count
+the eval step's waits for the card (none); scheduled:pinned profiles its
+step.
+
+`--phase scheduled:pinned` runs the device and build phases and that
+phase alone. `--root DIR` imports herald_tpu_torch from another checkout,
+so that the pinned step of two trees (a parent unpacked with `git archive`
+into a gitignored directory, and this one) is profiled in turns on one
+card, each run a process of its own:
+
+    for r in PARENT . . PARENT; do
+        python3 chip_smoke.py --phase scheduled:pinned --root $r; done
 """
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import re
@@ -64,6 +81,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+if "--root" in sys.argv:        # the package of another checkout
+    sys.path.insert(0, str(Path(
+        sys.argv[sys.argv.index("--root") + 1]).resolve()))
+
+import herald_tpu_torch
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.data import (DATASETS, frequency_remap,
                                    synthetic_ctr_data)
@@ -83,6 +105,9 @@ from herald_tpu_torch.ops.kernels import (KERNELS, build, embedding_gather,
                                           rows_scatter_add_ref)
 from herald_tpu_torch.ops.kernels.gather import _launcher as gather_launcher
 from herald_tpu_torch.ops.kernels.gather import check_gather_args
+# K4's add form through its module: a checkout from before it (an A/B's
+# parent under --root) imports and runs scheduled:pinned all the same
+from herald_tpu_torch.ops.kernels import hot_gather as k4_ops
 from herald_tpu_torch.ops.kernels.scatter import _launcher as scatter_launcher
 from herald_tpu_torch.ops.kernels.scatter import check_scatter_args
 from herald_tpu_torch.sched.build import planner_lib_path
@@ -126,30 +151,99 @@ def cuda_ms(fn, calls: int, repeats: int = 7, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, calls: int):
+# the calls that launch a kernel, as the profiler names them on the host:
+# the CUDA runtime API's and the lower-level cu* API's
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+# kernels each profiler session launches before the measured calls: a
+# spin of one cycle each (`torch.cuda._sleep`). From some point in a long
+# process on, a session loses the device records of its first launches
+# (mostly 6 to 11, at times some tens), however long the session and
+# whether or not it first idles. These launches take that loss; their
+# own kernel is left out of the session's items, and a session that lost
+# more is retaken
+PAD_LAUNCHES, PAD_KERNEL = 32, "spin_kernel"
+# the sessions taken; how many lost records of pad launches alone; and
+# each that lost a measured launch's record, with the positions it lost
+PROFILER = {"sessions": 0, "lost_in_pad": 0, "short": []}
+
+
+def _device_items(prof, calls: int):
+    """From a profiler session: ({kernel or copy name: device ms per
+    call}, {name: count}), the pad's kernel left out."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and PAD_KERNEL not in e.key]
+    return ({e.key: e.self_device_time_total / 1e3 / calls for e in events},
+            {e.key: e.count for e in events})
+
+
+def _session(fn, n: int, pad: int = PAD_LAUNCHES):
+    """One torch.profiler session: `pad` pad launches, then fn(0), ...,
+    fn(n - 1). Returns the session, host ms per call from the first
+    measured launch to the end of the last kernel, and the positions of
+    the measured launches whose kernel left no device record (launch and
+    kernel matched by correlation id in the session's trace; the pad's
+    positions are 0 to pad - 1)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    recorded = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") == "kernel"}
+    order, seen = [], set()
+    for e in sorted((e for e in events if e.get("name") in LAUNCH_APIS
+                     and e.get("ph") == "X"), key=lambda e: e["ts"]):
+        corr = e.get("args", {}).get("correlation")
+        if corr not in seen:        # a launch may show under both APIs
+            seen.add(corr)
+            order.append(corr)
+    lost = [i for i, corr in enumerate(order) if corr not in recorded]
+    PROFILER["sessions"] += 1
+    measured = [i for i in lost if i >= pad]
+    if measured:
+        PROFILER["short"].append({
+            "session": PROFILER["sessions"], "pad": pad,
+            "launches": len(order), "lost": len(lost),
+            "lost_at": lost if len(lost) <= 16 else lost[:8] + lost[-8:]})
+    elif lost:
+        PROFILER["lost_in_pad"] += 1
+    return prof, host_ms, measured
+
+
+def device_profile(fn, calls: int, marker: str = None,
+                   pad: int = PAD_LAUNCHES, tries: int = 3):
     """Device time per call of fn(i), from torch.profiler's CUDA activity:
     (total ms, {kernel or copy name: ms}, host ms per call while
-    profiled). The total is None where the profiler saw no device
-    activity in three tries (a session now and then records none)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profiled, {sessions taken, measured launches the last one lost}). A
+    session is taken again, up to `tries` in all, while it saw no device
+    activity, lost the record of a measured launch, or recorded fewer
+    than `calls` of the kernels whose name holds `marker` (one a call).
+    Where none passed, the total is None and the items are empty:
+    nothing is scaled or filled in."""
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(calls):
-                fn(i)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / calls
-        per = {e.key: e.self_device_time_total / 1e3 / calls
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0}
-        if per:
-            return sum(per.values()), per, host_ms
-    return None, per, host_ms
+    for n_try in range(1, tries + 1):
+        prof, host_ms, lost = _session(fn, calls, pad)
+        per, counts = _device_items(prof, calls)
+        own = sum(c for k, c in counts.items() if marker and marker in k)
+        check = {"sessions": n_try, "lost": len(lost)}
+        if per and not lost and (marker is None or own >= calls):
+            return sum(per.values()), per, host_ms, check
+    return None, {}, host_ms, check
 
 
 # ----------------------------------------------------------------------
@@ -316,18 +410,19 @@ def _old_stream():
         return torch.cuda.current_stream().cuda_stream
 
 
-def _wrapper_host_us(wrapper, entry, library, checks, alloc=None) -> dict:
+def _wrapper_host_us(wrapper, entry, library, checks, alloc=None,
+                     route=None) -> dict:
     """Where a wrapper call's host time goes, microseconds per call: its
     argument checks, the output allocation (None: it allocates nothing),
     the stream lookup (`build.launch`'s, and a `torch.cuda.device`
-    context's),
-    the ctypes call with its launch, the whole wrapper, and the library
-    call beside it."""
+    context's), the ctypes call with its launch, the whole wrapper, and
+    beside it the library call and the route the wrapper replaced (None
+    where there is none)."""
     parts = {"checks": checks, "alloc": alloc,
              "stream": lambda: (torch.cuda.current_device() == 0
                                 and torch._C._cuda_getCurrentRawStream(0)),
              "stream_device_context": _old_stream, "ctypes_launch": entry,
-             "wrapper": wrapper, "library": library}
+             "wrapper": wrapper, "library": library, "route": route}
     return {what: None if f is None else _host_us(f)
             for what, f in parts.items()}
 
@@ -348,7 +443,8 @@ def _gather_timing(table: torch.Tensor, batches) -> dict:
     # launch costs the host more than the card; the profiler gives the
     # device time alone
     device_ms = {
-        what: device_profile(lambda i, f=f: f(table, batches[i % k]), k)[0]
+        what: device_profile(lambda i, f=f: f(table, batches[i % k]), k,
+                             K1 if what == "kernel" else None)[0]
         for what, f in (("kernel", embedding_gather),
                         ("plain", embedding_gather_ref),
                         ("library", lambda t, i: torch.index_select(t, 0, i)))}
@@ -387,7 +483,9 @@ def _position_timing(table: torch.Tensor, positions, batches, inverses
         "replaced": lambda i: embedding_gather(table, batches[i % k])[
             inverses[i % k]].to(torch.float32)}
     ev = {what: cuda_ms(f, k) for what, f in fns.items()}
-    dev = {what: device_profile(f, k)[0] for what, f in fns.items()}
+    dev = {what: device_profile(
+        f, k, K1 if what in ("kernel", "replaced") else None)[0]
+        for what, f in fns.items()}
     return {"batches": k, "width": D, "positions": n,
             "mean_unique_ids": mean_u, "out_dtype": "float32",
             "kernel_ms": ev["kernel"], "plain_ms": ev["plain"],
@@ -426,6 +524,11 @@ def _inverses(sparse: np.ndarray, batch: int, k: int):
                                          device="cuda"))
     return batches, inverses, uniques, positions
 
+
+# K1's, K2's and K4's kernels (gather and add forms), as torch.profiler
+# names them
+K1, K2 = "gather_rows", "scatter_rows"
+HOT_GATHER, HOT_ADD = "hot_gather_rows", "hot_add_rows"
 
 # K3's kernels, as torch.profiler names them
 K3_KERNELS = ("count_ids", "alloc_segments", "place_positions", "sort_big",
@@ -516,8 +619,10 @@ def _push_timing(inverses, uniques, dim: int) -> dict:
 
     times = {what: cuda_ms(f, k) for what, f in
              (("kernel", kern), ("plain", plain), ("library", library))}
-    prof = {what: device_profile(f, k) for what, f in
-            (("kernel", kern), ("plain", plain), ("library", library))}
+    prof = {what: device_profile(f, k, "sum_segments" if what == "kernel"
+                                 else None)
+            for what, f in (("kernel", kern), ("plain", plain),
+                            ("library", library))}
     by_name = dict(sorted(prof["kernel"][1].items(), key=lambda kv: -kv[1]))
     return {"n": n, "dim": dim, "launches_per_shape": k,
             "mean_unique_ids": mean_u,
@@ -683,21 +788,22 @@ def _scatter_timing(table: torch.Tensor, batches) -> dict:
         "without_lr": lambda i: rows_scatter_add(table, batches[i % k],
                                                  zeros[i % k])}
     ev = {what: cuda_ms(f, k) for what, f in fns.items()}
-    prof = {what: device_profile(f, k) for what, f in fns.items()}
+    prof = {what: device_profile(
+        f, k, K2 if what in ("kernel", "without_lr") else None)
+        for what, f in fns.items()}
     if not torch.equal(table[batches[0].long()], keep):
         raise AssertionError("zero deltas changed the table")
     return {"batches": k, "width": table.shape[1], "mean_unique_ids": mean_n,
             "kernel_ms": ev["kernel"], "plain_ms": ev["plain"],
             "library_ms": ev["library"], "replaced_ms": ev["replaced"],
-            "kernel_device_ms": _own_ms(prof["kernel"][1], "scatter_rows"),
+            "kernel_device_ms": _own_ms(prof["kernel"][1], K2),
             "wrapper_device_ms": prof["kernel"][0],
             "plain_device_ms": prof["plain"][0],
             "library_device_ms": prof["library"][0],
             "replaced_device_ms": prof["replaced"][0],
             "without_lr": {
                 "kernel_ms": ev["without_lr"],
-                "kernel_device_ms": _own_ms(prof["without_lr"][1],
-                                            "scatter_rows")},
+                "kernel_device_ms": _own_ms(prof["without_lr"][1], K2)},
             "bound_ms": (bytes_moved + 4) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes_per_launch": bytes_moved + 4,
             "bound_note": "ids, f32 deltas and lr read once, touched bf16 "
@@ -880,7 +986,7 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
                              f"({sites}) and launched {step_launches}")
 
     # where one predict's time goes (outside the counted window)
-    busy, per, host = device_profile(
+    busy, per, host, _ = device_profile(
         lambda i: eng.predict(state, dense[(i % 64) * B:][:B],
                               sparse[(i % 64) * B:][:B]), 50)
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
@@ -1044,7 +1150,7 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
     med = statistics.median(times)
 
     d0, s0, y0 = chunks[0]
-    busy, per, host = device_profile(
+    busy, per, host, _ = device_profile(
         lambda i: eng.train_step(state, d0[i % K], s0[i % K], y0[i % K]), 20)
     profile = {"device_busy_ms": busy, "host_ms_profiled": host,
                "device_idle_share": None if busy is None else 1 - busy / host,
@@ -1275,20 +1381,26 @@ def _expected_launches(tape, steps: int, pinned: bool, fm=False) -> dict:
     grads; one K1 pull on a step with pulls or prefetches; two K1 reads
     (cache rows, table rows; SGD keeps no table slots) on a step with
     flushes; with a pinned tier one K4 read and a second K3 sum; for an
-    FM model one K5 forward and one K5 backward per step."""
+    FM model one K5 forward and one K5 backward per step. The pinned read
+    is K4's in-place add, none of its gather, but in a checkout from
+    before the add form (an A/B's parent under --root)."""
     fids, pulls, pfids = (np.asarray(tape[k][:steps])
                           for k in ("fids", "pulls", "pfids"))
     has_flush = (fids >= 0).any(axis=1)
     has_pull = pulls.any(axis=1) | (pfids >= 0).any(axis=1)
-    return {"embedding_gather": int(steps + has_pull.sum()
+    read = ("hot_onehot_gather_add_" if "hot_onehot_gather_add_" in KERNELS
+            else "hot_onehot_gather")
+    want = {"embedding_gather": int(steps + has_pull.sum()
                                     + 2 * has_flush.sum()),
-            "hot_onehot_gather": steps if pinned else 0,
+            "hot_onehot_gather": 0, "hot_onehot_gather_add_": 0,
             "hot_onehot_push": steps * (2 if pinned else 1),
             "rows_scatter_add": 0,
             "fm_second_order": steps if fm else 0,
             "fm_second_order_backward": steps if fm else 0,
             "steps_with_flush": int(has_flush.sum()),
             "steps_with_pull": int(has_pull.sum())}
+    want[read] = steps if pinned else 0
+    return want
 
 
 def _check_launches(label: str, want: dict) -> dict:
@@ -1320,27 +1432,20 @@ def _count_host_waits(fn):
 def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
     """Device busy, host time and the top device items per step over n
     chunks run(0..n-1), one profiler session (the chunks consume state, so
-    it is not retried: no device events gives "not measured", None)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    it is not retried: a session without device events, or one that lost
+    the record of a measured launch, gives "not measured", None)."""
     torch.cuda.synchronize()
     steps = n * steps_per_chunk
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            run(i)
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) * 1e3 / steps
-    per = {e.key: e.self_device_time_total / 1e3 / steps
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0}
-    busy = sum(per.values()) if per else None
+    prof, host, lost = _session(run, n)
+    host /= steps_per_chunk
+    per, _ = _device_items(prof, steps)
+    busy = sum(per.values()) if per and not lost else None
     return {"steps": steps, "device_busy_ms": busy,
-            "host_ms_profiled": host,
+            "host_ms_profiled": host, "launches_lost": len(lost),
             "device_idle_share": None if busy is None else 1 - busy / host,
-            "hot_onehot_push_device_ms": _k3_ms(per),
+            "hot_onehot_push_device_ms": _k3_ms(per) if busy else None,
+            "pinned_read_kernel_ms": {k: v for k, v in per.items()
+                                      if HOT_ADD in k or HOT_GATHER in k},
             "top_device_ms": dict(sorted(per.items(),
                                          key=lambda kv: -kv[1])[:8])}
 
@@ -1518,10 +1623,16 @@ def phase_scheduled_pinned() -> tuple:
     """The same, tape mode only, with a pinned tier of 4,096 rows over
     frequency-remapped ids. First 8 steps against the same CachedEngine on
     the CPU from a copy of the state (plain versions of every kernel);
-    then the timed epochs, K4 once and K3 twice per step; then sync_cache,
-    after which the table's rows [0, 4096) equal the hot block."""
+    then the timed epochs, K4's add form once and K3 twice per step; then
+    one more epoch whose first chunks count the host's waits for the card
+    and whose other chunks are profiled (device busy and idle share a
+    step); then sync_cache, after which the table's rows [0, 4096) equal
+    the hot block. Returns, beside the phase's line, the hot block, 64
+    steps' raw uniq (K4's shape on this path) and the ids of 64 batches
+    by position (FAE's shape)."""
     cfg, eng, (dense, sparse, labels), probe_s = _sched_setup(PINNED)
     counted = SCHED_EPOCHS * SCHED_ITERS
+    total = counted + SCHED_ITERS
     C, W = eng.cache_rows, eng.width
     out = {"phase": "scheduled:pinned", "probe_s": probe_s,
            "pinned_rows": eng.pinned_rows, "U_cap": eng.U_cap,
@@ -1529,7 +1640,7 @@ def phase_scheduled_pinned() -> tuple:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         tape_dir = str(Path(tmp) / "tape")
-        planner = plan_cache(eng, sparse, tape_dir, epochs=SCHED_EPOCHS)
+        planner = plan_cache(eng, sparse, tape_dir, epochs=SCHED_EPOCHS + 1)
         tape = {k: np.load(Path(tape_dir) / f"{k}.npy", mmap_mode="r")
                 for k in ("fids", "fslots", "pulls", "pfids", "pfslots",
                           "slots", "uniq")}
@@ -1623,6 +1734,18 @@ def phase_scheduled_pinned() -> tuple:
         times, last = _epochs_timed(tape_epoch, SCHED_EPOCHS)
         launches = _check_launches("the pinned scheduled path", want)
         warm = times[2:] if eng.nopull_chunks else times[1:]
+
+        def run_chunk(i):
+            holder[0], _ = eng.train_epoch_staged(
+                holder[0], staged[SCHED_EPOCHS * per_epoch + i])
+
+        n_wait = max(1, per_epoch // 4)
+        waits, sites = _count_host_waits(
+            lambda: [run_chunk(c) for c in range(n_wait)])
+        profile = _profile_chunks(lambda i: run_chunk(n_wait + i),
+                                  per_epoch - n_wait, 32)
+        profile["host_waits_per_step"] = waits / (32 * n_wait)
+        profile["host_wait_sites"] = sites
         state = eng.sync_cache(holder[0], planner)
         del holder, staged
         if not torch.equal(state.table[:PINNED], state.hot_table):
@@ -1631,40 +1754,42 @@ def phase_scheduled_pinned() -> tuple:
         # K4's shape on this path: the hot block and 64 steps' raw uniq
         uniqs = [torch.as_tensor(np.array(tape["uniq"][i]), device=DEVICE)
                  for i in range(64)]
-        hits = float(np.mean([int(((u >= 0) & (u < PINNED)).sum())
-                              for u in uniqs]))
         out.update({
             "pinned_examples_per_s": BATCH * SCHED_ITERS / min(warm),
             "epoch_examples_per_s": [BATCH * SCHED_ITERS / t
                                      for t in times],
             "step_ms": min(warm) / SCHED_ITERS * 1e3,
             "launches": launches, "expected": want,
-            "chunks": {"full": SCHED_EPOCHS * per_epoch
+            "chunks": {"full": (SCHED_EPOCHS + 1) * per_epoch
                        - eng.noflush_chunks,
                        "flush_free": eng.noflush_chunks - eng.nopull_chunks,
                        "pull_free": eng.nopull_chunks},
             "loss_last": last[-1], "hot_block_equals_table_rows": True,
-            "cache": cache_report(planner, counted, eng.ids_per_worker),
+            "step_profile": profile,
+            "cache": cache_report(planner, total, eng.ids_per_worker),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "evaluate": _eval_after_sync(eng, state),
-            "k4_mean_hot_ids": hits})
+            "evaluate": _eval_after_sync(eng, state)})
         planner.close()
         hot = state.hot_table.clone()
         del state
         _free()
     emit(out)
-    return out, hot, uniqs, hits
+    positions = [torch.as_tensor(sparse[i * BATCH:(i + 1) * BATCH]
+                                 .reshape(-1), device=DEVICE)
+                 for i in range(64)]
+    return out, hot, uniqs, positions
 
 
 def _hot_gather_cases(hot, uniqs):
     """(label, hot table, ids) cases on the card: the shape of
     tests/test_pallas_kernels.py:49-59, negative ids, N = 0, D = 13 (no
-    16-byte vectors), f32 and bf16, and the pinned path's own shape."""
+    16-byte vectors), D = 513 (odd bf16 rows), f32 and bf16, int32 and
+    int64 ids, and the pinned path's own shape and raw uniq."""
     rng = np.random.default_rng(4)
     g = torch.Generator(device=DEVICE).manual_seed(4)
     for dt in (torch.float32, torch.bfloat16):
         for H, D, N in ((256, 128, 96), (300, 13, 500), (64, 128, 0),
-                        (4096, 128, 6656)):
+                        (1000, 513, 700), (4096, 128, 6656)):
             table = torch.randn((H, D), generator=g, device=DEVICE).to(dt)
             ids = np.where(rng.random(N) < 0.7, rng.integers(0, H, N),
                            1_000_000)
@@ -1679,10 +1804,117 @@ def _hot_gather_cases(hot, uniqs):
                f"(U_cap {uniqs[i].numel()})", hot, uniqs[i])
 
 
-def phase_kernel_hot_gather(hot, uniqs, hits) -> dict:
-    """K4 against its plain version, bit for bit, then timed at the pinned
-    path's shape: the [4096, 128] bf16 hot block read at each of 64
-    steps' raw uniq (U_cap wide, -1 padding, ids >= 4096)."""
+def _hot_add_check(label, tab, ids, strided: bool) -> None:
+    """The add form into an f32 acc holding -0.0 in every third row (cold
+    rows among them), contiguous or the value half of an [N, 2D] read,
+    against its plain version bit for bit over the whole buffer: the
+    rows of cold ids and the other half keep their bits."""
+    N, D = ids.numel(), tab.shape[1]
+    g = torch.Generator(device=DEVICE).manual_seed(N + D)
+    buf = torch.randn((N, 2 * D if strided else D), generator=g,
+                      device=DEVICE)
+    buf[::3] = -0.0
+    want = buf.clone()
+    k4_ops.hot_onehot_gather_add_ref(want[:, :D], tab, ids)
+    got = k4_ops.hot_onehot_gather_add_(buf[:, :D], tab, ids)
+    torch.cuda.synchronize()
+    if got.data_ptr() != buf.data_ptr() or not torch.equal(
+            buf.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"hot_onehot_gather_add_ differs from its "
+                             f"plain version ({label}, "
+                             f"{'strided' if strided else 'contiguous'} acc)")
+
+
+def _add_entry(acc, hot, ids):
+    """The add form's C entry point on prepared arguments: the part of a
+    wrapper call that is the ctypes call and the launch."""
+    fn = k4_ops._add_launcher()
+    args = (hot.data_ptr(), ids.data_ptr(), acc.data_ptr(), hot.shape[0],
+            hot.shape[1], ids.numel(), acc.stride(0), 1, 0)
+    return lambda: fn(*args, torch._C._cuda_getCurrentRawStream(0))
+
+
+def _k4_timing(hot, ids, acc) -> dict:
+    """K4's two forms on one shape, each launch on the ids of another step
+    or batch: the add form into `acc` (in place, one buffer, as the step
+    adds into its own rows) beside its plain version and the route it
+    replaced (K4's gather, `.to(float32)`, an out-of-place add: device ms
+    summed over its launches); the gather beside its plain version and
+    `index_select` + `masked_fill_`. Events ms and torch.profiler's device
+    ms; bounds by bytes from this run's hot ids."""
+    k, n = len(ids), ids[0].numel()
+    H, D = hot.shape
+    row, idb = D * hot.element_size(), ids[0].element_size()
+    hot_ids = [u[(u >= 0) & (u < H)] for u in ids]
+    hits = sum(h.numel() for h in hot_ids) / k
+    # the hot rows a launch must read: its distinct in-range ids (at the
+    # pinned shape each id is there once; at FAE's, hot ids repeat)
+    distinct = sum(torch.unique(h).numel() for h in hot_ids) / k
+    clamped = [u.clamp(0, H - 1) for u in ids]
+    cold = [((u < 0) | (u >= H)).unsqueeze(1) for u in ids]
+    fns = {
+        "add": lambda i: k4_ops.hot_onehot_gather_add_(acc, hot,
+                                                       ids[i % k]),
+        "add_plain": lambda i: k4_ops.hot_onehot_gather_add_ref(
+            acc, hot, ids[i % k]),
+        "replaced": lambda i: acc + hot_onehot_gather(
+            hot, ids[i % k]).to(torch.float32),
+        "gather": lambda i: hot_onehot_gather(hot, ids[i % k]),
+        "gather_plain": lambda i: hot_onehot_gather_ref(hot, ids[i % k]),
+        "gather_library": lambda i: torch.index_select(
+            hot, 0, clamped[i % k]).masked_fill_(cold[i % k], 0)}
+    marker = {"add": HOT_ADD, "gather": HOT_GATHER, "replaced": HOT_GATHER}
+    ev = {what: cuda_ms(f, k) for what, f in fns.items()}
+    prof = {what: device_profile(f, k, marker=marker.get(what))
+            for what, f in fns.items()}
+    # ids read once, each distinct hot row read once; add: the acc row of
+    # each hot position read and written once; gather: every out row
+    # written once
+    add_bytes = n * idb + distinct * row + hits * 2 * D * 4
+    gather_bytes = n * idb + distinct * row + n * row
+    base = {"steps": k, "n": n, "hot_rows": H, "width": D,
+            "mean_hot_ids": hits, "mean_distinct_hot_ids": distinct,
+            "hot_share": hits / n}
+    add = {**base, "kernel_ms": ev["add"], "plain_ms": ev["add_plain"],
+           "library_ms": None, "library_device_ms": None,
+           "replaced_ms": ev["replaced"],
+           "kernel_device_ms": _own_ms(prof["add"][1], HOT_ADD),
+           "plain_device_ms": prof["add_plain"][0],
+           "replaced_device_ms": prof["replaced"][0],
+           "replaced_top_device_ms": prof["replaced"][1],
+           "profiler_sessions": {what: p[3] for what, p in prof.items()},
+           "bound_ms": add_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes_per_launch": add_bytes,
+           "bound_note": "ids read once, distinct hot rows read once, the "
+                         "acc rows of hot positions read and written once",
+           "library_note": "none: no single PyTorch call adds rows read "
+                           "by id into place",
+           "replaced_note": "K4's gather + .to(float32) + add, the "
+                            "pinned read before the add form"}
+    gather = {**base, "kernel_ms": ev["gather"],
+              "plain_ms": ev["gather_plain"],
+              "library_ms": ev["gather_library"],
+              "kernel_device_ms": _own_ms(prof["gather"][1], HOT_GATHER),
+              "plain_device_ms": prof["gather_plain"][0],
+              "library_device_ms": prof["gather_library"][0],
+              "bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "bytes_per_launch": gather_bytes,
+              "bound_note": "ids read once, distinct hot rows read once, "
+                            "every out row written once",
+              "library_note": "index_select on clamped ids + masked_fill_ "
+                              "(clamp and mask made outside the timing)"}
+    return {"add": add, "gather": gather}
+
+
+def phase_kernel_hot_gather(hot, uniqs, positions) -> tuple:
+    """K4's gather and add forms against their plain versions, bit for
+    bit (the add form contiguous and strided, -0.0 in cold rows), then
+    timed at the pinned path's shape (the [4096, 128] bf16 hot block at
+    each of 64 steps' raw uniq: U_cap wide, -1 padding, ids >= 4096) and
+    at FAE's: a bf16 hot block of 1% of the Criteo rows ([337,625, 128],
+    86 MB, more than L2 holds) read at the 6,656 positions of each of 64
+    batches, hot where the frequency-remapped id falls in it (the data's
+    own share), and again with half of those positions made cold."""
     cases = 0
     for label, tab, ids in _hot_gather_cases(hot, uniqs):
         got = hot_onehot_gather(tab, ids)
@@ -1691,44 +1923,64 @@ def phase_kernel_hot_gather(hot, uniqs, hits) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"hot_onehot_gather differs from its plain "
                                  f"version ({label})")
+        for strided in (False, True):
+            _hot_add_check(label, tab, ids, strided)
         cases += 1
-    k = len(uniqs)
-    H = hot.shape[0]
-    n = uniqs[0].numel()
-    row = hot.shape[1] * hot.element_size()
-    # ids read once, every out row written once, the hot rows the in-range
-    # ids select read once (this run's mean hit count)
-    bytes_moved = n * uniqs[0].element_size() + n * row + hits * row
-    clamped = [u.clamp(0, H - 1) for u in uniqs]
-    cold = [((u < 0) | (u >= H)).unsqueeze(1) for u in uniqs]
-
-    def kern(i):
-        return hot_onehot_gather(hot, uniqs[i % k])
-
-    def plain(i):
-        return hot_onehot_gather_ref(hot, uniqs[i % k])
-
-    def library(i):
-        return torch.index_select(hot, 0, clamped[i % k]).masked_fill_(
-            cold[i % k], 0)
-
-    times = {what: cuda_ms(f, k) for what, f in
-             (("kernel", kern), ("plain", plain), ("library", library))}
-    prof = {what: device_profile(f, k) for what, f in
-            (("kernel", kern), ("plain", plain), ("library", library))}
-    out = {"name": "hot_onehot_gather", "cases": cases, "max_abs_err": 0.0,
-           "steps": k, "n": n, "mean_hot_ids": hits, "hot_rows": H,
-           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
-           "library_ms": times["library"],
-           "kernel_device_ms": _own_ms(prof["kernel"][1], "hot_gather_rows"),
-           "plain_device_ms": prof["plain"][0],
-           "library_device_ms": prof["library"][0],
-           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "bytes_per_launch": bytes_moved,
-           "library_note": "index_select on clamped ids + masked_fill_ "
-                           "(clamp and mask made outside the timing)"}
-    emit({"phase": "kernel:hot_onehot_gather", **out})
-    return out
+    refused = _refusals(
+        lambda: k4_ops.hot_onehot_gather_add_(
+            torch.zeros((uniqs[0].numel(), EMB), dtype=torch.float64,
+                        device=DEVICE), hot, uniqs[0]),
+        lambda: k4_ops.hot_onehot_gather_add_(
+            torch.zeros((EMB, uniqs[0].numel()), device=DEVICE).t(), hot,
+            uniqs[0]))
+    D = hot.shape[1]
+    acc = torch.randn((uniqs[0].numel(), 2 * D), device=DEVICE)[:, :D]
+    pinned = _k4_timing(hot, uniqs, acc)
+    pinned["add"]["wrapper_host_us"] = _wrapper_host_us(
+        lambda: k4_ops.hot_onehot_gather_add_(acc, hot, uniqs[0]),
+        _add_entry(acc, hot, uniqs[0]), None,
+        lambda: k4_ops.check_add_args(acc, hot, uniqs[0]),
+        route=lambda: acc + hot_onehot_gather(hot, uniqs[0]).to(
+            torch.float32))
+    # a control for the profiler's pad: the add form's session once
+    # without it
+    pinned["add"]["profiler_no_pad"] = device_profile(
+        lambda i: k4_ops.hot_onehot_gather_add_(acc, hot,
+                                                uniqs[i % len(uniqs)]),
+        len(uniqs), HOT_ADD, pad=0, tries=1)[3]
+    del acc
+    H_fae = FULL_ROWS // 100
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    hot_fae = torch.randn((H_fae, D), generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    acc = torch.zeros((positions[0].numel(), D), device=DEVICE)
+    rng = np.random.default_rng(7)
+    fae = []
+    for half in (False, True):
+        ids = []
+        for p in positions:
+            hot_idx = torch.where(p < H_fae, p, -1)
+            if half:
+                drop = torch.as_tensor(rng.random(p.numel()) < 0.5,
+                                       device=DEVICE)
+                hot_idx = torch.where(drop, -1, hot_idx)
+            ids.append(hot_idx)
+        fae.append(_k4_timing(hot_fae, ids, acc))
+        fae[-1]["add"]["hot_share_note"] = fae[-1]["gather"][
+            "hot_share_note"] = (
+            "the data's own: positions whose frequency-remapped id "
+            "(bench_scheduled's 65,536 samples) is among the 1% hottest"
+            + (", then half of them made cold at random" if half else ""))
+    del hot_fae, acc
+    out = {"cases": cases, "max_abs_err": 0.0,
+           "refused_wrong_acc": refused}
+    gather = {"name": "hot_onehot_gather", **out, **pinned["gather"],
+              "fae": [f["gather"] for f in fae]}
+    add = {"name": "hot_onehot_gather_add_", **out, **pinned["add"],
+           "fae": [f["add"] for f in fae]}
+    emit({"phase": "kernel:hot_onehot_gather", "gather": gather,
+          "add": add})
+    return gather, add
 
 
 class _MirrorDump:
@@ -1936,7 +2188,8 @@ def phase_kernel_fm(table: torch.Tensor, sparse: np.ndarray) -> tuple:
             ("bwd", "fm_second_order_backward", "fm_backward", bwd_bytes,
              bwd_err)):
         kern, plain = fns[what]
-        prof_k, prof_p = device_profile(kern, k), device_profile(plain, k)
+        prof_k = device_profile(kern, k, marker=marker)
+        prof_p = device_profile(plain, k)
         top_p = dict(sorted(prof_p[1].items(), key=lambda kv: -kv[1])[:4])
         out.append({"name": name, "cases": cases, "max_abs_err": err,
                     "shape": [B, F, D], "launches_per_shape": k,
@@ -2052,7 +2305,8 @@ def _times(k: dict) -> dict:
 
 def _entry(name, route_src, replaces, by_path, k) -> dict:
     """One kernel's line of the summary; K1, K2 and K3 carry the same
-    numbers at dfm's width 513 under "dfm"."""
+    numbers at dfm's width 513 under "dfm", K4's forms at FAE's shape
+    under "fae" (the data's hot share, then half of it)."""
     out = {"name": name, "route": "cuda",
            "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
            "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
@@ -2060,6 +2314,9 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
            "max_abs_err": k["max_abs_err"], **_times(k)}
     if "dfm" in k:
         out["dfm"] = _times(k["dfm"])
+    if "fae" in k:
+        out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
+                      for f in k["fae"]]
     return out
 
 
@@ -2079,8 +2336,23 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("scheduled:pinned",),
+                    help="the device and build phases and this one alone")
+    ap.add_argument("--root", help="import herald_tpu_torch from this "
+                                   "checkout (with --phase)")
+    args = ap.parse_args()
     smi = phase_device()
+    if args.root:
+        pkg = Path(herald_tpu_torch.__file__).resolve().parents[1]
+        if not args.phase or pkg != Path(args.root).resolve():
+            raise SystemExit(f"chip_smoke: --root needs --phase and "
+                             f"imported {pkg}")
     phase_build()
+    if args.phase:
+        phase_scheduled_pinned()
+        emit({"phase": "profiler", **PROFILER})
+        return
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
@@ -2110,9 +2382,9 @@ def main() -> None:
     _free()
     phase_launch()
     sched = phase_scheduled()
-    pinned, hot, uniqs, hits = phase_scheduled_pinned()
-    k4 = phase_kernel_hot_gather(hot, uniqs, hits)
-    del hot, uniqs
+    pinned, hot, uniqs, positions = phase_scheduled_pinned()
+    k4, k4_add = phase_kernel_hot_gather(hot, uniqs, positions)
+    del hot, uniqs, positions
     _free()
     phase_launch_scheduled()
 
@@ -2158,10 +2430,13 @@ def main() -> None:
                by_path("rows_scatter_add"), k2),
         _entry("hot_onehot_gather", "hot_onehot_gather.cu", 234,
                by_path("hot_onehot_gather"), k4),
+        _entry("hot_onehot_gather_add_", "hot_onehot_gather.cu", 234,
+               by_path("hot_onehot_gather_add_"), k4_add),
         _entry("fm_second_order", "fm_second_order.cu", 309,
                by_path("fm_second_order"), k5),
         _entry("fm_second_order_backward", "fm_second_order.cu", 309,
                by_path("fm_second_order_backward"), k5b)]})
+    emit({"phase": "profiler", **PROFILER})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,8 @@ from herald_tpu_torch.ops.kernels.gather import (
 )
 from herald_tpu_torch.ops.kernels.hot_gather import (
     hot_onehot_gather,
+    hot_onehot_gather_add_,
+    hot_onehot_gather_add_ref,
     hot_onehot_gather_ref,
 )
 from herald_tpu_torch.ops.kernels.scatter import (
@@ -29,6 +31,7 @@ from herald_tpu_torch.ops.kernels.segment import (
 # every wrapper with a launch counter, for callers that reset and read them
 KERNELS = {"embedding_gather": embedding_gather,
            "hot_onehot_gather": hot_onehot_gather,
+           "hot_onehot_gather_add_": hot_onehot_gather_add_,
            "hot_onehot_push": hot_onehot_push,
            "rows_scatter_add": rows_scatter_add,
            "fm_second_order": fm_second_order,

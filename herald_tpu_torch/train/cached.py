@@ -24,9 +24,10 @@ optimizer slots). Each step executes the planner's micro-program
 Kernels on the step: K1 (`embedding_gather`) reads the pull from the
 table, the [U_cap, 2W] cache-slot rows and the flush's cache and table
 rows; K3 (`hot_onehot_push`) sums the per-key gradients and, with a pinned
-tier, the hot block's delta; K4 (`hot_onehot_gather`) reads the pinned
-tier. Every other write is a scatter-*set* (XLA's `.at[].set(mode="drop")`
-in JAX, outside any Pallas kernel), here `index_copy_`.
+tier, the hot block's delta; K4's add form (`hot_onehot_gather_add_`)
+adds the pinned tier's rows into the step's f32 rows in place. Every
+other write is a scatter-*set* (XLA's `.at[].set(mode="drop")` in JAX,
+outside any Pallas kernel), here `index_copy_`.
 
 No host wait inside a step. Every sentinel of a program (slot C for
 padding and pinned keys, id -1 for empty flush and prefetch entries) is
@@ -58,7 +59,8 @@ import torch
 
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.models.base import ModelDef
-from herald_tpu_torch.ops.kernels import (embedding_gather, hot_onehot_gather,
+from herald_tpu_torch.ops.kernels import (embedding_gather,
+                                          hot_onehot_gather_add_,
                                           hot_onehot_push)
 from herald_tpu_torch.sched.planner import CachePlanner
 from herald_tpu_torch.train.engine import Engine, TrainState, make_exchange
@@ -248,11 +250,13 @@ class CachedEngine(Engine):
         else:
             emb_uniq = resident
         if self.pinned_rows:
-            # K4's bounds check is the pinned mask: ids -1 and ids >= P
-            # read zero rows, as the masked fill read of JAX does
+            # K4's add form: its bounds check is the pinned mask, so rows
+            # of ids -1 and ids >= P stay as they are and hot rows get the
+            # widened hot row added, the sums of JAX's masked fill read
+            # and add. In place: emb_uniq is this step's own tensor (res2's
+            # value half, or the pull's torch.where)
             uniq = a["uniq"][k]
-            emb_uniq = emb_uniq + hot_onehot_gather(
-                state.hot_table, uniq).to(torch.float32)
+            hot_onehot_gather_add_(emb_uniq, state.hot_table, uniq)
         emb = emb_uniq.index_select(0, inv).reshape(B, -1, W)
         loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb, d, y)
         dense, dense_slots = self.dense_opt.apply_dense(

@@ -6,12 +6,18 @@ the port's engine (embedding 8, 2,000 rows, batch 32, on the CPU), and
 every model's checkpoint across the packages both ways, bit for bit.
 
 Weights are 5x their init so that logits are of order 1 or more and every
-relu gate carries weight. Tolerances: logits rtol 1e-5, atol 1e-6 (as
-tests/test_torch_wdl.py: the frameworks sum the products in other orders);
-gradients rtol 1e-4, atol 1e-5 * max|grad| of that tensor: a gradient
-passes the same sums back through up to 10 matrix products (dc_criteo),
-and elements that cancel to near zero keep the absolute error of the
-tensor's scale.
+relu gate carries weight. Tolerances: logits and loss rtol 1e-5, atol
+2e-6 * max|logit|: the frameworks sum the products in other orders, and
+a float32 sum's error grows with the size of its terms, so a logit near
+zero keeps the error of the largest ones (wdl_adult: logits up to 47.8
+from an 829-wide wide part, the port and JAX each within 2e-5 of a
+float64 evaluation and 1.7e-5 apart). Both packages are also held to a
+float64 evaluation of the port's `apply` on the same inputs, with the
+same tolerance, so that it bounds each one's error and not only their
+distance. Gradients rtol 1e-4, atol 1e-5 * max|grad| of that tensor: a
+gradient passes the same sums back through up to 10 matrix products
+(dc_criteo), and elements that cancel to near zero keep the absolute
+error of the tensor's scale.
 """
 
 import jax
@@ -101,11 +107,24 @@ def test_logits_and_grads_match_jax(name):
     e = torch.from_numpy(emb).requires_grad_(True)
     logits = tm.apply(params, e, torch.from_numpy(dense))
     assert logits.shape == (B,) and logits.dtype == torch.float32
-    np.testing.assert_allclose(logits.detach().numpy(), want, rtol=1e-5,
-                               atol=1e-6)
+    with torch.no_grad():
+        exact = tm.apply({k: torch.from_numpy(np.asarray(v, np.float64))
+                          for k, v in jp.items()},
+                         torch.from_numpy(emb).double(),
+                         torch.from_numpy(dense).double())
+        exact_loss = float(bce_with_logits(
+            exact, torch.from_numpy(labels).double()))
+    exact = exact.numpy()
+    assert exact.dtype == np.float64
+    scale = 2e-6 * float(np.abs(exact).max())
+    got = logits.detach().numpy()
+    for a, b in ((got, want), (got, exact), (want, exact)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=scale)
     loss = bce_with_logits(logits, torch.from_numpy(labels))
-    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
-                               rtol=1e-5, atol=1e-6)
+    for a, b in ((float(loss.detach()), float(want_loss)),
+                 (float(loss.detach()), exact_loss),
+                 (float(want_loss), exact_loss)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=scale)
     grads = torch.autograd.grad(loss, [*params.values(), e])
     for k, g in zip(params, grads[:-1]):
         _close(g.numpy(), np.asarray(want_gp[k]), 1e-4, 1e-5)

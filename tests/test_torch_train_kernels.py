@@ -332,6 +332,7 @@ def test_launch_counters_stay_put_on_the_cpu():
     scatter_add_rows(torch.zeros(8, 8), torch.tensor([1, 1]),
                      torch.ones(2, 8))
     assert set(KERNELS) == {"embedding_gather", "hot_onehot_gather",
+                            "hot_onehot_gather_add_",
                             "hot_onehot_push", "rows_scatter_add",
                             "fm_second_order", "fm_second_order_backward"}
     assert {k: f.launches for k, f in KERNELS.items()} == before

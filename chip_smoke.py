@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Drive herald_tpu_torch on one NVIDIA card (H100): build its CUDA kernels
-and its host planner from the sources in this checkout, hold each kernel
-against its plain PyTorch version, serve and train wdl_criteo at full
-width, plainly and through the scheduled, cached engine, and print what it
-measured.
+and its host planner and scheduler from the sources in this checkout, hold
+each kernel against its plain PyTorch version, serve and train wdl_criteo
+at full width, plainly, in assign-only mode, through the FAE engine and
+through the scheduled, cached engine, and print what it measured.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase scheduled:pinned [--root DIR]
+    python3 chip_smoke.py --phase fae|assigned
 
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
-serve, checkpoint, train, train:adam, launch, scheduled, scheduled:pinned,
+serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
+fae, launch:fae, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
@@ -27,6 +29,19 @@ lr 0.01 on batches of synthetic_ctr_data(seed=0). The scheduled phases
 run bench_scheduled's configuration: the same table and data (256
 batches), a cache of 10% of the rows (3,376,257 x 256 f32, 3.46 GB) and
 program widths sized from a host probe pass.
+
+assigned trains the same table in assign-only mode (the lookahead
+scheduler for one worker composes each batch; 8 steps against the plain
+steps over the same samples, then both timed in turns), and
+launch:assigned runs `--assign-only` at full width and a stop/resume
+pair at 4,096 rows that must be bit-exact. fae runs the FAE engine on
+fae_wdl_criteo at the same width (a hot block of 1% of the rows, 337,625
+x 128 bf16; the cold read by position through K1, the hot read through
+K4's add form, K3 for the cold and the hot gradient sums): 8 steps
+against the plain versions of K1, K3 and K4, 64 timed steps with their
+launches and no plain-version call, host waits, a step profile, the
+dense hot update's device time and evaluate_fae; launch:fae runs the
+launcher's FAE branch at full width.
 
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
@@ -52,10 +67,12 @@ the eval step's waits for the card (none); scheduled:pinned profiles its
 step.
 
 `--phase scheduled:pinned` runs the device and build phases and that
-phase alone. `--root DIR` imports herald_tpu_torch from another checkout,
-so that the pinned step of two trees (a parent unpacked with `git archive`
-into a gitignored directory, and this one) is profiled in turns on one
-card, each run a process of its own:
+phase alone; `--phase fae` and `--phase assigned` run fae and launch:fae,
+or assigned and launch:assigned, the same way. `--root DIR` imports
+herald_tpu_torch from another checkout, so that the pinned step of two
+trees (a parent unpacked with `git archive` into a gitignored directory,
+and this one) is profiled in turns on one card, each run a process of
+its own:
 
     for r in PARENT . . PARENT; do
         python3 chip_smoke.py --phase scheduled:pinned --root $r; done
@@ -107,9 +124,14 @@ from herald_tpu_torch.ops.kernels.gather import _launcher as gather_launcher
 from herald_tpu_torch.ops.kernels.gather import check_gather_args
 # K4's add form through its module: a checkout from before it (an A/B's
 # parent under --root) imports and runs scheduled:pinned all the same
+from herald_tpu_torch.ops.kernels import fm as k5_ops
+from herald_tpu_torch.ops.kernels import gather as k1_ops
 from herald_tpu_torch.ops.kernels import hot_gather as k4_ops
+from herald_tpu_torch.ops.kernels import scatter as k2_ops
+from herald_tpu_torch.ops.kernels import segment as k3_ops
 from herald_tpu_torch.ops.kernels.scatter import _launcher as scatter_launcher
 from herald_tpu_torch.ops.kernels.scatter import check_scatter_args
+from herald_tpu_torch.sched import build as host_build
 from herald_tpu_torch.sched.build import planner_lib_path
 from herald_tpu_torch.sched.replay import ReplayPlanner, plan_cache
 from herald_tpu_torch.sched.sizing import (TrafficProfile,
@@ -272,13 +294,23 @@ def phase_build() -> None:
         planner["path"] = planner_lib_path()
         planner["seconds"] = time.perf_counter() - t
 
-    thread = threading.Thread(target=build_planner)
-    thread.start()
+    def build_sched():
+        # the lookahead scheduler; a checkout from before assign-only mode
+        # (an A/B's parent under --root) has no such library
+        if hasattr(host_build, "sched_lib_path"):
+            planner["sched"] = Path(host_build.sched_lib_path()).name
+
+    threads = [threading.Thread(target=f)
+               for f in (build_planner, build_sched)]
+    for thread in threads:
+        thread.start()
     logs = build.build_all()
     kernels_s = time.perf_counter() - t0
-    thread.join()
-    if "path" not in planner:
-        raise AssertionError("the planner did not build")
+    for thread in threads:
+        thread.join()
+    if "path" not in planner or ("sched" not in planner and hasattr(
+            host_build, "sched_lib_path")):
+        raise AssertionError("the planner or the scheduler did not build")
     seconds = time.perf_counter() - t0
     # per kernel source, from nvcc -Xptxas=-v: the most registers any of
     # its instantiations uses, and whether any spills to local memory
@@ -290,7 +322,8 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": seconds, "kernels_s": kernels_s,
           "built": sorted(logs), "ptxas": ptxas,
           "planner": Path(planner["path"]).name,
-          "planner_s": planner["seconds"]})
+          "planner_s": planner["seconds"],
+          "scheduler": planner.get("sched")})
 
 
 def _gather_cases():
@@ -2088,6 +2121,451 @@ def phase_launch_scheduled() -> dict:
 
 
 # ----------------------------------------------------------------------
+# assign-only mode and the FAE engine at full width
+# ----------------------------------------------------------------------
+
+ASSIGNED_K = 32
+FAE_SAMPLES, FAE_STEPS = 65536, 64
+FAE_TRAIN = {"embedding_gather": 2, "hot_onehot_gather_add_": 1,
+             "hot_onehot_push": 2}
+
+
+def _launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+class _PlainCalls:
+    """Counts the calls of every kernel's plain version while it is open:
+    each `*_ref` function of the kernel modules is wrapped, so a wrapper
+    that gave way to its plain version on the card would show here."""
+
+    def __enter__(self):
+        self.calls, self._saved = {}, []
+        for mod in (k1_ops, k2_ops, k3_ops, k4_ops, k5_ops):
+            for name, fn in list(vars(mod).items()):
+                if name.endswith("_ref") and callable(fn):
+                    self._saved.append((mod, name, fn))
+                    setattr(mod, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def call(*args, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def phase_assigned(eng: Engine, state: TrainState) -> dict:
+    """Assign-only mode at full width, in this process: the lookahead
+    scheduler for one worker (csrc/herald_sched.cc built by the port; a
+    cache of 10% of the rows, as the launcher sizes it) composes 128
+    batches of synthetic_ctr_data(seed=0), and Engine.train_epoch_assigned
+    trains them (SGD: K1 by position, K3, K2 with lr, one each a step).
+    8 assigned steps are held against 8 plain steps over the same
+    batches from a copy of the state: one device, so each step's samples
+    are the plain step's in another order; losses within 1e-5
+    (relative), touched rows within one bf16 ulp, dense params within
+    1e-5. Then chunks of 32 steps, plain and assigned in turns (plain,
+    assigned, assigned, plain), timed on the host clock from host arrays
+    and ended by a readback of the last loss; the assigned chunks' launches
+    are the path's counts."""
+    from herald_tpu_torch.sched.scheduler import LookaheadScheduler
+    B, K = eng.cfg.batch_size, ASSIGNED_K
+    n_batches = 4 * K
+    dense, sparse, labels = synthetic_ctr_data(
+        eng.model.spec, n_batches * B, seed=0, num_rows=FULL_ROWS)
+    t0 = time.perf_counter()
+    sched = LookaheadScheduler(sparse, nrank=1, batch_size=B,
+                               cache_size=eng.cfg.cache_rows(FULL_ROWS),
+                               epochs=2, n_threads=eng.cfg.sched_threads)
+    start_s = time.perf_counter() - t0
+    try:
+        # --- 8 steps against the plain steps on the same batches ---
+        ref = TrainState(state.table.clone(), {},
+                         {k: v.clone() for k, v in state.dense.items()},
+                         {k: {} for k in state.dense}, state.step.clone())
+        seen = []
+
+        class Recorded:         # the scheduler, its assignments kept
+            @staticmethod
+            def pop():
+                r = sched.pop()
+                seen.append(r[0].reshape(-1).copy())
+                return r
+
+        state, got = eng.train_epoch_assigned(state, Recorded, dense,
+                                              sparse, labels, steps=8)
+        for i, idx in enumerate(seen):
+            if sorted(idx.tolist()) != list(range(i * B, (i + 1) * B)):
+                raise AssertionError(f"assigned batch {i} is not the plain "
+                                     f"batch's samples")
+        ref, want = eng.train_epoch(ref, dense, sparse, labels, steps=8)
+        got_l, want_l = got["loss"].cpu(), want["loss"].cpu()
+        loss_err = float(((got_l - want_l).abs() / want_l.abs()).max())
+        touched = torch.as_tensor(np.unique(sparse[:8 * B]), device=DEVICE,
+                                  dtype=torch.long)
+        a = state.table[touched].float()
+        b = ref.table[touched].float()
+        rows_ok = torch.allclose(a, b, rtol=2 ** -7, atol=0)
+        row_err = float((a - b).abs().max())
+        identical = bool(torch.equal(state.table[touched],
+                                     ref.table[touched]))
+        dense_err = max(float((state.dense[k] - ref.dense[k]).abs().max())
+                        for k in ref.dense)
+        del ref, a, b
+        _free()
+        if loss_err > 1e-5 or dense_err > 1e-5 or not rows_ok:
+            raise AssertionError(f"assigned steps differ from the plain "
+                                 f"steps: loss {loss_err}, rows {row_err}, "
+                                 f"dense {dense_err}")
+        # --- timed, in turns; the assigned chunks' launches counted ---
+        times = {"plain": [], "assigned": []}
+        counts = dict.fromkeys(KERNELS, 0)
+        lo = 8
+        for mode in ("plain", "assigned", "assigned", "plain"):
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            if mode == "plain":
+                s = slice(lo * B, (lo + K) * B)
+                state, stats = eng.train_epoch(state, dense[s], sparse[s],
+                                               labels[s], steps=K)
+            else:
+                state, stats = eng.train_epoch_assigned(
+                    state, sched, dense, sparse, labels, steps=K)
+            float(stats["loss"][-1])
+            times[mode].append(time.perf_counter() - t0)
+            if mode == "assigned":
+                after = _launch_counts()
+                for k in counts:
+                    counts[k] += after[k] - before[k]
+            else:
+                lo += K
+        launches = dict(counts)
+        want = _want({"embedding_gather": 1, "hot_onehot_push": 1,
+                      "rows_scatter_add": 1}, 2 * K)
+        if launches != want:
+            raise AssertionError(f"the assigned path launched {launches}; "
+                                 f"expected {want}")
+        perf = {**sched.perf(), "plan_time_us": sched.iter_time_us()}
+    finally:
+        sched.close()
+    out = {"phase": "assigned", "model": eng.model.name, "batch": B,
+           "table_shape": list(state.table.shape),
+           "cache_size": eng.cfg.cache_rows(FULL_ROWS),
+           "scheduler_start_s": start_s, "reference_steps": 8,
+           "reference_loss_max_rel_err": loss_err,
+           "reference_row_max_err": row_err,
+           "reference_touched_rows_identical": identical,
+           "reference_dense_max_err": dense_err,
+           "chunk_steps": K, "chunk_s": times,
+           "examples_per_s": {m: K * B / min(t) for m, t in times.items()},
+           "launches": launches, "sched": perf}
+    emit(out)
+    return out, state
+
+
+def reference_fae_step(eng, st, d, cold, hot_idx, y):
+    """The FAE step through the plain versions on the card and the route
+    the add form replaced: K1's on the unique cold ids, `[inv]`, widen;
+    K4's gather, widen and `where`; K3's on the host, where `index_add_`
+    adds in position order (the kernel's order for ids of at most 32
+    positions; it adds longer segments in pieces of 32). The cold rows
+    are updated in `st.table` (a compact table the caller indexes by
+    remapped ids, -1 where hot) with the engine's optimizer."""
+    from herald_tpu_torch.train.fae import FaeTrainState
+    step = st.step + 1
+    B, F = cold.shape
+    W, dt = eng.width, st.table.dtype
+    uniq, inv = torch.unique(cold.reshape(-1), sorted=True,
+                             return_inverse=True)
+    flat_hot = hot_idx.reshape(-1)
+    emb = torch.where((flat_hot >= 0)[:, None],
+                      hot_onehot_gather_ref(st.hot_table, flat_hot).float(),
+                      embedding_gather_ref(st.table, uniq)[inv].float())
+    loss, dgrads, g = eng._loss_and_grads(st.dense, emb.reshape(B, F, W),
+                                          d, y)
+    dense, dense_slots = eng.dense_opt.apply_dense(
+        st.dense, dgrads, st.dense_slots, step, lr=eng._lr_fn(step))
+    g = g.reshape(-1, W).cpu()
+    g_uniq = hot_onehot_push_ref(inv.cpu(), g, uniq.numel()).to(
+        st.table.device).to(dt)
+    keep = uniq >= 0
+    rows, _ = eng.embed_opt.apply_rows(
+        embedding_gather_ref(st.table, uniq[keep]), g_uniq[keep], {}, step,
+        lr=eng._elr_fn(step))
+    st.table.index_copy_(0, uniq[keep].long(), rows.to(dt))
+    g_hot = hot_onehot_push_ref(flat_hot.cpu(), g, eng.num_hot).to(
+        st.table.device)
+    hot, hot_slots = eng._apply_hot_grads(st.hot_table, st.hot_slots, step,
+                                          g_hot)
+    return FaeTrainState(st.table, {}, dense, dense_slots, step, hot,
+                         hot_slots), loss.detach()
+
+
+def phase_fae() -> dict:
+    """The FAE engine at full width (bench.py:37-41): fae_wdl_criteo,
+    batch 256, embedding 128, the 33,762,584 x 128 bf16 cold table and a
+    hot block of 1% of the rows, 337,625 x 128 bf16, SGD at lr 0.01 on
+    synthetic_ctr_data(seed=0) (65,536 samples), the hot-id LUT profiled
+    from those ids. 8 steps held against the plain versions of K1, K3 and
+    K4 on the card (`reference_fae_step`, a compact copy of the rows the
+    steps touch): losses within 1e-5 (relative), touched cold rows and the
+    hot block within one bf16 ulp, dense params within 1e-5, every other
+    cold row with its bits. Then 64 steps timed, with their launches (K1
+    by position and on the unique cold rows, K4's add form once, K3 twice
+    a step) and the calls of every plain version (none); host waits over
+    4 steps; a profile of 16 steps (device busy, idle share, K4's and K3's
+    device ms a step), the dense hot update alone (device ms), K3 at
+    num_rows = H alone; then evaluate_fae on 32 batches of seed 1."""
+    from herald_tpu_torch.train.fae import (FaeEngine, FaeTrainState,
+                                            build_hot_lut)
+    cfg = HeraldConfig(model="fae_wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, table_dtype=torch.bfloat16,
+                       learning_rate=0.01)
+    torch.cuda.reset_peak_memory_stats()
+    eng = FaeEngine(cfg, table_rows=FULL_ROWS, device=DEVICE)
+    state = eng.init_fae_state(0)
+    H, W = eng.num_hot, eng.width
+    if tuple(state.table.shape) != (33_762_584, EMB) or H != 337_625 \
+            or tuple(state.hot_table.shape) != (H, EMB):
+        raise AssertionError(f"FAE shapes {tuple(state.table.shape)}, "
+                             f"{tuple(state.hot_table.shape)}")
+    dense, sparse, labels = synthetic_ctr_data(
+        eng.model.spec, FAE_SAMPLES, seed=0, num_rows=FULL_ROWS)
+    t0 = time.perf_counter()
+    lut, _ = build_hot_lut(sparse, FULL_ROWS, num_hot=H)
+    lut_s = time.perf_counter() - t0
+    hot_share = float((lut[sparse] >= 0).mean())
+    B = BATCH
+
+    def batch(i):
+        s = slice(i * B, (i + 1) * B)
+        return dense[s], sparse[s], labels[s]
+
+    # --- 8 steps against the plain versions, from one state ---
+    cold8, hot8 = eng.split_batch(lut, sparse[:8 * B])
+    touched = torch.as_tensor(np.unique(cold8[cold8 >= 0]), device=DEVICE,
+                              dtype=torch.long)
+    before = _row_sums(state.table)
+    ref = FaeTrainState(state.table[touched].clone(), {},
+                        {k: v.clone() for k, v in state.dense.items()},
+                        {k: {} for k in state.dense}, state.step.clone(),
+                        state.hot_table.clone(), {})
+    got_l, want_l = [], []
+    for i in range(8):
+        state, st = eng.train_step_fae(state, lut, *batch(i))
+        s = slice(i * B, (i + 1) * B)
+        cold = torch.as_tensor(cold8[s], device=DEVICE).long()
+        local = torch.where(cold >= 0, torch.searchsorted(touched, cold),
+                            -1).to(torch.int32)
+        d, _, y = batch(i)
+        ref, loss = reference_fae_step(
+            eng, ref, torch.as_tensor(d, device=DEVICE, dtype=torch.float32),
+            local, torch.as_tensor(hot8[s], device=DEVICE),
+            torch.as_tensor(y, device=DEVICE, dtype=torch.float32))
+        got_l.append(float(st["loss"]))
+        want_l.append(float(loss))
+    differ = before != _row_sums(state.table)
+    differ[touched] = False
+    if bool(differ.any()):
+        raise AssertionError(f"{int(differ.sum())} cold rows no step "
+                             f"touched changed")
+    a, b = state.table[touched].float(), ref.table.float()
+    ha, hb = state.hot_table.float(), ref.hot_table.float()
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(got_l, want_l))
+    dense_err = max(float((state.dense[k] - ref.dense[k]).abs().max())
+                    for k in ref.dense)
+    cold_ok = torch.allclose(a, b, rtol=2 ** -7, atol=0)
+    hot_ok = torch.allclose(ha, hb, rtol=2 ** -7, atol=0)
+    reference = {
+        "steps": 8, "loss_max_rel_err": loss_err,
+        "cold_row_max_err": float((a - b).abs().max()),
+        "cold_rows_identical": bool(torch.equal(state.table[touched],
+                                                ref.table)),
+        "hot_block_max_err": float((ha - hb).abs().max()),
+        "hot_block_identical": bool(torch.equal(state.hot_table,
+                                                ref.hot_table)),
+        "dense_max_err": dense_err, "touched_cold_rows": int(touched.numel()),
+        "tolerance": "loss 1e-5 relative; cold rows and hot block within "
+                     "one bf16 ulp (rtol 2^-7); dense 1e-5; untouched cold "
+                     "rows bit for bit"}
+    del ref, a, b, ha, hb, differ, before
+    _free()
+    if loss_err > 1e-5 or dense_err > 1e-5 or not cold_ok or not hot_ok:
+        raise AssertionError(f"the FAE steps differ from the plain-kernel "
+                             f"reference: {reference}")
+
+    # --- 64 steps timed, launches and plain-version calls counted ---
+    for k in KERNELS.values():
+        k.launches = 0
+    lo = 8
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        for i in range(lo, lo + FAE_STEPS):
+            state, st = eng.train_step_fae(state, lut, *batch(i))
+        last = float(st["loss"])
+        timed_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = _want(FAE_TRAIN, FAE_STEPS)
+    if launches != want or plain.calls:
+        raise AssertionError(f"the FAE path launched {launches} (expected "
+                             f"{want}) and called plain versions "
+                             f"{plain.calls}")
+    lo += FAE_STEPS
+    if not np.isfinite(last):
+        raise AssertionError("non-finite FAE loss")
+
+    # --- host waits, the step profile, the hot update and K3 at H ---
+    def step(i):
+        nonlocal state
+        state, _ = eng.train_step_fae(state, lut, *batch(lo + i))
+
+    waits, sites = _count_host_waits(lambda: [step(i) for i in range(4)])
+    lo += 4
+    busy, per, host, check = device_profile(step, 16, marker=HOT_ADD)
+    lo += 17 * check["sessions"]
+    cold_b, hot_b = eng.split_batch(lut, sparse[lo * B:(lo + 1) * B])
+    g = torch.randn((B * cold_b.shape[1], W), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(8))
+    hot_ids = torch.as_tensor(hot_b.reshape(-1), device=DEVICE)
+    g_hot = hot_onehot_push(hot_ids, g, H)
+    upd_busy, upd_per, _, _ = device_profile(
+        lambda i: eng._apply_hot_grads(state.hot_table, {}, state.step,
+                                       g_hot), 16)
+    k3_busy, k3_per, _, _ = device_profile(
+        lambda i: hot_onehot_push(hot_ids, g, H), 16, marker="sum_segments")
+    # the least the update must move: the bf16 block read and written
+    # once, the f32 sum read once
+    upd_bytes = H * W * (2 + 4 + 2)
+    profile = {
+        "device_busy_ms": busy, "host_ms_profiled": host,
+        "device_idle_share": None if busy is None else 1 - busy / host,
+        "hot_add_device_ms": _own_ms(per, HOT_ADD),
+        "hot_onehot_push_device_ms": _k3_ms(per),
+        "top_device_ms": dict(sorted(per.items(),
+                                     key=lambda kv: -kv[1])[:10]),
+        "profiler_sessions": check,
+        "host_waits_per_step": waits / 4, "host_wait_sites": sites,
+        "hot_update_device_ms": upd_busy,
+        "hot_update_items_ms": upd_per,
+        "hot_update_bound_ms": upd_bytes / HBM_BYTES_PER_S * 1e3,
+        "hot_update_note": "apply_rows over all H rows in f32 (widen the "
+                           "bf16 block, SGD, cast back); bound: the block "
+                           "read and written once in bf16 and the f32 sum "
+                           "read once",
+        "hot_sum_alone_device_ms": k3_busy,
+        "hot_sum_alone_k3_ms": _k3_ms(k3_per)}
+    del g, g_hot
+    # --- evaluate_fae on held-out batches ---
+    dv, sv, yv = synthetic_ctr_data(eng.model.spec, 32 * B, seed=1,
+                                    num_rows=FULL_ROWS)
+    ev = eng.evaluate_fae(state, lut, dv, sv, yv)
+    if not 0.0 <= ev["auc"] <= 1.0:
+        raise AssertionError(f"evaluate_fae: {ev}")
+    out = {"phase": "fae", "model": cfg.model, "batch": B,
+           "table_shape": list(state.table.shape),
+           "hot_shape": list(state.hot_table.shape),
+           "table_dtype": str(state.table.dtype), "optimizer": "sgd",
+           "lr": cfg.learning_rate, "samples": FAE_SAMPLES, "lut_s": lut_s,
+           "hot_share": hot_share, "reference": reference,
+           "steps_timed": FAE_STEPS, "timed_s": timed_s,
+           "train_examples_per_s": FAE_STEPS * B / timed_s,
+           "step_ms": timed_s / FAE_STEPS * 1e3, "launches": launches,
+           "plain_version_calls": plain.calls, "loss_last": last,
+           "step_profile": profile, "evaluate": ev,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    return out
+
+
+def phase_launch_fae() -> dict:
+    """The launcher's FAE branch at full width, in a subprocess:
+    `--model fae_wdl_criteo --bf16-table --rows 33762577` over 65,536
+    samples (one epoch of 230 steps; the branch ignores --max-steps, as
+    JAX's does). Its report must say mode "fae" and num_hot 337,625."""
+    t0 = time.perf_counter()
+    rep = _report(_run(["herald_tpu_torch.launch", "--model",
+                        "fae_wdl_criteo", "--bf16-table", "--rows",
+                        str(FULL_ROWS), "--samples", str(FAE_SAMPLES)]))
+    command_s = time.perf_counter() - t0
+    steps = (FAE_SAMPLES - int(FAE_SAMPLES * 0.1)) // BATCH
+    if rep["mode"] != "fae" or rep["num_hot"] != 337_625 \
+            or rep["steps"] != steps or len(rep["epochs"]) != 1 \
+            or not np.isfinite(rep["train_loss_last"]) \
+            or not 0.0 <= rep["val_auc"] <= 1.0:
+        raise AssertionError(f"FAE launch report: {rep}")
+    out = {"phase": "launch:fae", "command_s": command_s,
+           "report": {k: rep[k] for k in (
+               "model", "mode", "num_hot", "steps", "train_loss_last",
+               "val_auc", "val_acc", "examples_per_sec", "timing",
+               "device")}}
+    emit(out)
+    return out
+
+
+def phase_launch_assigned() -> dict:
+    """`--assign-only` in subprocesses: wdl_criteo at full width (96 steps
+    over 65,536 samples, the scheduler's cache 10% of the rows), printing
+    its `sched` counters; at 4,096 rows a run stopped at --max-steps and
+    resumed with --resume (the scheduler fast-forwarded), whose final
+    table and dense params must equal the uninterrupted run's bit for
+    bit."""
+    launch = ["herald_tpu_torch.launch", "--assign-only", "--model",
+              "wdl_criteo", "--bf16-table"]
+    t0 = time.perf_counter()
+    full = _report(_run(launch + ["--rows", str(FULL_ROWS), "--samples",
+                                  "65536", "--scan-steps", "32",
+                                  "--max-steps", "96"]))
+    full_s = time.perf_counter() - t0
+    if full["mode"] != "assigned" or full["steps"] != 96 \
+            or set(full["sched"]) != {"miss_pull", "miss_push",
+                                      "update_pull", "update_push",
+                                      "plan_time_us"} \
+            or not np.isfinite(full["train_loss_last"]) \
+            or not 0.0 <= full["val_auc"] <= 1.0:
+        raise AssertionError(f"full-width assign-only report: {full}")
+    rows = 4096
+    small = launch + ["--rows", str(rows), "--samples", "8192",
+                      "--scan-steps", "8", "--nepoch", "2", "--lr", "0.5"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        whole = _report(_run(small + ["--ckpt", str(tmp / "whole")]))
+        part = _report(_run(small + ["--ckpt", str(tmp / "part"),
+                                     "--ckpt-every", "8", "--max-steps",
+                                     "20"]))
+        rest = _report(_run(small + ["--resume", str(tmp / "part"), "--ckpt",
+                                     str(tmp / "rest")]))
+        if part["steps"] != 20 or part["steps"] + rest["steps"] != \
+                whole["steps"]:
+            raise AssertionError(f"steps {part['steps']} + {rest['steps']} "
+                                 f"!= {whole['steps']}")
+        a = load_checkpoint(str(tmp / "whole"), DEVICE)
+        b = load_checkpoint(str(tmp / "rest"), DEVICE)
+        if int(a.step) != whole["steps"] or not torch.equal(a.table,
+                                                            b.table) \
+                or not all(torch.equal(a.dense[k], b.dense[k])
+                           for k in a.dense):
+            raise AssertionError("the resumed assign-only run's final state "
+                                 "differs from the uninterrupted run's")
+    out = {"phase": "launch:assigned", "full_width": {
+        k: full[k] for k in ("mode", "steps", "train_loss_last", "val_auc",
+                             "val_acc", "examples_per_sec", "sched",
+                             "device")},
+        "full_width_command_s": full_s, "rows_small": rows,
+        "small_steps": whole["steps"], "resumed_at": part["steps"],
+        "resume_bit_exact": True, "small_sched": whole["sched"]}
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
 # DeepFM: dfm_criteo at batch 1024, embedding 512 over the full table
 # (BASELINE.md:26-27, benchmarks/secondary_sweep.py:29), with K5
 # ----------------------------------------------------------------------
@@ -2337,8 +2815,11 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("scheduled:pinned",),
-                    help="the device and build phases and this one alone")
+    ap.add_argument("--phase", choices=("scheduled:pinned", "fae",
+                                        "assigned"),
+                    help="the device and build phases and this one alone "
+                         "(fae: fae and launch:fae; assigned: assigned and "
+                         "launch:assigned)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     args = ap.parse_args()
@@ -2349,12 +2830,23 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: --root needs --phase and "
                              f"imported {pkg}")
     phase_build()
-    if args.phase:
-        phase_scheduled_pinned()
-        emit({"phase": "profiler", **PROFILER})
-        return
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
+    if args.phase == "scheduled:pinned":
+        phase_scheduled_pinned()
+    elif args.phase == "fae":
+        phase_fae()
+        _free()
+        phase_launch_fae()
+    elif args.phase == "assigned":
+        eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+        phase_assigned(eng, eng.init_state(0))
+        del eng
+        _free()
+        phase_launch_assigned()
+    if args.phase:
+        emit({"phase": "profiler", **PROFILER})
+        return
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
     state = eng.init_state(0)
     assert tuple(state.table.shape) == (33_762_584, EMB)
@@ -2376,11 +2868,16 @@ def main() -> None:
     serve = phase_serve(eng, state)
     phase_checkpoint()
     train = phase_train(eng, state)
+    assigned, state = phase_assigned(eng, state)
     del state, eng
     _free()
     phase_train_adam()
     _free()
     phase_launch()
+    phase_launch_assigned()
+    fae = phase_fae()
+    _free()
+    phase_launch_fae()
     sched = phase_scheduled()
     pinned, hot, uniqs, positions = phase_scheduled_pinned()
     k4, k4_add = phase_kernel_hot_gather(hot, uniqs, positions)
@@ -2412,6 +2909,7 @@ def main() -> None:
     sched_dfm = phase_scheduled_dfm()
 
     paths = {"serve": serve["launches"], "train": train["launches"],
+             "assigned": assigned["launches"], "fae": fae["launches"],
              "scheduled": sched["launches_tape"],
              "scheduled:pinned": pinned["launches"],
              "serve:dfm": serve_dfm["launches"],

@@ -2,7 +2,8 @@
 
 `state_from_numpy` turns the JAX package's state, as numpy arrays
 (e.g. `jax.tree.map(np.asarray, state)`), into the port's `TrainState`,
-or its `CachedTrainState` when the leaves carry the cache arrays;
+its `CachedTrainState` when the leaves carry the cache arrays, or its
+`FaeTrainState` when they carry a hot block and no cache;
 `state_to_numpy` goes the other way, to a state of host arrays in the
 same NamedTuple type.
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
@@ -55,11 +56,12 @@ def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 
 def state_from_numpy(leaves, device):
-    """A TrainState- or CachedTrainState-shaped object of numpy arrays
-    (fields table, table_slots, dense, dense_slots, step, and for the
-    cached state cache, hot_table, hot_slots) -> the port's state of the
-    same kind. The trees keep JAX's shape: a slotless optimizer's dense
-    slots stay `{"W1": {}, ...}`."""
+    """A TrainState-, CachedTrainState- or FaeTrainState-shaped object of
+    numpy arrays (fields table, table_slots, dense, dense_slots, step; for
+    the cached state cache, hot_table, hot_slots; for the FAE state
+    hot_table, hot_slots) -> the port's state of the same kind. The trees
+    keep JAX's shape: a slotless optimizer's dense slots stay
+    `{"W1": {}, ...}`."""
     def conv(a):
         return tensor_from_numpy(a, device=device)
     base = TrainState(
@@ -69,18 +71,21 @@ def state_from_numpy(leaves, device):
         dense_slots={k: {s: conv(x) for s, x in v.items()}
                      for k, v in leaves.dense_slots.items()},
         step=conv(leaves.step))
-    if not hasattr(leaves, "cache"):
+    if not hasattr(leaves, "hot_table"):
         return base
+    hot = {"hot_table": conv(leaves.hot_table),
+           "hot_slots": {k: conv(v) for k, v in leaves.hot_slots.items()}}
+    if not hasattr(leaves, "cache"):
+        from herald_tpu_torch.train.fae import FaeTrainState
+        return FaeTrainState(*base, **hot)
     from herald_tpu_torch.train.cached import CachedTrainState
-    return CachedTrainState(
-        *base, cache=conv(leaves.cache), hot_table=conv(leaves.hot_table),
-        hot_slots={k: conv(v) for k, v in leaves.hot_slots.items()})
+    return CachedTrainState(*base, cache=conv(leaves.cache), **hot)
 
 
 def state_to_numpy(state):
-    """The port's TrainState or CachedTrainState with every tensor as a
-    host array (bf16 as its `V2` bit patterns; `tensor_to_numpy`), in the
-    same NamedTuple type and trees."""
+    """The port's TrainState, CachedTrainState or FaeTrainState with every
+    tensor as a host array (bf16 as its `V2` bit patterns;
+    `tensor_to_numpy`), in the same NamedTuple type and trees."""
     def conv(t):
         return tensor_to_numpy(t)[0]
 

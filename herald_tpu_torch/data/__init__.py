@@ -6,3 +6,4 @@ from herald_tpu_torch.data.datasets import (
     load_dataset,
     synthetic_ctr_data,
 )
+from herald_tpu_torch.data.loaders import Dataloader, LookaheadDataloader

@@ -8,8 +8,8 @@
         --plan-cache DIR --device-data --autosize] [--device cuda|cpu]
 
 The flags are herald_tpu.launch's, plus `--device`; `--model` takes every
-name of `herald_tpu_torch.models.available_models()` except the `fae_*`
-ones, which need the FAE engine. Two of its branches are ported:
+name of `herald_tpu_torch.models.available_models()`. Four of its
+branches are ported:
 - the plain local trainer (`cli.py:1126-1238`): init or `--resume`,
   chunks of `--scan-steps` steps through `Engine.train_epoch`, checkpoints
   at `--ckpt-every` crossings and at the end, `--max-steps`, a validation
@@ -25,7 +25,18 @@ ones, which need the FAE engine. Two of its branches are ported:
   the steady-state clock. The async `_Prestager` is not ported: every
   `--prestage` value runs the per-chunk path, and the report says so.
   Unlike `cli.py:993`, a `--max-steps` stop on an epoch boundary keeps
-  that epoch's (approximate) eval.
+  that epoch's (approximate) eval;
+- the FAE branch (`cli.py:665-708`; `--fae` or a `fae_*` model, with
+  `--hot-rate`): `FaeEngine` step by step over the whole epochs, the
+  hot-id LUT profiled from the training ids, `evaluate_fae` per epoch and
+  at the end. As in JAX it writes no checkpoint and ignores `--ckpt`,
+  `--resume`, `--max-steps` and `--crash-after`, and `--export-onnx`
+  exits before training;
+- assign-only mode (`--assign-only`, `cli.py:1070-1125`): the plain engine
+  over the batches the lookahead scheduler (csrc/herald_sched.cc)
+  composes for one worker, with checkpoints, `--max-steps`, `--resume`
+  through a deterministic fast-forward of the scheduler, and its counters
+  under `sched` in the report.
 The other modes and options raise NotImplementedError naming their
 ROADMAP item; none is ignored.
 """
@@ -294,9 +305,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of herald_tpu.launch the port does not run yet, each with the
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
-    ("assign_only", "--assign-only", "item 15 (assign-only mode on one "
-     "device)"),
-    ("fae", "--fae", "item 11 (FAE engine)"),
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
     ("multihost", "--multihost", "items 7-9 (multi-rank engines and "
      "checkpoints)"),
@@ -311,19 +319,24 @@ _NOT_PORTED = (
 )
 
 
-def _refuse_unported(args, cfg) -> None:
+def _uses_fae(args, cfg) -> bool:
+    """--fae, or a fae_* model, which herald_tpu.launch trains as if given
+    --fae."""
     from herald_tpu_torch.models import get_model
+    return args.fae or get_model(cfg.model).train_engine == "fae"
+
+
+def _refuse_unported(args, cfg) -> None:
+    if _uses_fae(args, cfg) and args.export_onnx:
+        # herald_tpu.launch's refusal, before any training (cli.py:667-673)
+        raise SystemExit("--export-onnx does not support FAE runs "
+                         "(hot/cold split state); train the plain or "
+                         "scheduled mode to export")
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr):
             raise NotImplementedError(
                 f"{flag} is not ported to herald_tpu_torch yet "
                 f"(ROADMAP queue 1, {item})")
-    if get_model(cfg.model).train_engine == "fae":
-        # herald_tpu.launch trains a fae_* model as if given --fae
-        raise NotImplementedError(
-            f"--model {cfg.model} trains on the FAE engine (it implies "
-            f"--fae), which is not ported to herald_tpu_torch yet "
-            f"(ROADMAP queue 1, item 11 (FAE engine))")
     if cfg.mp_shards > 1:
         raise NotImplementedError(
             "--mp-shards > 1 is not ported to herald_tpu_torch yet "
@@ -712,6 +725,112 @@ def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
     return eng, state, losses, overflow_total, stopped_early, extra
 
 
+def _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
+               epoch_records, timer, t_start) -> dict:
+    """The FAE branch of the JAX launcher (`cli.py:665-708`): every step of
+    every epoch, one at a time; a per-epoch eval and a final one through
+    `evaluate_fae`. It returns its report before any checkpoint, as JAX's
+    does. Losses stay on the card until an epoch ends."""
+    from herald_tpu_torch.train.fae import FaeEngine, build_hot_lut
+    eng = FaeEngine(cfg, table_rows=rows, hot_rate=args.hot_rate,
+                    device=device)
+    lut, _ = build_hot_lut(trn[1], rows, num_hot=eng.num_hot)
+    state = eng.init_fae_state(cfg.seed)
+    prof = _start_trace(device) if args.log_dir else None
+    gb = cfg.batch_size
+    steps_per_epoch = len(trn[1]) // gb
+    losses = []
+    for ep in range(args.nepoch):
+        epoch = []
+        for s in range(steps_per_epoch):
+            lo = s * gb
+            with timer:
+                state, stats = eng.train_step_fae(
+                    state, lut, trn[0][lo:lo + gb], trn[1][lo:lo + gb],
+                    trn[2][lo:lo + gb])
+            epoch.append(stats["loss"])
+        if epoch:
+            losses.extend(torch.stack(epoch).cpu().tolist())
+        eval_epoch(eng, state, ep, losses[-steps_per_epoch:], lut=lut)
+    train_time = time.perf_counter() - t_start
+    if prof is not None:
+        prof.stop()
+        os.makedirs(args.log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.log_dir, "trace.json"))
+    res = eng.evaluate_fae(state, lut, *val)
+    report = {
+        "model": cfg.model, "mode": "fae", "comm": cfg.comm_mode,
+        "devices": 1, "device": str(eng.device), "steps": len(losses),
+        "train_loss_last": float(np.mean(losses[-20:])) if losses else None,
+        "val_auc": res["auc"], "val_acc": res["acc"],
+        "examples_per_sec": len(losses) * gb / max(train_time, 1e-9),
+        "num_hot": eng.num_hot,
+        "epochs": epoch_records,
+        "timing": timer.report(),
+    }
+    _dump_logs(args, report, losses)
+    return report
+
+
+def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
+                    maybe_ckpt, timer):
+    """Assign-only mode of the JAX launcher (`cli.py:1070-1125`) on one
+    device: the lookahead scheduler for one worker composes each batch,
+    the plain engine trains it. On `--resume` the scheduler pops the
+    saved number of batches first (it is deterministic). Returns (engine,
+    state, losses, overflow, stopped_early, report extras)."""
+    from herald_tpu_torch.sched.scheduler import LookaheadScheduler
+    from herald_tpu_torch.train.checkpoint import load_checkpoint
+    from herald_tpu_torch.train.engine import Engine
+    eng = Engine(cfg, model=model, table_rows=rows, device=device)
+    gb = cfg.batch_size
+    steps_per_epoch = len(trn[1]) // gb
+    sched = LookaheadScheduler(
+        trn[1], nrank=1, batch_size=gb, cache_size=cfg.cache_rows(rows),
+        epochs=args.nepoch, top_k=cfg.sched_top_k_tables or 0,
+        n_threads=cfg.sched_threads)
+    try:
+        done = 0
+        if args.resume:
+            state = load_checkpoint(args.resume, eng.device,
+                                    padded_rows=eng.padded_rows)
+            _check_resumed(eng, state, args.resume)
+            done = int(state.step)
+            for _ in range(done):
+                sched.pop()
+        else:
+            state = eng.init_state(cfg.seed)
+        total = steps_per_epoch * args.nepoch
+        target = min(total, args.max_steps) if args.max_steps else total
+        cs = _ChunkStats()
+        start_done = done
+        while done < target:
+            k = min(args.scan_steps, target - done,
+                    steps_per_epoch - done % steps_per_epoch
+                    if done % steps_per_epoch else steps_per_epoch)
+            with timer:
+                state, stats = eng.train_epoch_assigned(state, sched, *trn,
+                                                        steps=k)
+            if stats is None:
+                break
+            cs.push(stats)
+            done += int(stats["loss"].shape[0])   # the executed count
+            maybe_ckpt(state, done, pre=lambda: (
+                cs.drain(), _fail_on_overflow(cs.overflow)))
+            if done % steps_per_epoch == 0 and done > start_done:
+                cs.drain()
+                lo = max(start_done, done - steps_per_epoch)
+                eval_epoch(eng, state, done // steps_per_epoch - 1,
+                           cs.losses[-(done - lo):])
+        losses, overflow_total = cs.finish()
+        _fail_on_overflow(overflow_total)
+        extra = {"sched": {**sched.perf(),
+                           "plan_time_us": sched.iter_time_us()}}
+    finally:
+        sched.close()
+    return eng, state, losses, overflow_total, done < total, extra
+
+
 def run_training(args) -> dict:
     import warnings
 
@@ -753,13 +872,14 @@ def run_training(args) -> dict:
     # printed as it lands and collected into report["epochs"]
     epoch_records = []
 
-    def eval_epoch(eng, state, ep, epoch_losses, approx=False):
+    def eval_epoch(eng, state, ep, epoch_losses, approx=False, lut=None):
         with warnings.catch_warnings():
             if approx:
                 # scheduled mode mid-stream: the table lacks the unflushed
                 # cache deltas; the record says so instead of a warning
                 warnings.simplefilter("ignore", UserWarning)
-            r = eng.evaluate(state, *val)
+            r = (eng.evaluate_fae(state, lut, *val) if lut is not None
+                 else eng.evaluate(state, *val))
         rec = {"epoch": ep,
                "train_loss": (float(np.mean(epoch_losses))
                               if len(epoch_losses) else None),
@@ -771,6 +891,9 @@ def run_training(args) -> dict:
 
     timer = StepTimer()
     t_start = time.perf_counter()
+    if _uses_fae(args, cfg):
+        return _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
+                          epoch_records, timer, t_start)
     last_ckpt = [0]
     ckpt_extras = [None]   # the scheduled branch installs the serve view
 
@@ -801,6 +924,11 @@ def run_training(args) -> dict:
         eng, state, losses, overflow_total, stopped_early, extra = \
             _train_scheduled(args, cfg, rows, trn, device, eval_epoch,
                              maybe_ckpt, ckpt_extras, timer)
+    elif args.assign_only:
+        prof = _start_trace(device) if args.log_dir else None
+        eng, state, losses, overflow_total, stopped_early, extra = \
+            _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
+                            maybe_ckpt, timer)
     else:
         eng = Engine(cfg, model=model, table_rows=rows, device=device)
         prof = _start_trace(device) if args.log_dir else None
@@ -857,7 +985,8 @@ def run_training(args) -> dict:
 
     report = {
         "model": cfg.model,
-        "mode": "scheduled" if args.scheduled else "baseline",
+        "mode": ("scheduled" if args.scheduled
+                 else "assigned" if args.assign_only else "baseline"),
         "comm": cfg.comm_mode,
         "devices": 1,
         "device": str(eng.device),

@@ -15,9 +15,8 @@ from herald_tpu_torch.models import linear as _linear  # noqa: F401
 from herald_tpu_torch.models import misc as _misc  # noqa: F401
 from herald_tpu_torch.models import wdl as _wdl  # noqa: F401
 
-# the FAE variants: the same towers tagged for the hot/cold FAE engine, as
-# in herald_tpu/models/__init__.py:29-34 (the launcher refuses them until
-# that engine is ported, ROADMAP queue 1 item 11)
+# the FAE variants: the same towers tagged for the hot/cold FAE engine
+# (train/fae.py), as in herald_tpu/models/__init__.py:29-34
 for _base, _fae in [("wdl_criteo", "fae_wdl_criteo"),
                     ("dfm_avazu", "fae_dfm_avazu"),
                     ("dcn_criteosearch", "fae_dcn_criteosearch"),

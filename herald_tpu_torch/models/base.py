@@ -60,8 +60,8 @@ class ModelDef:
     apply: Callable[..., torch.Tensor]    # (params, emb, dense) -> logits [B]
     default_lr: float = 0.01
     num_embed_rows: Optional[int] = None  # override spec.num_embed_rows
-    # "engine" (the default) or "fae": the hot/cold FAE engine, which the
-    # launcher refuses until it is ported (ROADMAP queue 1 item 11)
+    # "engine" (the default) or "fae": the launcher trains the model on
+    # the hot/cold FAE engine (train/fae.py), as if given --fae
     train_engine: str = "engine"
 
     @property

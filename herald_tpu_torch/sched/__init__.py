@@ -1,2 +1,4 @@
-"""Host-side scheduling for the cached engine: the native planner binding
-(`planner.py`, built by `build.py`), capacity sizing and plan tapes."""
+"""Host-side scheduling: the cached engine's planner binding (`planner.py`),
+capacity sizing and plan tapes, and assign-only mode's lookahead sample
+scheduler (`scheduler.py`, with its numpy mirror `pysched.py`); both
+native libraries are built by `build.py`."""

@@ -204,12 +204,13 @@ class Engine:
         return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
 
     def _apply_sparse_grads(self, table, slots, step, uniq, inv, emb_grad):
-        """Sum the grads per unique id (K3, rounded once to the grads'
-        dtype), update the rows and slots with the table optimizer, write
-        them back. In place."""
-        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
-        # torch.unique does not pad, so every slot is real here; the mask
-        # stays for the cached slice, whose static-size dedup pads with -1
+        """Sum the grads per unique id (K3, in f32, rounded once to the
+        grads' dtype), cast the sums to the table dtype, update the rows
+        and slots with the table optimizer, write them back. In place.
+        Slots of negative ids (the FAE step's -1 at hot positions) are
+        masked and dropped."""
+        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0]).to(
+            table.dtype)
         row_mask = uniq >= 0
         rows_idx = torch.where(row_mask, uniq, self.padded_rows)
         safe_idx = torch.where(row_mask, rows_idx, 0)
@@ -319,6 +320,26 @@ class Engine:
             overflows.append(stats["overflow"])
         return state, {"loss": torch.stack(losses),
                        "overflow": torch.stack(overflows)}
+
+    def train_epoch_assigned(self, state: TrainState, scheduler, dense_x,
+                             sparse_ids, labels, steps: int):
+        """Assign-only mode: `train_epoch` over the batches the lookahead
+        scheduler (`sched/scheduler.py`, csrc/herald_sched.cc) composes,
+        without the hot-row cache. Up to `steps` assignments are popped;
+        each step trains on the samples it lists, in its order. Returns
+        (state, None) when the scheduler's stream has ended. On one device
+        a step's sample set is the plain step's, in another order."""
+        idx_rows = []
+        for _ in range(steps):
+            r = scheduler.pop()
+            if r is None:
+                break
+            idx_rows.append(r[0].reshape(-1))
+        if not idx_rows:
+            return state, None
+        idx = np.concatenate(idx_rows)
+        return self.train_epoch(state, dense_x[idx], sparse_ids[idx],
+                                labels[idx], steps=len(idx_rows))
 
     @torch.inference_mode()
     def predict(self, state: TrainState, dense_x, sparse_ids

@@ -55,6 +55,10 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "import herald_tpu_torch.sched.planner\n"
             "import herald_tpu_torch.sched.sizing\n"
             "import herald_tpu_torch.sched.replay\n"
+            "import herald_tpu_torch.sched.scheduler\n"
+            "import herald_tpu_torch.sched.pysched\n"
+            "import herald_tpu_torch.train.fae\n"
+            "import herald_tpu_torch.data.loaders\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'ml_dtypes', 'herald_tpu')\n"
             "       and sys.modules[m] is not None]\n"

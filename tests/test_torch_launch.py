@@ -158,9 +158,6 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--scheduled", "--int8-flush"], "--int8-flush"),
-    (["--assign-only"], "--assign-only.*item 15 \\(assign-only mode on "
-                        "one device\\)"),
-    (["--fae"], "--fae"),
     (["--comm", "hybrid"], "--comm hybrid"),
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
     (["--export-onnx", "m.onnx"], "--export-onnx"),
@@ -168,7 +165,6 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
     (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
     (["--int8-flush"], "--int8-flush"),
     (["--platform", "cpu"], "--platform"),
-    (["--model", "fae_dfm_avazu"], "fae_dfm_avazu.*item 11"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:

@@ -6,8 +6,8 @@ at full width, plainly, in assign-only mode, through the FAE engine and
 through the scheduled, cached engine, and print what it measured.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase scheduled:pinned [--root DIR]
-    python3 chip_smoke.py --phase fae|assigned
+    python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
+    python3 chip_smoke.py --phase assigned
 
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
@@ -66,22 +66,37 @@ replaced (gather, widen, add) and at FAE's shape. The serve phases count
 the eval step's waits for the card (none); scheduled:pinned profiles its
 step.
 
-`--phase scheduled:pinned` runs the device and build phases and that
-phase alone; `--phase fae` and `--phase assigned` run fae and launch:fae,
-or assigned and launch:assigned, the same way. `--root DIR` imports
-herald_tpu_torch from another checkout, so that the pinned step of two
-trees (a parent unpacked with `git archive` into a gitignored directory,
-and this one) is profiled in turns on one card, each run a process of
-its own:
+Every step of every path runs as a CUDA graph (`herald_tpu_torch/train/
+graphs.py`). Besides the gates above: captured steps are held bit for bit
+against the same engine built with `cuda_graphs=False`, from one state
+(train and train:dfm on a compact copy of the rows their steps touch,
+train:adam, fae, serve and serve:dfm, and scheduled:pinned on a stream
+that flushes every step); the host waits for the card 0 times a step on
+train, train:adam, fae, scheduled (tape and live), scheduled:pinned, the
+eval step and train:dfm; launches are counted as before, a graph adding
+its capture's launches on each replay; and each path's device busy a
+step stays within 5% of what this script measured before the steps ran
+as CUDA graphs (`RUN_B_BUSY_MS`).
+
+`--phase scheduled:pinned`, `--phase train` (train alone) and `--phase
+fae` run the device and build phases and that phase alone; `--phase fae`
+and `--phase assigned` also run launch:fae or launch:assigned. `--root
+DIR` imports herald_tpu_torch from another checkout, so that the steps
+of two trees (a parent unpacked with `git archive` into a gitignored
+directory, and this one) are timed and profiled in turns on one card,
+each run a process of its own; a tree without CUDA graphs runs the
+phase without the gates that need them:
 
     for r in PARENT . . PARENT; do
-        python3 chip_smoke.py --phase scheduled:pinned --root $r; done
+        python3 chip_smoke.py --phase train --root $r
+        python3 chip_smoke.py --phase fae --root $r; done
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import importlib.util
 import json
 import re
 import statistics
@@ -146,6 +161,19 @@ from herald_tpu_torch.utils.profiler import cache_report
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
+# the imported tree runs its steps as CUDA graphs (a parent under --root
+# may not): the gates that need them run only then
+GRAPHS = importlib.util.find_spec("herald_tpu_torch.train.graphs") \
+    is not None
+# device busy ms a scored batch or a step as this script measured it
+# before the steps ran as CUDA graphs (PERF.md, run B; NVIDIA H100 80GB
+# HBM3, 700 W): the graphs launch the same kernels, so each path stays
+# within BUSY_GATE of it
+RUN_B_BUSY_MS = {"serve": 0.03789, "train": 0.19366, "fae": 0.89933,
+                 "scheduled": 0.17490, "scheduled:pinned": 0.19502,
+                 "serve:dfm": 0.28610, "train:dfm": 1.09368,
+                 "scheduled:dfm": 1.32297}
+BUSY_GATE = 1.05
 FULL_ROWS = DATASETS["criteo"].num_embed_rows      # 33,762,577
 BATCH, EMB = 256, 128
 
@@ -174,9 +202,10 @@ def cuda_ms(fn, calls: int, repeats: int = 7, warmup: int = 3) -> float:
 
 
 # the calls that launch a kernel, as the profiler names them on the host:
-# the CUDA runtime API's and the lower-level cu* API's
+# the CUDA runtime API's and the lower-level cu* API's, and a graph's
+# replay (its kernels carry the replay's correlation id)
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-               "cuLaunchKernelEx")
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 # kernels each profiler session launches before the measured calls: a
 # spin of one cycle each (`torch.cuda._sleep`). From some point in a long
 # process on, a session loses the device records of its first launches
@@ -536,6 +565,11 @@ def _position_timing(table: torch.Tensor, positions, batches, inverses
                              ".to(float32), the read it replaced"}
 
 
+def _top(per: dict, n: int = 24) -> dict:
+    """The n largest items of a profile, device ms each."""
+    return dict(sorted(per.items(), key=lambda kv: -kv[1])[:n])
+
+
 def _own_ms(per: dict, marker: str):
     """Device ms per call of the kernels whose name holds `marker`."""
     ms = sum(v for k, v in per.items() if marker in k)
@@ -628,17 +662,22 @@ def _push_cases(inverses, uniques, dfm_inverses, dfm_uniques):
                        gi, gr, H)
 
 
-def _push_timing(inverses, uniques, dim: int) -> dict:
+def _push_timing(inverses, uniques, dim: int, drop: bool = False) -> dict:
     """K3 at one training shape, f32 grads [N, dim]: each launch on the
     inverse of another batch into its unique count. The whole call's
     device time (the memset and every kernel, listed by name), its events
-    time, the plain version and zeros + `index_add_`."""
+    time, the plain version and zeros + `index_add_`. With `drop` the ids
+    hold -1, which K3 drops; `index_add_` takes them remapped (before the
+    timing) to one extra row."""
     k = len(inverses)
     n = inverses[0].numel()
     grads = torch.randn((n, dim), device="cuda")
     mean_u = sum(uniques) / k
     bytes_moved = (n * inverses[0].element_size() + n * dim * 4
                    + mean_u * dim * 4)
+    extra = int(drop)
+    lib_ids = [torch.where(ids >= 0, ids, u) if drop else ids
+               for ids, u in zip(inverses, uniques)]
 
     def kern(i):
         return hot_onehot_push(inverses[i % k], grads, uniques[i % k])
@@ -647,8 +686,9 @@ def _push_timing(inverses, uniques, dim: int) -> dict:
         return hot_onehot_push_ref(inverses[i % k], grads, uniques[i % k])
 
     def library(i):
-        return torch.zeros((uniques[i % k], dim), device="cuda").index_add_(
-            0, inverses[i % k], grads)
+        return torch.zeros((uniques[i % k] + extra, dim),
+                           device="cuda").index_add_(0, lib_ids[i % k],
+                                                     grads)
 
     times = {what: cuda_ms(f, k) for what, f in
              (("kernel", kern), ("plain", plain), ("library", library))}
@@ -934,7 +974,9 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
     evaluate, all through Engine.predict. Kernel counts are zeroed just
     before and read just after: `per_batch` launches of each kernel for
     every scored batch (default: one K1). The served scores are held to
-    the eval step with the plain versions within `tol`."""
+    the eval step with the plain versions within `tol`; the eval step
+    waits for the card 0 times; 8 batches and evaluate through the engine
+    built with cuda_graphs=False equal the captured ones bit for bit."""
     per_batch = per_batch or {"embedding_gather": 1}
     B = eng.cfg.batch_size
     spec = eng.model.spec
@@ -1003,29 +1045,43 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
     if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
         raise AssertionError(f"evaluate gave {ev}")
 
-    # the eval step on a batch already on the card: it reads by position
-    # and never waits for the card (outside the counted window)
+    # the eval step on a batch already on the card, replayed: it reads by
+    # position and never waits for the card (outside the counted window)
     d_t = torch.as_tensor(dense[:B].astype(np.float32), device="cuda")
     s_t = torch.as_tensor(sparse[:B].astype(np.int32), device="cuda")
     torch.cuda.synchronize()
     before = {name: k.launches for name, k in KERNELS.items()}
-    with torch.inference_mode():
-        waits, sites = _count_host_waits(
-            lambda: eng._eval_step_body(state, d_t, s_t))
+    waits, sites = _count_host_waits(lambda: eng.predict(state, d_t, s_t))
     step_launches = {name: k.launches - before[name]
                      for name, k in KERNELS.items()}
     if waits or step_launches != _want(per_batch, 1):
         raise AssertionError(f"the {label} eval step waited {waits} times "
                              f"({sites}) and launched {step_launches}")
 
+    # captured against uncaptured scoring of the same state: 8 batches and
+    # evaluate, bit for bit
+    eager = Engine(eng.cfg, model=eng.model, table_rows=eng.num_rows,
+                   device=DEVICE, cuda_graphs=False)
+    got = [eng.predict(state, dense[i * B:(i + 1) * B],
+                       sparse[i * B:(i + 1) * B]) for i in range(8)]
+    want = [eager.predict(state, dense[i * B:(i + 1) * B],
+                          sparse[i * B:(i + 1) * B]) for i in range(8)]
+    captured = {"batches": 8, "scores_differ": _differ(got, want),
+                "evaluate_equal": eager.evaluate(state, dense, sparse,
+                                                 labels) == ev,
+                "graphs": eng.graphs.captures}
+    if captured["scores_differ"] or not captured["evaluate_equal"]:
+        raise AssertionError(f"captured scoring differs from uncaptured: "
+                             f"{captured}")
+
     # where one predict's time goes (outside the counted window)
     busy, per, host, _ = device_profile(
         lambda i: eng.predict(state, dense[(i % 64) * B:][:B],
                               sparse[(i % 64) * B:][:B]), 50)
-    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
+    top = _top(per)
     profile = {"device_busy_ms": busy, "host_ms_profiled": host,
                "device_idle_share": None if busy is None else 1 - busy / host,
-               "top_device_ms": top}
+               "top_device_ms": top, "busy_gate": _busy_gate(label, busy)}
 
     n3 = requests[-1]
     ref = reference_scores(eng, state, dense[:n3], sparse[:n3], plain_apply)
@@ -1046,7 +1102,7 @@ def phase_serve(eng: Engine, state, label="serve", plain_apply=None,
            "examples_per_s": ex_s, "throughput_batches": nb,
            "evaluate": ev, "evaluate_batches": 64, "evaluate_s": eval_s,
            "launches": launches, "predict_profile": profile,
-           "eval_step_host_waits": waits,
+           "eval_step_host_waits": waits, "captured_vs_uncaptured": captured,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
@@ -1144,13 +1200,17 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
     """The main training path at full width: a warm-up chunk, then three
     timed chunks of K steps through Engine.train_epoch, each ended by a
     host readback of its last loss; `per_step` launches of each kernel
-    every step (default: one K1, K2 and K3). Then a profile of single
-    steps, and 8 steps held against the plain-kernel reference: the rows
-    the 8 steps touch are copied into a compact table that the reference
-    updates through remapped ids, and the other rows of the engine's table
-    must keep their bits (row fingerprints before and after). Gates: each
-    loss within 1e-5 of its value (relative), touched rows within one
-    bf16 ulp, dense params within 1e-5."""
+    every step (default: one K1, K2 and K3). Then a profile of 20 steps
+    through train_epoch (device busy within BUSY_GATE of run B), 10 steps
+    whose host waits are counted (none), and 8 steps held against the
+    plain-kernel reference: the rows the 8 steps touch are copied into a
+    compact table that the reference updates through remapped ids, and
+    the other rows of the engine's table must keep their bits (row
+    fingerprints before and after). Gates: each loss within 1e-5 of its
+    value (relative), touched rows within one bf16 ulp, dense params
+    within 1e-5. The same 8 steps run on another compact copy through
+    the engine built with cuda_graphs=False: losses, rows, dense params
+    and launches equal to the captured steps', bit for bit."""
     per_step = per_step or {"embedding_gather": 1, "hot_onehot_push": 1,
                             "rows_scatter_add": 1}
     B = eng.cfg.batch_size
@@ -1182,30 +1242,75 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
     peak = torch.cuda.max_memory_allocated() / 1e9
     med = statistics.median(times)
 
+    # the main path's steps profiled: train_epoch over chunks of 10
     d0, s0, y0 = chunks[0]
-    busy, per, host, _ = device_profile(
-        lambda i: eng.train_step(state, d0[i % K], s0[i % K], y0[i % K]), 20)
+    holder, per_chunk = [state], 10
+
+    def chunk(i):
+        j = (i * per_chunk) % (K - per_chunk)
+        holder[0], _ = eng.train_epoch(
+            holder[0], d0[j:j + per_chunk], s0[j:j + per_chunk],
+            y0[j:j + per_chunk], steps=per_chunk)
+
+    busy, per, host, _ = device_profile(chunk, 2)
+    if busy is not None:
+        busy /= per_chunk
+    host /= per_chunk
+    per = {k: v / per_chunk for k, v in per.items()}
+    waits, sites = _count_host_waits(lambda: chunk(2))
+    waits /= per_chunk
+    _no_waits(label, waits, sites)
+    state = holder[0]
     profile = {"device_busy_ms": busy, "host_ms_profiled": host,
+               "steps": 2 * per_chunk, "through": "train_epoch",
                "device_idle_share": None if busy is None else 1 - busy / host,
                "hot_onehot_push_device_ms": _k3_ms(per),
-               "top_device_ms": dict(sorted(per.items(),
-                                            key=lambda kv: -kv[1])[:8])}
+               "top_device_ms": _top(per),
+               "busy_gate": _busy_gate(label, busy),
+               "host_waits_per_step": waits, "host_wait_sites": sites}
 
-    # 8 steps against the plain-kernel reference, from one state
+    # 8 steps against the plain-kernel reference and, on a compact copy of
+    # the rows they touch, against the same engine uncaptured, from one
+    # state
     d1, s1, y1 = chunks[1]
     touched = torch.unique(s1[:8].reshape(-1).long())
     before = _row_sums(state.table)
     ref = TrainState(state.table[touched].clone(), {},
                      {k: v.clone() for k, v in state.dense.items()},
                      {k: {} for k in state.dense}, state.step.clone())
-    got_l, want_l = [], []
+    twin = _tree(lambda t: t.clone(), ref)
+    eager = (Engine(eng.cfg, model=eng.model, table_rows=eng.num_rows,
+                    device=DEVICE, cuda_graphs=False) if GRAPHS else None)
+    got_l, want_l, twin_l, got_t = [], [], [], []
+    tally, tally_e = {}, {}
     for i in range(8):
-        state, st = eng.train_step(state, d1[i], s1[i], y1[i])
+        state, st = _tallied(tally, lambda: eng.train_step(
+            state, d1[i], s1[i], y1[i]))
         local = torch.searchsorted(touched, s1[i].long()).to(torch.int32)
         ref, loss = reference_train_step(eng, ref, d1[i], local, y1[i],
                                          plain_apply)
+        if eager is not None:
+            twin, tst = _tallied(tally_e, lambda: eager.train_step(
+                twin, d1[i], local, y1[i]))
+            twin_l.append(tst["loss"])
+            got_t.append(st["loss"])
         got_l.append(float(st["loss"]))
         want_l.append(float(loss))
+    captured = None
+    if eager is not None:
+        captured = {"steps": 8, "touched_rows": int(touched.numel()),
+                    "losses_differ": _differ(got_t, twin_l),
+                    "state_differ": _differ(
+                        TrainState(state.table[touched], state.table_slots,
+                                   state.dense, state.dense_slots,
+                                   state.step), twin),
+                    "launches": tally, "uncaptured_launches": tally_e,
+                    "graphs": eng.graphs.captures}
+        if captured["losses_differ"] or captured["state_differ"]:
+            raise AssertionError(f"captured steps differ from uncaptured: "
+                                 f"{captured}")
+        _same_launches(captured)
+    del twin
     differ = before != _row_sums(state.table)
     differ[touched] = False
     if bool(differ.any()):
@@ -1235,7 +1340,8 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
            "reference_row_max_err": row_err,
            "reference_dense_max_err": dense_err,
            "reference_touched_rows_identical": identical,
-           "touched_rows": int(touched.numel())}
+           "touched_rows": int(touched.numel()),
+           "captured_vs_uncaptured": captured}
     emit(out)
     return out
 
@@ -1243,22 +1349,32 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
 def phase_train_adam() -> dict:
     """Adam on the table at full width (table + two bf16 slots, 25.9 GB)
     through the dedup path: K3 sums the grads, K1 reads the rows and
-    slots, index_copy_ writes them back; no K2."""
+    slots, index_copy_ writes them back; no K2. 8 warm-up steps, 8 counted
+    steps held bit for bit against the same engine uncaptured on a compact
+    copy of the rows they touch, then 8 steps whose host waits are
+    counted."""
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16,
                        optimizer="adam", learning_rate=0.01)
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     state = eng.init_state(0)
-    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, 16 * BATCH,
+    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, 24 * BATCH,
                                                seed=0, num_rows=FULL_ROWS)
-    chunk = _stage(dense, sparse, labels, 0, 16)
+    chunk = _stage(dense, sparse, labels, 0, 24)
     state, _ = eng.train_epoch(state, *[c[:8] for c in chunk], steps=8)
+    d, s, y = (c[8:16] for c in chunk)
+    touched = torch.unique(s.reshape(-1).long())
+    twin = TrainState(state.table[touched].clone(),
+                      {k: v[touched].clone()
+                       for k, v in state.table_slots.items()},
+                      *_tree(lambda t: t.clone(), state)[2:])
+    local = torch.searchsorted(touched, s.long()).to(torch.int32)
     torch.cuda.synchronize()
     for kern in KERNELS.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    state, stats = eng.train_epoch(state, *[c[8:] for c in chunk], steps=8)
+    state, stats = eng.train_epoch(state, d, s, y, steps=8)
     losses = stats["loss"].cpu()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     launches = {name: kern.launches for name, kern in KERNELS.items()}
@@ -1268,10 +1384,40 @@ def phase_train_adam() -> dict:
                              f"{want}")
     if not bool(torch.isfinite(losses).all()):
         raise AssertionError("non-finite adam loss")
+    eager = Engine(cfg, table_rows=FULL_ROWS, device=DEVICE,
+                   cuda_graphs=False)
+    tally_e = {}
+    twin, tstats = _tallied(tally_e, lambda: eager.train_epoch(
+        twin, d, local, y, steps=8))
+    captured = {"steps": 8, "touched_rows": int(touched.numel()),
+                "launches": {k: n for k, n in launches.items() if n},
+                "uncaptured_launches": {k: n for k, n in tally_e.items()
+                                        if n},
+                "losses_differ": _differ([stats["loss"]], [tstats["loss"]]),
+                "state_differ": _differ(TrainState(
+                    state.table[touched],
+                    {k: v[touched] for k, v in state.table_slots.items()},
+                    state.dense, state.dense_slots, state.step), twin),
+                "graphs": eng.graphs.captures}
+    del twin
+    if captured["losses_differ"] or captured["state_differ"]:
+        raise AssertionError(f"captured adam steps differ from uncaptured: "
+                             f"{captured}")
+    _same_launches(captured)
+    holder = [state]
+
+    def more():
+        holder[0], _ = eng.train_epoch(holder[0], *[c[16:] for c in chunk],
+                                       steps=8)
+
+    waits, sites = _count_host_waits(more)
+    _no_waits("train:adam", waits, sites)
+    state = holder[0]
     out = {"phase": "train:adam", "slots": sorted(state.table_slots),
-           "state_gb": 3 * state.table.numel() * 2 / 1e9, "steps": 16,
+           "state_gb": 3 * state.table.numel() * 2 / 1e9, "steps": 24,
            "step_ms": step_ms, "launches_last_8_steps": launches,
-           "losses": losses.tolist(),
+           "losses": losses.tolist(), "captured_vs_uncaptured": captured,
+           "host_waits_per_step": waits / 8, "host_wait_sites": sites,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
@@ -1462,6 +1608,58 @@ def _count_host_waits(fn):
     return len(waits), sites[:5]
 
 
+def _no_waits(label: str, waits: int, sites) -> None:
+    """Raise if a captured path's steps waited for the card."""
+    if GRAPHS and waits:
+        raise AssertionError(f"the {label} steps waited for the card {waits} "
+                             f"times: {sites}")
+
+
+def _busy_gate(label: str, busy) -> dict:
+    """Raise unless a captured path's device busy a step (None: the
+    profiler lost it) is within BUSY_GATE of run B's; the ratio."""
+    ref = RUN_B_BUSY_MS[label]
+    out = {"run_b_ms": ref, "ratio": None if busy is None else busy / ref,
+           "gate": BUSY_GATE}
+    if GRAPHS and (busy is None or busy > BUSY_GATE * ref):
+        raise AssertionError(f"the {label} step's device busy {busy} ms is "
+                             f"not within {BUSY_GATE} of run B's {ref} ms")
+    return out
+
+
+def _tallied(tally: dict, fn):
+    """fn(), its kernel launches added into `tally`."""
+    before = _launch_counts()
+    out = fn()
+    for k, n in _launch_counts().items():
+        tally[k] = tally.get(k, 0) + n - before[k]
+    return out
+
+
+def _same_launches(captured: dict) -> None:
+    """Raise unless the captured steps launched what the uncaptured ones
+    did (`launches` and `uncaptured_launches` of a twin check)."""
+    if captured["launches"] != captured["uncaptured_launches"]:
+        raise AssertionError(f"captured steps launched "
+                             f"{captured['launches']}, uncaptured "
+                             f"{captured['uncaptured_launches']}")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _differ(a, b) -> list:
+    """The leaves (paths) of two states, or two lists of tensors, whose
+    bits differ."""
+    from herald_tpu_torch.train.graphs import leaves
+    la, lb = leaves(tuple(a)), leaves(tuple(b))
+    if la.keys() != lb.keys():
+        return ["structure"]
+    return [str(p) for p in la if not torch.equal(_bits(la[p]),
+                                                  _bits(lb[p]))]
+
+
 def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
     """Device busy, host time and the top device items per step over n
     chunks run(0..n-1), one profiler session (the chunks consume state, so
@@ -1479,8 +1677,7 @@ def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
             "hot_onehot_push_device_ms": _k3_ms(per) if busy else None,
             "pinned_read_kernel_ms": {k: v for k, v in per.items()
                                       if HOT_ADD in k or HOT_GATHER in k},
-            "top_device_ms": dict(sorted(per.items(),
-                                         key=lambda kv: -kv[1])[:8])}
+            "top_device_ms": _top(per)}
 
 
 def _epochs_timed(run_epoch, epochs: int):
@@ -1566,6 +1763,9 @@ def _tape_run(eng, data, tmp: Path, iters: int, epochs: int,
                               per_epoch - n_wait, 32)
     profile["host_waits_per_step"] = waits / (32 * n_wait)
     profile["host_wait_sites"] = sites
+    label = "scheduled:dfm" if fm else "scheduled"
+    _no_waits(f"{label} (tape)", waits, sites)
+    profile["busy_gate"] = _busy_gate(label, profile["device_busy_ms"])
     peak = torch.cuda.max_memory_allocated() / 1e9
     state = eng.sync_cache(holder[0], planner)
     del holder, staged, epochs_out
@@ -1633,6 +1833,7 @@ def phase_scheduled() -> dict:
                        "pull_free": eng_l.nopull_chunks}
         lwaits, lsites = _count_host_waits(
             lambda: live_epoch(SCHED_EPOCHS))
+        _no_waits("scheduled (live)", lwaits, lsites)
         state = eng_l.sync_cache(holder[0], planner)
         out.update({
             "scheduled_live_examples_per_s":
@@ -1779,6 +1980,9 @@ def phase_scheduled_pinned() -> tuple:
                                   per_epoch - n_wait, 32)
         profile["host_waits_per_step"] = waits / (32 * n_wait)
         profile["host_wait_sites"] = sites
+        _no_waits("scheduled:pinned", waits, sites)
+        profile["busy_gate"] = _busy_gate("scheduled:pinned",
+                                          profile["device_busy_ms"])
         state = eng.sync_cache(holder[0], planner)
         del holder, staged
         if not torch.equal(state.table[:PINNED], state.hot_table):
@@ -1806,11 +2010,72 @@ def phase_scheduled_pinned() -> tuple:
         hot = state.hot_table.clone()
         del state
         _free()
+    if GRAPHS:
+        out["captured_vs_uncaptured"] = _pinned_twin()
+        _free()
     emit(out)
     positions = [torch.as_tensor(sparse[i * BATCH:(i + 1) * BATCH]
                                  .reshape(-1), device=DEVICE)
                  for i in range(64)]
     return out, hot, uniqs, positions
+
+
+def _pinned_twin() -> dict:
+    """Captured against uncaptured CachedEngine at full width on a stream
+    that flushes: a 4,096-row pinned tier over frequency-remapped ids and
+    a cache of twice one step's ids (13,312 slots), so rows are evicted
+    and flushed on most steps. From one state, TWIN_STEPS steps in chunks
+    of 16 through train_epoch_cached on each engine, both replaying one
+    plan tape; every leaf of the two states (table, cache, hot block,
+    dense) and every loss must be equal bit for bit."""
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, learning_rate=0.01,
+                       table_dtype=torch.bfloat16, use_cache=True,
+                       use_scheduler=True, cache_limit=2 * BATCH * 26,
+                       pinned_rows=PINNED)
+    dense, sparse, labels = synthetic_ctr_data(
+        DATASETS["criteo"], BATCH * TWIN_STEPS, seed=2, num_rows=FULL_ROWS)
+    sparse, _ = frequency_remap(sparse, FULL_ROWS)
+    data = (dense.astype(np.float32), sparse.astype(np.int32),
+            labels.astype(np.float32))
+    eng = CachedEngine(cfg, table_rows=FULL_ROWS, device=DEVICE)
+    eager = CachedEngine(HeraldConfig(**cfg.__dict__), table_rows=FULL_ROWS,
+                         device=DEVICE, cuda_graphs=False)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tape = Path(tmp) / "tape"
+        plan_cache(eng, data[1], str(tape), epochs=1).close()
+        fids = np.load(tape / "fids.npy")
+        state = eng.init_cached_state(0)
+        twin = _tree(lambda t: t.clone(), state)
+        mine, theirs = ReplayPlanner(str(tape)), ReplayPlanner(str(tape))
+        got, want, tally, tally_e = [], [], {}, {}
+        for _ in range(TWIN_STEPS // 16):
+            state, a = _tallied(tally, lambda: eng.train_epoch_cached(
+                state, mine, *data, steps=16))
+            twin, b = _tallied(tally_e, lambda: eager.train_epoch_cached(
+                twin, theirs, *data, steps=16))
+            got.append(a["loss"])
+            want.append(b["loss"])
+        mine.close()
+        theirs.close()
+    out = {"steps": TWIN_STEPS, "cache_rows": eng.cache_rows,
+           "steps_with_flush": int((fids[:TWIN_STEPS] >= 0).any(axis=1)
+                                   .sum()),
+           "losses_differ": _differ(got, want),
+           "state_differ": _differ(state, twin),
+           "launches": tally, "uncaptured_launches": tally_e,
+           "graphs": eng.graphs.captures}
+    del state, twin
+    _same_launches(out)
+    if out["losses_differ"] or out["state_differ"] \
+            or not out["steps_with_flush"]:
+        raise AssertionError(f"captured pinned steps differ from "
+                             f"uncaptured, or none flushed: {out}")
+    return out
+
+
+TWIN_STEPS = 64
 
 
 def _hot_gather_cases(hot, uniqs):
@@ -2320,9 +2585,13 @@ def phase_fae() -> dict:
     cold row with its bits. Then 64 steps timed, with their launches (K1
     by position and on the unique cold rows, K4's add form once, K3 twice
     a step) and the calls of every plain version (none); host waits over
-    4 steps; a profile of 16 steps (device busy, idle share, K4's and K3's
-    device ms a step), the dense hot update alone (device ms), K3 at
-    num_rows = H alone; then evaluate_fae on 32 batches of seed 1."""
+    4 steps (none); a profile of 16 steps (device busy, idle share, K4's
+    and K3's device ms a step); 8 steps on a copy of the whole state
+    through the engine built with cuda_graphs=False, bit for bit and
+    with the same launches; the dense hot update alone (device ms), K3
+    at num_rows = H alone and timed as the kernels are (beside its plain
+    version and zeros + index_add_); then evaluate_fae on 32 batches of
+    seed 1."""
     from herald_tpu_torch.train.fae import (FaeEngine, FaeTrainState,
                                             build_hot_lut)
     cfg = HeraldConfig(model="fae_wdl_criteo", batch_size=BATCH,
@@ -2427,19 +2696,58 @@ def phase_fae() -> dict:
         state, _ = eng.train_step_fae(state, lut, *batch(lo + i))
 
     waits, sites = _count_host_waits(lambda: [step(i) for i in range(4)])
+    _no_waits("fae", waits, sites)
     lo += 4
     busy, per, host, check = device_profile(step, 16, marker=HOT_ADD)
     lo += 17 * check["sessions"]
+
+    # captured against uncaptured, from one state: 8 steps on a copy of
+    # the whole state through the same engine built with cuda_graphs=False
+    captured = None
+    if GRAPHS:
+        eager = FaeEngine(cfg, table_rows=FULL_ROWS, device=DEVICE,
+                          cuda_graphs=False)
+        twin = _tree(lambda t: t.clone(), state)
+        got_l, twin_l, tally, tally_e = [], [], {}, {}
+        for i in range(lo, lo + 8):
+            state, st = _tallied(tally, lambda: eng.train_step_fae(
+                state, lut, *batch(i)))
+            twin, tst = _tallied(tally_e, lambda: eager.train_step_fae(
+                twin, lut, *batch(i)))
+            got_l.append(st["loss"])
+            twin_l.append(tst["loss"])
+        lo += 8
+        captured = {"steps": 8, "losses_differ": _differ(got_l, twin_l),
+                    "launches": tally, "uncaptured_launches": tally_e,
+                    "state_differ": _differ(state, twin),
+                    "graphs": eng.graphs.captures}
+        del twin
+        _free()
+        if captured["losses_differ"] or captured["state_differ"]:
+            raise AssertionError(f"captured FAE steps differ from "
+                                 f"uncaptured: {captured}")
+        _same_launches(captured)
+
     cold_b, hot_b = eng.split_batch(lut, sparse[lo * B:(lo + 1) * B])
     g = torch.randn((B * cold_b.shape[1], W), device=DEVICE,
                     generator=torch.Generator(device=DEVICE).manual_seed(8))
     hot_ids = torch.as_tensor(hot_b.reshape(-1), device=DEVICE)
     g_hot = hot_onehot_push(hot_ids, g, H)
+    # the update alone, on a copy of the block (it writes its block)
+    hot_copy = state.hot_table.clone()
     upd_busy, upd_per, _, _ = device_profile(
-        lambda i: eng._apply_hot_grads(state.hot_table, {}, state.step,
-                                       g_hot), 16)
+        lambda i: eng._apply_hot_grads(hot_copy, {}, state.step, g_hot), 16)
+    del hot_copy
     k3_busy, k3_per, _, _ = device_profile(
         lambda i: hot_onehot_push(hot_ids, g, H), 16, marker="sum_segments")
+    # K3 at FAE's hot-sum shape, as every kernel is timed: the hot ids of
+    # 8 batches into H rows, beside its plain version and zeros +
+    # index_add_ (into H + 1 rows, the cold positions sent to the last)
+    hot8 = [torch.as_tensor(eng.split_batch(
+        lut, sparse[(lo + j) * B:(lo + j + 1) * B])[1].reshape(-1),
+        device=DEVICE) for j in range(8)]
+    hot_sum = _push_timing(hot8, [H] * 8, W, drop=True)
+    del hot8
     # the least the update must move: the bf16 block read and written
     # once, the f32 sum read once
     upd_bytes = H * W * (2 + 4 + 2)
@@ -2448,8 +2756,7 @@ def phase_fae() -> dict:
         "device_idle_share": None if busy is None else 1 - busy / host,
         "hot_add_device_ms": _own_ms(per, HOT_ADD),
         "hot_onehot_push_device_ms": _k3_ms(per),
-        "top_device_ms": dict(sorted(per.items(),
-                                     key=lambda kv: -kv[1])[:10]),
+        "top_device_ms": _top(per),
         "profiler_sessions": check,
         "host_waits_per_step": waits / 4, "host_wait_sites": sites,
         "hot_update_device_ms": upd_busy,
@@ -2460,7 +2767,8 @@ def phase_fae() -> dict:
                            "read and written once in bf16 and the f32 sum "
                            "read once",
         "hot_sum_alone_device_ms": k3_busy,
-        "hot_sum_alone_k3_ms": _k3_ms(k3_per)}
+        "hot_sum_alone_k3_ms": _k3_ms(k3_per),
+        "busy_gate": _busy_gate("fae", busy)}
     del g, g_hot
     # --- evaluate_fae on held-out batches ---
     dv, sv, yv = synthetic_ctr_data(eng.model.spec, 32 * B, seed=1,
@@ -2479,6 +2787,7 @@ def phase_fae() -> dict:
            "step_ms": timed_s / FAE_STEPS * 1e3, "launches": launches,
            "plain_version_calls": plain.calls, "loss_last": last,
            "step_profile": profile, "evaluate": ev,
+           "captured_vs_uncaptured": captured, "hot_sum": hot_sum,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
@@ -2783,8 +3092,9 @@ def _times(k: dict) -> dict:
 
 def _entry(name, route_src, replaces, by_path, k) -> dict:
     """One kernel's line of the summary; K1, K2 and K3 carry the same
-    numbers at dfm's width 513 under "dfm", K4's forms at FAE's shape
-    under "fae" (the data's hot share, then half of it)."""
+    numbers at dfm's width 513 under "dfm", K3 at FAE's hot sum under
+    "fae_hot_sum", K4's forms at FAE's shape under "fae" (the data's hot
+    share, then half of it)."""
     out = {"name": name, "route": "cuda",
            "source": f"herald_tpu_torch/ops/kernels/csrc/{route_src}",
            "replaces": f"herald_tpu/ops/pallas/kernels.py:{replaces}",
@@ -2792,6 +3102,8 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
            "max_abs_err": k["max_abs_err"], **_times(k)}
     if "dfm" in k:
         out["dfm"] = _times(k["dfm"])
+    if "fae_hot_sum" in k:
+        out["fae_hot_sum"] = _times(k["fae_hot_sum"])
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
@@ -2815,7 +3127,7 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("scheduled:pinned", "fae",
+    ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
                                         "assigned"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
@@ -2834,6 +3146,9 @@ def main() -> None:
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
     if args.phase == "scheduled:pinned":
         phase_scheduled_pinned()
+    elif args.phase == "train":
+        eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+        phase_train(eng, eng.init_state(0))
     elif args.phase == "fae":
         phase_fae()
         _free()
@@ -2876,6 +3191,7 @@ def main() -> None:
     phase_launch()
     phase_launch_assigned()
     fae = phase_fae()
+    k3["fae_hot_sum"] = fae["hot_sum"]
     _free()
     phase_launch_fae()
     sched = phase_scheduled()

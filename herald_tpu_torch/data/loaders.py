@@ -4,7 +4,7 @@ Replaces the reference `python/hetu/dataloader.py` (ring-buffered host
 batches with strided data-parallel sharding, `dataloader.py:26`) and the
 Laia dataloader glue (`python/hetu/laia/laia_dataloader.py`).
 
-The engine moves batches to the device (`Engine._put_batch`); these
+The engine moves batches to the device (`Engine._batch_feed`); these
 classes only produce numpy batches, one global batch per step, laid out
 `[num_workers, per_worker_batch, ...]`.
 """

@@ -111,6 +111,13 @@ class Optimizer:
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Return (new_rows, new_slots). Padding rows pass through
         unchanged."""
+        upd, new_slots = self._update(rows, grads, slots, step, lr, counts,
+                                      mask)
+        return rows - upd, new_slots
+
+    def _update(self, rows, grads, slots, step, lr=None, counts=None,
+                mask=None):
+        """(upd, new_slots) of `apply_rows`: the new rows are rows - upd."""
         lr = self.lr if lr is None else lr
         g = grads
         if counts is not None:
@@ -160,27 +167,35 @@ class Optimizer:
             upd = upd * fmask
             for k in new_slots:
                 new_slots[k] = torch.where(fmask > 0, new_slots[k], slots[k])
-        return rows - upd, new_slots
+        return upd, new_slots
 
     # ------------------------------------------------------------------
-    def apply_dense(self, params, grads, slots, step, lr=None):
+    def apply_dense(self, params, grads, slots, step, lr=None,
+                    in_place: bool = False):
         """Dict-wide dense update: params and grads are {name: tensor},
         slots {name: {slot: tensor}}. A parameter without slots may be
         missing from `slots` or map to an empty dict (JAX's form under
-        SGD, `{"W1": {}, ...}`); the result always has JAX's form."""
+        SGD, `{"W1": {}, ...}`); the result always has JAX's form. With
+        `in_place` each param is updated in its own tensor (the same bits
+        as the new tensor otherwise returned); the slots are new tensors
+        either way."""
         new_p, new_s = {}, {}
         for k, p in params.items():
             s = slots.get(k, {})
             if self.name == "lamb":
                 # full-tensor trust ratio for dense params
-                new_p[k], new_s[k] = self._lamb_dense(p, grads[k], s, step,
-                                                      lr)
+                upd, new_s[k] = self._lamb_update(p, grads[k], s, step, lr)
             else:
-                new_p[k], new_s[k] = self.apply_rows(p, grads[k], s, step,
-                                                     lr)
+                upd, new_s[k] = self._update(p, grads[k], s, step, lr)
+            new_p[k] = p.sub_(upd) if in_place else p - upd
         return new_p, new_s
 
     def _lamb_dense(self, p, g, slots, step, lr=None):
+        upd, new_slots = self._lamb_update(p, g, slots, step, lr)
+        return p - upd, new_slots
+
+    def _lamb_update(self, p, g, slots, step, lr=None):
+        """(upd, new slots) of LAMB on a whole dense tensor."""
         lr = self.lr if lr is None else lr
         m, v, direction = self._moments(g, slots, step)
         direction = direction + _weak(self.weight_decay, p) * p
@@ -188,7 +203,7 @@ class Optimizer:
         dn = _norm(direction)
         trust = torch.where((wn > 0) & (dn > 0), wn / (dn + 1e-12), 1.0)
         # JAX's order, (lr * trust) * direction; `direction` is f32
-        return p - _scale(lr, trust) * direction, {"m": m, "v": v}
+        return _scale(lr, trust) * direction, {"m": m, "v": v}
 
 
 OPTIMIZERS = ("sgd", "momentum", "nesterov", "adagrad", "adam", "adamw",

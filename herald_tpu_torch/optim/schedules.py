@@ -33,10 +33,16 @@ def step_decay(lr: float, step_size: int, gamma: float = 0.1,
 def multistep(lr: float, milestones: Sequence[int],
               gamma: float = 0.1) -> Callable:
     ms = sorted(milestones)
+    # the milestones on each device and dtype they meet, copied there once:
+    # a copy per call would be a host-to-card copy inside every step
+    held = {}
 
     def f(step):
-        k = (step > torch.tensor(ms, dtype=step.dtype,
-                                 device=step.device)).sum()
+        key = (step.device, step.dtype)
+        if key not in held:
+            held[key] = torch.tensor(ms, dtype=step.dtype,
+                                     device=step.device)
+        k = (step > held[key]).sum()
         return (lr * gamma ** k.to(torch.float32)).to(torch.float32)
     return f
 

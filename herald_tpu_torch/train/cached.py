@@ -29,20 +29,24 @@ adds the pinned tier's rows into the step's f32 rows in place. Every
 other write is a scatter-*set* (XLA's `.at[].set(mode="drop")` in JAX,
 outside any Pallas kernel), here `index_copy_`.
 
-No host wait inside a step. Every sentinel of a program (slot C for
-padding and pinned keys, id -1 for empty flush and prefetch entries) is
-known on the host in the popped arrays, so staging a chunk computes, per
-step and per write, the kept positions and their targets, and each write
-is a plain `index_copy_`; reads of sentinel positions return zero rows
-through K1's and K4's bounds checks. The state keeps JAX's shapes, so
-checkpoints interchange.
+No host wait inside a step, and every shape fixed. Every sentinel of a
+program (slot C for padding and pinned keys, id -1 for empty flush and
+prefetch entries) is known on the host in the popped arrays, so staging
+a chunk writes, per step, each write's targets and source positions as
+lists of a fixed length (F_cap, P_cap, U_cap): a dropped entry repeats a
+kept entry's target and position, so `index_copy_`'s duplicates write
+the same bytes and a dropped entry changes nothing. Reads of sentinel
+positions return zero rows through K1's and K4's bounds checks. The
+state keeps JAX's shapes, so checkpoints interchange.
 
-A chunk ships to the card in one copy from pinned host memory
-(`_stage_chunk`). The flush-free and pull-free variants: a step skips a
-phase its program does not have (`sched_noflush_variant` /
-`sched_nopull_variant`; with a flag off the phase runs on its sentinels,
-a no-op, exactly as in JAX), and `noflush_chunks` / `nopull_chunks` count
-chunks with JAX's per-chunk meaning. Not ported: the packed wire and the
+A chunk ships to the card in one copy from pinned host memory, one step
+a row (`_stage_chunk`), and on a card each step replays a CUDA graph
+(`train/graphs.py`) after one copy of its row. A step runs the phases
+and writes its program has work for: its variant (`StagedChunk.steps`)
+picks the graph. A phase without work is a no-op in JAX too, which runs
+it on its sentinels when `sched_noflush_variant` / `sched_nopull_variant`
+is off; `noflush_chunks` / `nopull_chunks` count chunks with JAX's
+per-chunk meaning of those flags. Not ported: the packed wire and the
 chunk memo (`sched_packed_wire`, `sched_chunk_memo`, fixes for the TPU's
 remote transport; both flags are accepted, `memo_hits` stays 0),
 `example_step_args` (HLO inspection), and multi-rank planning (ROADMAP
@@ -52,7 +56,7 @@ queue 1, item 8).
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +68,7 @@ from herald_tpu_torch.ops.kernels import (embedding_gather,
                                           hot_onehot_push)
 from herald_tpu_torch.sched.planner import CachePlanner
 from herald_tpu_torch.train.engine import Engine, TrainState, make_exchange
+from herald_tpu_torch.train.graphs import Layout, unpack
 
 
 class CachedTrainState(NamedTuple):
@@ -78,44 +83,61 @@ class CachedTrainState(NamedTuple):
     hot_slots: Dict[str, torch.Tensor]   # each [max(P, 1), W] f32
 
 
-_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
-          np.dtype(np.float32): torch.float32}
-
-
 class StagedChunk(NamedTuple):
     """One chunk of programs on the device (`_stage_chunk`).
 
     `variant` is JAX's per-chunk dispatch (0 full, 1 flush-free, 2
-    pull-free); `flush` and `pull` say, per step, whether the step runs
-    that phase. `arrays` maps a name to a [K, ...] device tensor: "d"/"y"
-    (direct feed) or "idx" (index feed), "slots", "inv", and where a step
-    needs them "pull_ids", "fids", "fslots", "uniq". `writes` is a flat
-    int64 device tensor of (positions, targets) pairs; `offsets[k][name]`
-    gives step k's (lo, mid, hi) for the writes "ft" (flush -> table),
-    "fc" (flush -> cache), "pf" (prefetch insert) and "up" (update)."""
+    pull-free), for its counters. `steps[k]` is step k's variant, which of
+    its writes and phases have work: (flush -> table "ft", flush -> cache
+    "fc", pull, prefetch insert "pf", update "up"); the flush phase runs
+    when "ft" or "fc" does. `packed` is a uint8 [K, nbytes] device tensor,
+    step k's inputs in row k as `layout` places them (`train/graphs.py`):
+    "d"/"y" (direct feed) or "idx" (index feed), "slots", "inv",
+    "pull_ids", "fids", "fslots", "uniq" with a pinned tier, and each
+    write's "<w>_tgt" (int64) and "<w>_pos" (int32) of a fixed length."""
     K: int
     variant: int
     index_feed: bool
-    flush: tuple
-    pull: tuple
-    arrays: Dict[str, torch.Tensor]
-    writes: torch.Tensor
-    offsets: tuple
+    steps: tuple
+    packed: torch.Tensor
+    layout: Layout
 
 
-def _kept(mask_row: np.ndarray, target_row: np.ndarray):
-    pos = np.flatnonzero(mask_row)
-    return pos, target_row[pos]
+WRITES = ("ft", "fc", "pf", "up")
+
+
+def write_lists(mask: np.ndarray, target: np.ndarray):
+    """[K, L] kept mask and targets -> (targets int64 [K, L], source
+    positions int32 [K, L], any kept [K]): a dropped entry takes a kept
+    entry's target and position, the dropped entries of a step spread
+    over its kept ones in turn (thousands of writes to one row serialize
+    on the card). A step that keeps nothing gets zeros, and its variant
+    skips the write."""
+    K, L = mask.shape
+    n = mask.sum(axis=1)
+    if L == 0:
+        return (np.zeros((K, 0), np.int64), np.zeros((K, 0), np.int32),
+                n > 0)
+    # each step's kept positions first, in order
+    order = np.argsort(~mask, axis=1, kind="stable")
+    turn = np.arange(L)[None, :] % np.maximum(n, 1)[:, None]
+    pos = np.where(mask, np.arange(L), np.take_along_axis(order, turn,
+                                                          axis=1))
+    tgt = np.take_along_axis(np.asarray(target), pos, axis=1).astype(np.int64)
+    tgt[n == 0] = 0
+    pos[n == 0] = 0
+    return tgt, pos.astype(np.int32), n > 0
 
 
 class CachedEngine(Engine):
     """Engine variant executing planner micro-programs."""
 
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
-                 table_rows: Optional[int] = None, device=None):
+                 table_rows: Optional[int] = None, device=None,
+                 cuda_graphs: bool = True):
         cfg.use_cache = True
         super().__init__(cfg, model=model, table_rows=table_rows,
-                         device=device)
+                         device=device, cuda_graphs=cuda_graphs)
         self.cache_rows = cfg.cache_rows(self.num_rows)
         self.pinned_rows = int(cfg.pinned_rows or 0)
         assert self.pinned_rows <= self.num_rows
@@ -187,19 +209,18 @@ class CachedEngine(Engine):
     # the step
     # ------------------------------------------------------------------
     @staticmethod
-    def _write(dst, writes, off, src) -> None:
+    def _write(dst, a, name, src) -> None:
         """dst[targets] = src[positions] for one write of one step."""
-        lo, mid, hi = off
-        if hi > lo:
-            dst.index_copy_(0, writes[mid:hi],
-                            src.index_select(0, writes[lo:mid]).to(dst.dtype))
+        dst.index_copy_(0, a[f"{name}_tgt"], src.index_select(
+            0, a[f"{name}_pos"]).to(dst.dtype))
 
-    def _flush_phase(self, table, table_slots, cache, step, elr,
-                     fids, fslots, writes, off):
+    def _flush_phase(self, table, table_slots, cache, step, elr, a,
+                     to_table: bool, to_cache: bool):
         W = self.width
+        fids = a["fids"]
         # full [F, 2W] rows: the value half is written back unchanged with
         # the delta half zeroed (slot C, padding, reads a zero row)
-        frows = embedding_gather(cache, fslots)
+        frows = embedding_gather(cache, a["fslots"])
         deltas = frows[:, W:]
         row_mask = fids >= 0
         # ids -1 read zero rows; they are masked and never written
@@ -209,40 +230,52 @@ class CachedEngine(Engine):
         new_rows, new_slots = self.embed_opt.apply_rows(
             rows, deltas.to(rows.dtype), row_slots, step, lr=elr,
             mask=row_mask)
-        self._write(table, writes, off["ft"], new_rows)
-        for k in table_slots:
-            self._write(table_slots[k], writes, off["ft"], new_slots[k])
-        zeroed = torch.cat([frows[:, :W], torch.zeros_like(deltas)], dim=1)
-        self._write(cache, writes, off["fc"], zeroed)
+        if to_table:
+            self._write(table, a, "ft", new_rows)
+            for k in table_slots:
+                self._write(table_slots[k], a, "ft", new_slots[k])
+        if to_cache:
+            zeroed = torch.cat([frows[:, :W], torch.zeros_like(deltas)],
+                               dim=1)
+            self._write(cache, a, "fc", zeroed)
 
-    def _cached_step_body(self, state: CachedTrainState, d, y, a, k: int,
-                          writes, off, do_flush: bool, do_pull: bool):
-        """One step of a staged chunk: `a` holds the chunk's [K, ...]
-        program tensors, `k` the step. The table, its slots and the cache
-        are updated in place (JAX donates them); the dense params, the hot
-        block and its slots are new tensors."""
+    def _cached_step_body(self, state: CachedTrainState, a, variant,
+                          device_data=None):
+        """One step of a staged chunk on its inputs `a` (one row of the
+        chunk), in `variant` (`StagedChunk.steps`): (state, loss). The
+        table, its slots, the cache, the hot block, the dense params and
+        the step are updated in place (JAX donates them); the slots of
+        the dense params and of the hot block are new tensors."""
+        to_table, to_cache, do_pull, insert, update = variant
         W, U = self.width, self.U_cap
+        if "idx" in a:
+            dev_d, dev_y = device_data
+            d = dev_d.index_select(0, a["idx"])
+            y = dev_y.index_select(0, a["idx"])
+        else:
+            d, y = a["d"], a["y"]
         B = y.shape[0]
-        inv = a["inv"][k]
-        step = state.step + 1
+        inv = a["inv"]
+        step = state.step.add_(1)
         elr = self._elr_fn(step)
         table, table_slots, cache = state.table, state.table_slots, \
             state.cache
-        if do_flush:
-            self._flush_phase(table, table_slots, cache, step, elr,
-                              a["fids"][k], a["fslots"][k], writes, off)
+        if to_table or to_cache:
+            self._flush_phase(table, table_slots, cache, step, elr, a,
+                              to_table, to_cache)
         if do_pull:
-            pull_ids = a["pull_ids"][k]
+            pull_ids = a["pull_ids"]
             # f32 rows, widened by K1 as it reads them
             pulled = embedding_gather(table, pull_ids, torch.float32)
-            # prefetched rows: both planes (their slots are virgin, so the
-            # delta plane is already 0)
-            pf = pulled[U:]
-            self._write(cache, writes, off["pf"],
-                        torch.cat([pf, torch.zeros_like(pf)], dim=1))
+            if insert:
+                # prefetched rows: both planes (their slots are virgin, so
+                # the delta plane is already 0)
+                pf = pulled[U:]
+                self._write(cache, a, "pf",
+                            torch.cat([pf, torch.zeros_like(pf)], dim=1))
         # phase 4: one fused read of value + delta planes (after the flush
         # zeroing, which is what makes the set-write of phase 5 exact)
-        res2 = embedding_gather(cache, a["slots"][k])
+        res2 = embedding_gather(cache, a["slots"])
         resident, delta_old = res2[:, :W], res2[:, W:]
         if do_pull:
             emb_uniq = torch.where((pull_ids[:U] >= 0).unsqueeze(1),
@@ -255,30 +288,30 @@ class CachedEngine(Engine):
             # widened hot row added, the sums of JAX's masked fill read
             # and add. In place: emb_uniq is this step's own tensor (res2's
             # value half, or the pull's torch.where)
-            uniq = a["uniq"][k]
-            hot_onehot_gather_add_(emb_uniq, state.hot_table, uniq)
+            hot_onehot_gather_add_(emb_uniq, state.hot_table, a["uniq"])
         emb = emb_uniq.index_select(0, inv).reshape(B, -1, W)
         loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb, d, y)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
-            lr=self._lr_fn(step))
+            lr=self._lr_fn(step), in_place=True)
 
         # phase 5: value plane = forward value - lr*grad quantized through
         # the table dtype; delta plane = post-flush delta + grad
         g_uniq = hot_onehot_push(inv, emb_grad.reshape(-1, W), U)
-        new_data = (emb_uniq - elr * g_uniq).to(
-            self.cfg.table_dtype).to(torch.float32)
-        self._write(cache, writes, off["up"],
-                    torch.cat([new_data, delta_old + g_uniq], dim=1))
+        if update:
+            new_data = (emb_uniq - elr * g_uniq).to(
+                self.cfg.table_dtype).to(torch.float32)
+            self._write(cache, a, "up",
+                        torch.cat([new_data, delta_old + g_uniq], dim=1))
 
         if self.pinned_rows:
             # exact synchronous SGD on the hot block: uniq holds each id
             # once, so the segment sum is a plain scatter of g_uniq
-            hot_delta = hot_onehot_push(uniq, g_uniq, self.pinned_rows)
+            hot_delta = hot_onehot_push(a["uniq"], g_uniq, self.pinned_rows)
             hot_new, hot_slots = self.embed_opt.apply_rows(
                 state.hot_table.to(torch.float32), hot_delta,
                 state.hot_slots, step, lr=elr)
-            hot_table = hot_new.to(state.hot_table.dtype)
+            hot_table = state.hot_table.copy_(hot_new)
         else:
             hot_table, hot_slots = state.hot_table, state.hot_slots
         new_state = CachedTrainState(
@@ -290,30 +323,6 @@ class CachedEngine(Engine):
     # ------------------------------------------------------------------
     # staging
     # ------------------------------------------------------------------
-    def _to_device(self, host: Dict[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
-        """Host arrays -> device tensors through ONE copy: every array is
-        packed, 16-byte aligned, into one (pinned, on a card) uint8
-        buffer, copied without waiting, and viewed back per array."""
-        offs, total = {}, 0
-        for name, arr in host.items():
-            offs[name] = total
-            total += -(-arr.nbytes // 16) * 16
-        pin = self.device.type == "cuda"
-        buf = torch.empty(max(total, 16), dtype=torch.uint8, pin_memory=pin)
-        view = buf.numpy()
-        for name, arr in host.items():
-            o = offs[name]
-            view[o:o + arr.nbytes] = np.ascontiguousarray(arr).view(
-                np.uint8).reshape(-1)
-        dev = buf.to(self.device, non_blocking=True)
-        out = {}
-        for name, arr in host.items():
-            o = offs[name]
-            out[name] = dev[o:o + arr.nbytes].view(
-                _TORCH[arr.dtype]).reshape(arr.shape)
-        return out
-
     def _stage_chunk(self, K, assign, slots, pulls, fids, fslots, pfids,
                      pfslots, uniq, inv, raw_dense=None, raw_sparse=None,
                      raw_labels=None, *, index_feed: bool) -> StagedChunk:
@@ -322,7 +331,7 @@ class CachedEngine(Engine):
         uniq/inv replace them. Returns a StagedChunk whose variant follows
         JAX's per-chunk rule, a pure function of the planner stream."""
         cfg = self.cfg
-        C, U = self.cache_rows, self.U_cap
+        C = self.cache_rows
         slots, uniq, inv = slots[:K], uniq[:K], inv[:K]
         pulls = np.asarray(pulls[:K]).view(np.uint8).astype(bool)
         fids, fslots = fids[:K], fslots[:K]
@@ -332,10 +341,6 @@ class CachedEngine(Engine):
         noflush = bool(cfg.sched_noflush_variant and not has_flush.any())
         nopull = bool(noflush and cfg.sched_nopull_variant
                       and not has_pull.any())
-        flush = tuple(bool(f) or not cfg.sched_noflush_variant
-                      for f in has_flush)
-        pull = tuple(bool(p) or not cfg.sched_nopull_variant
-                     for p in has_pull)
 
         host = {}
         if index_feed:
@@ -346,42 +351,37 @@ class CachedEngine(Engine):
             host["y"] = np.asarray(raw_labels[idx], np.float32)
         host["slots"] = np.asarray(slots, np.int32)
         host["inv"] = np.asarray(inv, np.int32)
-        if any(pull):
-            pull_ids = np.where(pulls & (uniq >= 0), uniq, -1)
-            host["pull_ids"] = np.concatenate([pull_ids, pfids],
-                                              axis=1).astype(np.int32)
-        if any(flush):
-            host["fids"] = np.asarray(fids, np.int32)
-            host["fslots"] = np.asarray(fslots, np.int32)
+        pull_ids = np.where(pulls & (uniq >= 0), uniq, -1)
+        host["pull_ids"] = np.concatenate([pull_ids, pfids],
+                                          axis=1).astype(np.int32)
+        host["fids"] = np.asarray(fids, np.int32)
+        host["fslots"] = np.asarray(fslots, np.int32)
         if self.pinned_rows:
             host["uniq"] = np.asarray(uniq, np.int32)
-
-        # the kept positions and targets of every write, per step
-        rows = self.padded_rows
-        masks = {
-            "ft": ((fids >= 0) & (fids < rows), fids),
+        kept = self._write_arrays(host, {
+            "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
             "fc": ((fslots >= 0) & (fslots < C), fslots),
             "pf": ((pfids >= 0) & (pfslots >= 0) & (pfslots < C), pfslots),
-            "up": ((uniq >= 0) & (slots >= 0) & (slots < C), slots),
-        }
-        parts: List[np.ndarray] = []
-        offsets, n = [], 0
-        for k in range(K):
-            off = {}
-            for name, (mask, target) in masks.items():
-                pos, tgt = _kept(mask[k], target[k])
-                off[name] = (n, n + len(pos), n + 2 * len(pos))
-                parts += [pos, tgt]
-                n += 2 * len(pos)
-            offsets.append(off)
-        host["writes"] = (np.concatenate(parts).astype(np.int64) if n
-                          else np.zeros(1, np.int64))
-        dev = self._to_device(host)
-        writes = dev.pop("writes")
+            "up": ((uniq >= 0) & (slots >= 0) & (slots < C), slots)})
+        packed, layout = self._to_device(host, K)
+        steps = tuple((bool(kept["ft"][k]), bool(kept["fc"][k]),
+                       bool(has_pull[k]), bool(kept["pf"][k]),
+                       bool(kept["up"][k])) for k in range(K))
         return StagedChunk(K=int(K), variant=2 if nopull else 1 if noflush
-                           else 0, index_feed=index_feed, flush=flush,
-                           pull=pull, arrays=dev, writes=writes,
-                           offsets=tuple(offsets))
+                           else 0, index_feed=index_feed, steps=steps,
+                           packed=packed, layout=layout)
+
+    @staticmethod
+    def _write_arrays(host, masks) -> Dict[str, np.ndarray]:
+        """Each write's fixed-length lists into `host`; {write: any kept
+        [K]}."""
+        kept = {}
+        for name in WRITES:
+            if name in masks:
+                mask, target = masks[name]
+                host[f"{name}_tgt"], host[f"{name}_pos"], kept[name] = \
+                    write_lists(mask, target)
+        return kept
 
     def stage_dataset(self, raw_dense, raw_sparse, raw_labels):
         """The whole dataset's dense features and labels on the device,
@@ -417,23 +417,22 @@ class CachedEngine(Engine):
     # host-facing API
     # ------------------------------------------------------------------
     def _run_chunk(self, state, staged: StagedChunk, device_data=None):
-        a = staged.arrays
         if staged.index_feed:
             assert device_data is not None, \
                 "an index-feed chunk needs stage_dataset data"
-            dev_d, dev_y = device_data
-        losses = []
+        # an index-feed step reads the dataset by address
+        reads = tuple(device_data) if staged.index_feed else ()
+        losses = torch.empty(staged.K, dtype=torch.float32,
+                             device=self.device)
         for k in range(staged.K):
-            if staged.index_feed:
-                idx = a["idx"][k]
-                d, y = dev_d.index_select(0, idx), dev_y.index_select(0, idx)
-            else:
-                d, y = a["d"][k], a["y"][k]
-            state, loss = self._cached_step_body(
-                state, d, y, a, k, staged.writes, staged.offsets[k],
-                staged.flush[k], staged.pull[k])
-            losses.append(loss)
-        return state, {"loss": torch.stack(losses),
+            variant = staged.steps[k]
+            state, _ = self._run(
+                ("cached", staged.index_feed, variant),
+                lambda st, a, v=variant: self._cached_step_body(
+                    st, a, v, device_data),
+                state, (staged.packed[k], staged.layout), out=losses[k],
+                reads=reads)
+        return state, {"loss": losses,
                        "overflow": torch.zeros(staged.K, dtype=torch.int32,
                                                device=self.device)}
 
@@ -526,24 +525,18 @@ class CachedEngine(Engine):
     def _flush_only(self, state: CachedTrainState, fids: np.ndarray,
                     fslots: np.ndarray) -> CachedTrainState:
         """The flush phase alone, at step + 1, on host arrays [Wf]."""
-        host = {"fids": np.asarray(fids, np.int32)[None],
-                "fslots": np.asarray(fslots, np.int32)[None]}
-        off, parts, n = {}, [], 0
-        for name, (mask, target) in {
-                "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
-                "fc": ((fslots >= 0) & (fslots < self.cache_rows),
-                       fslots)}.items():
-            pos, tgt = _kept(mask, target)
-            off[name] = (n, n + len(pos), n + 2 * len(pos))
-            parts += [pos, tgt]
-            n += 2 * len(pos)
-        host["writes"] = (np.concatenate(parts).astype(np.int64) if n
-                          else np.zeros(1, np.int64))
-        dev = self._to_device(host)
+        fids = np.asarray(fids, np.int64)[None]
+        fslots = np.asarray(fslots, np.int64)[None]
+        host = {"fids": fids.astype(np.int32),
+                "fslots": fslots.astype(np.int32)}
+        kept = self._write_arrays(host, {
+            "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
+            "fc": ((fslots >= 0) & (fslots < self.cache_rows), fslots)})
+        buf, layout = self._to_device(host, 1)
         step = state.step + 1
         self._flush_phase(state.table, state.table_slots, state.cache, step,
-                          self._elr_fn(step), dev["fids"][0],
-                          dev["fslots"][0], dev["writes"], off)
+                          self._elr_fn(step), unpack(buf[0], layout),
+                          bool(kept["ft"][0]), bool(kept["fc"][0]))
         return state
 
     @torch.no_grad()

@@ -4,29 +4,38 @@ One device, the whole table on it. Every step reads the batch's rows by
 position: one K1 launch (`ops/kernels/gather.py`) over the `B*F` ids
 writes the tower's f32 `[B, F, W]` input, as the JAX one-device SGD path
 reads `table[ids]` and casts it (`engine.py:433-434`). The eval step
-(`predict`, `evaluate`) runs the tower and a sigmoid on it, with no dedup
-and no wait for the card. The train step (`train_step`, `train_epoch`)
-adds the backward pass and the sparse update, for which it dedups the ids
-(`torch.unique`, one wait a step):
+(`predict`, `evaluate`) runs the tower and a sigmoid on it, with no dedup.
+The train step (`train_step`, `train_epoch`) adds the backward pass and
+the sparse update, over a static-size dedup of the ids
+(`ops.embedding.unique_static`, JAX's `jnp.unique(size=B*F,
+fill_value=-1)`):
 
 - SGD on the table (the JAX fast path, `engine.py:427-453`): the
   duplicate-id gradients are summed over the inverse through K3
   (`ops/kernels/segment.py`), and K2 (`ops/kernels/scatter.py`) adds
-  `-lr * g` to each distinct row, scaling by the 0-d `lr` itself. JAX
-  adds every duplicate's `-lr * g` straight into the table instead: the
-  same sum, with one rounding per row here where JAX rounds once per
-  duplicate.
+  `-lr * g` to each distinct row, scaling by the 0-d `lr` itself, and
+  skips the -1 slots. JAX adds every duplicate's `-lr * g` straight into
+  the table instead: the same sum, with one rounding per row here where
+  JAX rounds once per duplicate.
 - Every other table optimizer (the dedup path, `engine.py:315-355`): the
   emb gradient is rounded to the table dtype, as autograd rounds that of
   JAX's `emb.astype(f32)` (`engine.py:388-394`); K3 sums it per unique
   id, the rows and slots are read through K1, `apply_rows` updates them,
-  and `index_copy_` writes them back (an XLA scatter-set in JAX, outside
-  any Pallas kernel).
+  and `write_rows` writes them back (JAX's scatter-set with
+  `mode="drop"`, outside any Pallas kernel).
 
-The table and its slots are updated in place: JAX donates them to the
-step, so the state handed in is consumed in both packages. The dense
-parameters and their slots are new tensors each step. The row-sharded
-hybrid exchange comes in a later slice.
+No step waits for the card: every shape is fixed, and a dropped write is
+redirected on the card rather than filtered on the host. On the card
+each step runs as a CUDA graph (`train/graphs.py`, the counterpart of
+JAX's compiled steps): its inputs go in one packed copy, and the state's
+tensors are the graph's state. `Engine(..., cuda_graphs=False)` runs the
+same bodies uncaptured, for checks; on the CPU they always run so.
+
+A step updates the table, its slots, the dense params and the step in
+place, and the dense slots are new tensors (copied back into the old
+ones under a graph): JAX donates the state to the step, so the state
+handed in is consumed in both packages. The row-sharded hybrid exchange
+comes in a later slice.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 with no device given and no card present they raise.
@@ -41,10 +50,12 @@ import torch
 
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.models.base import ModelDef, bce_with_logits, get_model
-from herald_tpu_torch.ops.embedding import segment_sum_grads
+from herald_tpu_torch.ops.embedding import segment_sum_grads, unique_static
 from herald_tpu_torch.ops.kernels import embedding_gather, rows_scatter_add
 from herald_tpu_torch.optim import get_optimizer
 from herald_tpu_torch.optim.schedules import get_schedule
+from herald_tpu_torch.train.graphs import (TORCH_DTYPES, StepGraphs,
+                                           feed_inputs, pack, pack_tensors)
 from herald_tpu_torch.utils import metrics as M
 
 
@@ -97,22 +108,40 @@ def make_exchange(num_rows: int, ids_per_step: int,
                         ids_per_step if capacity is None else int(capacity))
 
 
-def _write_rows(dst: torch.Tensor, idx: torch.Tensor,
-                vals: torch.Tensor) -> None:
-    """dst[idx] = vals in dst's dtype, dropping indices outside dst (the
-    JAX `.at[].set(mode="drop")`). Checking for such indices waits for
-    the device once."""
-    keep = (idx >= 0) & (idx < dst.shape[0])
-    if not bool(keep.all()):
-        idx, vals = idx[keep], vals[keep]
-    dst.index_copy_(0, idx.long(), vals.to(dst.dtype))
+def write_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+               keep: Optional[torch.Tensor] = None) -> None:
+    """dst[idx] = vals in dst's dtype, dropping the entries outside dst or,
+    when given, where `keep` is False (the JAX `.at[].set(mode="drop")`),
+    at fixed shapes and with no wait for the card. A dropped entry takes a
+    kept entry's index and value, so `index_copy_`'s duplicates write the
+    same bytes; the dropped entries are spread over the kept ones in turn
+    (the j-th over kept entry j mod kept), since thousands of writes to
+    one row serialize on the card. With none kept, row 0's own value goes
+    back into row 0. A dropped entry changes no bit of dst."""
+    n = idx.shape[0]
+    if n == 0:
+        return
+    if keep is None:
+        keep = (idx >= 0) & (idx < dst.shape[0])
+    pos = torch.arange(n, device=idx.device)
+    rank = torch.cumsum(keep, 0)            # kept entries before, and it
+    kept = rank[-1:]
+    # kept entry r (from 0) at position at[r]; the dropped ones at n
+    at = torch.zeros(n + 1, dtype=torch.long, device=idx.device).scatter_(
+        0, torch.where(keep, rank - 1, n), pos)
+    src = torch.where(keep, pos, at.index_select(0, pos % kept.clamp(min=1)))
+    any_kept = kept > 0
+    tgt = torch.where(any_kept, idx.index_select(0, src), 0).long()
+    dst.index_copy_(0, tgt, torch.where(
+        any_kept[:, None], vals.index_select(0, src).to(dst.dtype), dst[:1]))
 
 
 class Engine:
     """Trains and scores one model over a table on one device."""
 
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
-                 table_rows: Optional[int] = None, device=None):
+                 table_rows: Optional[int] = None, device=None,
+                 cuda_graphs: bool = True):
         if cfg.comm_mode != "local":
             raise NotImplementedError(
                 f"comm_mode={cfg.comm_mode!r}: the row-sharded all-to-all "
@@ -147,6 +176,11 @@ class Engine:
                                 and not cfg.use_cache)
         # a step's overflow count: one device and no exchange, so always 0
         self._zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        # the steps' CUDA graphs on a card; cuda_graphs=False runs the same
+        # bodies uncaptured there, as on the CPU
+        self.graphs = (StepGraphs(self.device)
+                       if cuda_graphs and self.device.type == "cuda"
+                       else None)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -182,13 +216,10 @@ class Engine:
         return emb.reshape(B, F, self.width)
 
     def _dedup_read(self, table, ids):
-        """ids [B, F] -> (f32 emb [B, F, W] read by position, uniq, inv):
-        the training steps' read, and the dedup their sparse update sums
-        and writes over. `torch.unique` has a dynamic size, so it waits
-        once per step for the device; the JAX engine's static-size
-        `jnp.unique` does not."""
-        uniq, inv = torch.unique(ids.reshape(-1), sorted=True,
-                                 return_inverse=True)
+        """ids [B, F] -> (f32 emb [B, F, W] read by position, uniq [B*F],
+        inv): the training steps' read, and the static-size dedup their
+        sparse update sums and writes over (-1 in the spare slots)."""
+        uniq, inv = unique_static(ids, ids.numel())
         return self._read(table, ids), uniq, inv
 
     def _loss_and_grads(self, dense, emb, dense_x, labels):
@@ -207,35 +238,35 @@ class Engine:
         """Sum the grads per unique id (K3, in f32, rounded once to the
         grads' dtype), cast the sums to the table dtype, update the rows
         and slots with the table optimizer, write them back. In place.
-        Slots of negative ids (the FAE step's -1 at hot positions) are
-        masked and dropped."""
+        Slots of negative ids (the dedup's spare slots, the FAE step's -1
+        at hot positions) are masked and dropped."""
         g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0]).to(
             table.dtype)
         row_mask = uniq >= 0
-        rows_idx = torch.where(row_mask, uniq, self.padded_rows)
-        safe_idx = torch.where(row_mask, rows_idx, 0)
+        safe_idx = torch.where(row_mask, uniq, 0)
         rows = embedding_gather(table, safe_idx)
         row_slots = {k: embedding_gather(v, safe_idx)
                      for k, v in slots.items()}
         new_rows, new_slots = self.embed_opt.apply_rows(
             rows, g_uniq, row_slots, step,
             lr=self._elr_fn(step), mask=row_mask)
-        drop_idx = torch.where(row_mask, rows_idx, table.shape[0] + 1)
-        _write_rows(table, drop_idx, new_rows)
+        keep = row_mask & (uniq < table.shape[0])
+        write_rows(table, uniq, new_rows, keep)
         for k in slots:
-            _write_rows(slots[k], drop_idx, new_slots[k])
+            write_rows(slots[k], uniq, new_slots[k], keep)
         return table, slots
 
-    def _train_step_body(self, state: TrainState, dense_x, ids, labels):
+    def _train_step_body(self, state: TrainState, a):
+        """One step on the inputs `a` ("d", "s", "y"): (state, loss)."""
         if self._fast_local_sgd:
-            return self._train_step_body_fast(state, dense_x, ids, labels)
-        step = state.step + 1
-        emb, uniq, inv = self._dedup_read(state.table, ids)
+            return self._train_step_body_fast(state, a["d"], a["s"], a["y"])
+        step = state.step.add_(1)
+        emb, uniq, inv = self._dedup_read(state.table, a["s"])
         loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
-                                                      dense_x, labels)
+                                                      a["d"], a["y"])
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
-            lr=self._lr_fn(step))
+            lr=self._lr_fn(step), in_place=True)
         # the grad of a table-dtype leaf cast to f32, as JAX's is
         table, table_slots = self._apply_sparse_grads(
             state.table, state.table_slots, step, uniq, inv,
@@ -243,83 +274,123 @@ class Engine:
         new_state = TrainState(table=table, table_slots=table_slots,
                                dense=dense, dense_slots=dense_slots,
                                step=step)
-        return new_state, {"loss": loss, "overflow": self._zero}
+        return new_state, loss
 
     def _train_step_body_fast(self, state: TrainState, dense_x, ids, labels):
         """SGD on the table: K1 read, f32 emb grads summed per distinct id
         through K3, `-lr * g` added through K2. JAX casts the gather to f32
         before `value_and_grad`, so its emb grad is f32, as here."""
-        step = state.step + 1
+        step = state.step.add_(1)
         emb, uniq, inv = self._dedup_read(state.table, ids)
         loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
                                                       dense_x, labels)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
-            lr=self._lr_fn(step))
+            lr=self._lr_fn(step), in_place=True)
         g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])   # f32
         table = rows_scatter_add(state.table, uniq, g_uniq,
                                  lr=self._elr_fn(step))
         new_state = TrainState(table=table, table_slots=state.table_slots,
                                dense=dense, dense_slots=dense_slots,
                                step=step)
-        return new_state, {"loss": loss, "overflow": self._zero}
+        return new_state, loss
 
-    def _eval_step_body(self, state: TrainState, dense_x, ids):
-        logits = self.model.apply(state.dense, self._read(state.table, ids),
-                                  dense_x)
-        return torch.sigmoid(logits)
+    def _eval_step_body(self, state: TrainState, a):
+        """Probabilities [B] of the inputs `a` ("d", "s"): (state, probs)."""
+        logits = self.model.apply(state.dense, self._read(state.table,
+                                                          a["s"]), a["d"])
+        return state, torch.sigmoid(logits)
 
-    def _put_batch(self, arr, dtype):
-        """A host array (or a tensor) on the engine's device; [W, B, ...]
-        flattens to [W*B, ...] as in JAX."""
-        if isinstance(arr, torch.Tensor):
-            a = arr.to(self.device, getattr(torch, np.dtype(dtype).name))
-        else:
-            a = torch.as_tensor(np.asarray(arr, dtype), device=self.device)
-        if a.dim() >= 3:
-            a = a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
-        return a
+    # ------------------------------------------------------------------
+    # feeding steps
+    # ------------------------------------------------------------------
+    def _run(self, name, body, state, feed, out=None, reads=()):
+        """One step of `body` on a feed (`train/graphs.py`): replayed as a
+        CUDA graph on a card, run as it is otherwise. (state, result)."""
+        if self.graphs is not None:
+            return self.graphs.run(name, body, state, feed, out, reads)
+        new_state, res = body(state, feed_inputs(feed, self.device))
+        return new_state, (res if out is None else out.copy_(res))
+
+    def _host_feed(self, arrays: Dict[str, np.ndarray], steps=None):
+        """Host arrays -> a feed: packed, pinned on a card, one copy."""
+        return pack(arrays, steps, pin=self.device.type == "cuda")
+
+    def _to_device(self, arrays: Dict[str, np.ndarray], steps=None):
+        """Host arrays -> (packed uint8 buffer on the device, layout): ONE
+        copy from pinned memory, without waiting."""
+        buf, layout = self._host_feed(arrays, steps)
+        return buf.to(self.device, non_blocking=True), layout
+
+    def _batch_feed(self, spec: Dict[str, tuple]):
+        """{name: (array or tensor, dtype)} of one batch -> a feed. Tensors
+        on the engine's card are fed as they are; anything else is packed
+        on the host. [W, B, ...] flattens to [W*B, ...] as in JAX."""
+        def flat(x):
+            return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:]) \
+                if x.ndim >= 3 else x
+
+        if self.device.type == "cuda" and all(
+                isinstance(x, torch.Tensor) and x.is_cuda
+                and self.device.index in (None, x.device.index)
+                for x, _ in spec.values()):
+            return {k: flat(x.to(TORCH_DTYPES[np.dtype(dt)]))
+                    for k, (x, dt) in spec.items()}
+        return self._host_feed({
+            k: flat((x.cpu().numpy() if isinstance(x, torch.Tensor)
+                     else np.asarray(x)).astype(dt, copy=False))
+            for k, (x, dt) in spec.items()})
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, dense_x, sparse_ids, labels):
-        """One step on one batch: (state, {"loss", "overflow"}). The
-        table and its slots are updated in place."""
-        d = self._put_batch(dense_x, np.float32)
-        s = self._put_batch(sparse_ids, np.int32)
-        y = self._put_batch(labels, np.float32)
-        return self._train_step_body(state, d, s, y)
+        """One step on one batch: (state, {"loss", "overflow"}). The state
+        handed in is consumed."""
+        state, loss = self._run("train", self._train_step_body, state,
+                                self._batch_feed({
+                                    "d": (dense_x, np.float32),
+                                    "s": (sparse_ids, np.int32),
+                                    "y": (labels, np.float32)}))
+        return state, {"loss": loss, "overflow": self._zero}
 
     def train_epoch(self, state: TrainState, dense_x, sparse_ids, labels,
                     steps: Optional[int] = None):
         """Run `steps` steps (default: as many full batches as the arrays
         hold). Host arrays are flat ([steps*B, ...]) and go to the device
-        in one copy each; tensors already shaped [steps, B, ...] are used
-        as they are. Returns (state, stats) with per-step `loss` and
-        `overflow` tensors [steps]. A Python loop over the steps, where
-        JAX scans them in one program."""
+        packed, one step a row, in one copy; tensors already shaped
+        [steps, B, ...] are packed on their card. Returns (state, stats)
+        with per-step `loss` and `overflow` tensors [steps]. Each step is
+        one replay of the step's graph (JAX scans the steps in one
+        program)."""
         gb = self.cfg.batch_size
         steps = steps or len(sparse_ids) // gb
         if steps < 1:
             raise ValueError(f"not enough samples for one step of {gb}")
+        spec = {"d": (dense_x, np.float32), "s": (sparse_ids, np.int32),
+                "y": (labels, np.float32)}
 
-        def stack(a, dtype):
-            if isinstance(a, torch.Tensor) and a.dim() >= 2 \
-                    and a.shape[0] == steps:
-                return a.to(self.device)   # already [K, GB, ...]
-            a = np.asarray(a)[: steps * gb].astype(dtype, copy=False)
-            return torch.as_tensor(a.reshape(steps, gb, *a.shape[1:]),
-                                   device=self.device)
+        def staged(x):      # a tensor already shaped [steps, B, ...]
+            return isinstance(x, torch.Tensor) and x.dim() >= 2 \
+                and x.shape[0] == steps
 
-        d = stack(dense_x, np.float32)
-        s = stack(sparse_ids, np.int32)
-        y = stack(labels, np.float32)
-        losses, overflows = [], []
+        def host(x, dt):
+            a = np.asarray(x)[: steps * gb].astype(dt, copy=False)
+            return a.reshape(steps, gb, *a.shape[1:])
+
+        if any(staged(x) for x, _ in spec.values()):
+            buf, layout = pack_tensors({
+                k: (x if staged(x) else torch.as_tensor(host(x, dt))).to(
+                    self.device, TORCH_DTYPES[np.dtype(dt)])
+                for k, (x, dt) in spec.items()}, steps)
+        else:
+            buf, layout = self._to_device(
+                {k: host(x, dt) for k, (x, dt) in spec.items()}, steps)
+        losses = torch.empty(steps, dtype=torch.float32, device=self.device)
         for k in range(steps):
-            state, stats = self._train_step_body(state, d[k], s[k], y[k])
-            losses.append(stats["loss"])
-            overflows.append(stats["overflow"])
-        return state, {"loss": torch.stack(losses),
-                       "overflow": torch.stack(overflows)}
+            state, _ = self._run("train", self._train_step_body, state,
+                                 (buf[k], layout), out=losses[k])
+        return state, {"loss": losses,
+                       "overflow": torch.zeros(steps, dtype=torch.int32,
+                                               device=self.device)}
 
     def train_epoch_assigned(self, state: TrainState, scheduler, dense_x,
                              sparse_ids, labels, steps: int):
@@ -345,9 +416,9 @@ class Engine:
     def predict(self, state: TrainState, dense_x, sparse_ids
                 ) -> torch.Tensor:
         """Probabilities [B] of one batch, on the engine's device."""
-        d = self._put_batch(dense_x, np.float32)
-        s = self._put_batch(sparse_ids, np.int32)
-        return self._eval_step_body(state, d, s)
+        return self._run("eval", self._eval_step_body, state,
+                         self._batch_feed({"d": (dense_x, np.float32),
+                                           "s": (sparse_ids, np.int32)}))[1]
 
     @torch.inference_mode()
     def evaluate(self, state: TrainState, dense_x, sparse_ids, labels,
@@ -375,12 +446,16 @@ class Engine:
                                     np.repeat(s_all[-1:], pad, axis=0)])
         preds = []
         for b in range(blocks):
-            dk = self._put_batch(d_all[b * rows:(b + 1) * rows], np.float32)
-            sk = self._put_batch(s_all[b * rows:(b + 1) * rows], np.int32)
-            p = [self._eval_step_body(state, dk[t * batch:(t + 1) * batch],
-                                      sk[t * batch:(t + 1) * batch])
-                 for t in range(T)]
-            preds.append(torch.cat(p).cpu().numpy())
+            sl = slice(b * rows, (b + 1) * rows)
+            buf, layout = self._to_device({
+                "d": d_all[sl].reshape(T, batch, *d_all.shape[1:]),
+                "s": s_all[sl].reshape(T, batch, *s_all.shape[1:])}, T)
+            p = torch.empty((T, batch), dtype=torch.float32,
+                            device=self.device)
+            for t in range(T):
+                self._run("eval", self._eval_step_body, state,
+                          (buf[t], layout), out=p[t])
+            preds.append(p.reshape(-1).cpu().numpy())
         y_score = np.concatenate(preds)[:n]
         y_true = np.asarray(labels).reshape(-1)[: len(y_score)]
         return {

@@ -15,23 +15,25 @@ A step on the card:
   (`fae.py:101-106`); the one bit that differs is a hot row holding -0.0,
   which reads as +0.0 (0.0 + -0.0) here. The two compare equal;
 - the tower's loss and gradients, the dense update;
-- the cold update: the f32 emb gradient summed per distinct cold id
-  through K3, cast once to the table dtype, applied by the table
-  optimizer and written back (`Engine._apply_sparse_grads`, whatever the
-  optimizer: JAX's FAE step never takes the SGD fast path). JAX zeroes
-  the hot positions' gradients (`fae.py:127`) and sums the zeros into the
-  -1 id's row, which it drops. Here the hot positions point past the
-  last distinct id, so K3 drops them: at a 99% hot share that row would
-  be one segment of thousands of positions;
+- the cold update: the cold ids deduped at the static size B*F
+  (`unique_static`, JAX's `jnp.unique(size=U, fill_value=-1)`), the f32
+  emb gradient summed per distinct cold id through K3, cast once to the
+  table dtype, applied by the table optimizer and written back
+  (`Engine._apply_sparse_grads`, whatever the optimizer: JAX's FAE step
+  never takes the SGD fast path). JAX zeroes the hot positions'
+  gradients (`fae.py:127`) and sums the zeros into the -1 id's row,
+  which it drops. Here the hot positions point at slot U, past every
+  slot, so K3 drops them: at a 99% hot share that row would be one
+  segment of thousands of positions;
 - the hot update: K3 sums the emb gradient by hot row into H rows (ids -1
   are dropped), and the embedding optimizer moves all H rows in f32, with
-  f32 slots, as `fae.py:137-150` does; the block is cast back to the
-  table dtype.
+  f32 slots, as `fae.py:137-150` does; the rows are cast back into the
+  block in place.
 
-The cold update dedups with `torch.unique` and writes through
-`_write_rows`, which waits for the card (ROADMAP queue 1 item 17 removes
-those waits). The row-sharded hybrid form waits for the multi-rank
-engine.
+A step's four inputs go to the card packed in one copy from pinned
+memory, and the step waits for the card nowhere; on a card it replays as
+a CUDA graph (`train/graphs.py`). The row-sharded hybrid form waits for
+the multi-rank engine.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.models.base import ModelDef
+from herald_tpu_torch.ops.embedding import unique_static
 from herald_tpu_torch.ops.kernels import (hot_onehot_gather_add_,
                                           hot_onehot_push)
 from herald_tpu_torch.train.engine import Engine
@@ -82,9 +85,10 @@ class FaeEngine(Engine):
 
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
                  table_rows: Optional[int] = None, hot_rate: float = 0.01,
-                 num_hot: Optional[int] = None, device=None):
+                 num_hot: Optional[int] = None, device=None,
+                 cuda_graphs: bool = True):
         super().__init__(cfg, model=model, table_rows=table_rows,
-                         device=device)
+                         device=device, cuda_graphs=cuda_graphs)
         # of the logical rows, not the padded ones
         self.num_hot = num_hot or max(1, int(self.num_rows * hot_rate))
 
@@ -115,24 +119,27 @@ class FaeEngine(Engine):
 
     def _apply_hot_grads(self, hot_table, hot_slots, step, g_hot):
         """The embedding optimizer over every row of the hot block, in f32
-        (under adam every row moves each step); the rows go back in the
-        table dtype."""
+        (under adam every row moves each step); the rows go back into the
+        block, in the table dtype, in place."""
         rows, slots = self.embed_opt.apply_rows(
             hot_table.float(), g_hot, hot_slots, step, lr=self._elr_fn(step))
-        return rows.to(hot_table.dtype), slots
+        return hot_table.copy_(rows), slots
 
-    def _fae_step_body(self, state: FaeTrainState, dense_x, ids, hot_idx,
-                       labels):
-        step = state.step + 1
+    def _fae_step_body(self, state: FaeTrainState, a):
+        """One step on the inputs `a` ("d", "cold", "hot", "y"): (state,
+        loss)."""
+        step = state.step.add_(1)
+        ids, hot_idx = a["cold"], a["hot"]
         flat = ids.reshape(-1)
-        uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
-        inv = torch.where(flat >= 0, inv, uniq.shape[0])
+        U = flat.numel()
+        uniq, inv = unique_static(flat, U)
+        inv = torch.where(flat >= 0, inv, U)
         emb = self._fae_read(state, ids, hot_idx)
         loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
-                                                      dense_x, labels)
+                                                      a["d"], a["y"])
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
-            lr=self._lr_fn(step))
+            lr=self._lr_fn(step), in_place=True)
         table, table_slots = self._apply_sparse_grads(
             state.table, state.table_slots, step, uniq, inv, emb_grad)
         g_hot = hot_onehot_push(hot_idx.reshape(-1),
@@ -144,13 +151,13 @@ class FaeEngine(Engine):
             table=table, table_slots=table_slots, dense=dense,
             dense_slots=dense_slots, step=step, hot_table=hot_table,
             hot_slots=hot_slots)
-        return new_state, {"loss": loss, "overflow": self._zero}
+        return new_state, loss
 
-    def _fae_eval_body(self, state: FaeTrainState, dense_x, ids, hot_idx):
+    def _fae_eval_body(self, state: FaeTrainState, a):
         logits = self.model.apply(state.dense,
-                                  self._fae_read(state, ids, hot_idx),
-                                  dense_x)
-        return torch.sigmoid(logits)
+                                  self._fae_read(state, a["cold"], a["hot"]),
+                                  a["d"])
+        return state, torch.sigmoid(logits)
 
     # ------------------------------------------------------------------
     def split_batch(self, lut: np.ndarray, sparse_ids: np.ndarray):
@@ -161,33 +168,42 @@ class FaeEngine(Engine):
 
     def train_step_fae(self, state: FaeTrainState, lut, dense_x, sparse_ids,
                        labels):
-        """One step on one batch: (state, {"loss", "overflow"}). The cold
-        table and its slots are updated in place."""
+        """One step on one batch: (state, {"loss", "overflow"}). The batch
+        is split on the host and its four arrays go to the card in one
+        copy; the state handed in is consumed."""
         cold, hot_idx = self.split_batch(lut, np.asarray(sparse_ids))
-        return self._fae_step_body(
-            state, self._put_batch(dense_x, np.float32),
-            self._put_batch(cold, np.int32),
-            self._put_batch(hot_idx, np.int32),
-            self._put_batch(labels, np.float32))
+        state, loss = self._run("fae", self._fae_step_body, state,
+                                self._host_feed({
+                                    "d": np.asarray(dense_x, np.float32),
+                                    "cold": cold, "hot": hot_idx,
+                                    "y": np.asarray(labels, np.float32)}))
+        return state, {"loss": loss, "overflow": self._zero}
 
     @torch.inference_mode()
     def evaluate_fae(self, state: FaeTrainState, lut, dense_x, sparse_ids,
                      labels, batch: Optional[int] = None
                      ) -> Dict[str, float]:
         """AUC and accuracy over the whole batches only: a tail shorter
-        than `batch` is not scored, as in JAX (`fae.py:230`)."""
-        n = len(sparse_ids)
+        than `batch` is not scored, as in JAX (`fae.py:230`). The batches
+        go to the card in one copy and come back in one."""
         batch = batch or self.cfg.batch_size
-        preds = []
-        for i in range(0, n - batch + 1, batch):
-            cold, hot_idx = self.split_batch(
-                lut, np.asarray(sparse_ids[i:i + batch]))
-            p = self._fae_eval_body(
-                state, self._put_batch(dense_x[i:i + batch], np.float32),
-                self._put_batch(cold, np.int32),
-                self._put_batch(hot_idx, np.int32))
-            preds.append(p.cpu().numpy())
-        y_score = np.concatenate(preds) if preds else np.zeros(0)
-        y_true = np.asarray(labels).reshape(-1)[: len(y_score)]
+        nb = len(sparse_ids) // batch
+        y_true = np.asarray(labels).reshape(-1)[: nb * batch]
+        if nb == 0:
+            return {"auc": M.auc_score(y_true, np.zeros(0)),
+                    "acc": M.accuracy(y_true, np.zeros(0))}
+        n = nb * batch
+        sparse = np.asarray(sparse_ids)[:n]
+        dense = np.asarray(dense_x, np.float32)[:n]
+        cold, hot_idx = self.split_batch(lut, sparse)
+        buf, layout = self._to_device({
+            "d": dense.reshape(nb, batch, *dense.shape[1:]),
+            "cold": cold.reshape(nb, batch, -1),
+            "hot": hot_idx.reshape(nb, batch, -1)}, nb)
+        p = torch.empty((nb, batch), dtype=torch.float32, device=self.device)
+        for i in range(nb):
+            self._run("fae_eval", self._fae_eval_body, state,
+                      (buf[i], layout), out=p[i])
+        y_score = p.reshape(-1).cpu().numpy()
         return {"auc": M.auc_score(y_true, y_score),
                 "acc": M.accuracy(y_true, y_score)}

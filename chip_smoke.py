@@ -7,13 +7,14 @@ through the scheduled, cached engine, and print what it measured.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
-    python3 chip_smoke.py --phase assigned
+    python3 chip_smoke.py --phase assigned|hybrid
 
 Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
-kernel:hot_onehot_gather, launch:scheduled, kernel:fm_second_order,
+kernel:hot_onehot_gather, launch:scheduled, hybrid, launch:hybrid,
+kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
 that lost kernel records), the card's name and power limit, and last
@@ -42,6 +43,18 @@ against the plain versions of K1, K3 and K4, 64 timed steps with their
 launches and no plain-version call, host waits, a step profile, the
 dense hot update's device time and evaluate_fae; launch:fae runs the
 launcher's FAE branch at full width.
+
+hybrid trains the same table row-sharded over two ranks that share this
+card (gloo: NCCL refuses two ranks on one device), each a process of
+its own started by this script (`--hybrid-rank`): 16,881,296 rows a
+rank, global batches of 512, SGD at lr 0.01. 8 steps are held against
+the one-device engine over the same global batches from one logical
+state and against the same steps through the plain versions of K1 and
+K3; 64 steps are timed, rank 0 profiles a chunk of 8 and times K1's four
+and K3's two sites of the step at their shapes. That rate measures gloo
+on one card, not the exchange over several cards. launch:hybrid runs
+`torch.distributed.run` with 2 ranks on card 0 (gloo) and with 1 rank
+(NCCL), the latter's losses equal to the local launcher's.
 
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
@@ -80,7 +93,8 @@ as CUDA graphs (`RUN_B_BUSY_MS`).
 
 `--phase scheduled:pinned`, `--phase train` (train alone) and `--phase
 fae` run the device and build phases and that phase alone; `--phase fae`
-and `--phase assigned` also run launch:fae or launch:assigned. `--root
+and `--phase assigned` also run launch:fae or launch:assigned, and
+`--phase hybrid` runs hybrid and launch:hybrid. `--root
 DIR` imports herald_tpu_torch from another checkout, so that the steps
 of two trees (a parent unpacked with `git archive` into a gitignored
 directory, and this one) are timed and profiled in turns on one card,
@@ -95,6 +109,7 @@ phase without the gates that need them:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import importlib.util
 import json
@@ -3073,6 +3088,511 @@ def phase_scheduled_dfm() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the row-sharded hybrid engine: two ranks sharing the card over gloo
+# ----------------------------------------------------------------------
+
+HYBRID_S, HYBRID_STEPS, HYBRID_TIMED = 2, 8, 64
+# a hybrid SGD step's launches: K1 reads the owner's rows, the returned
+# buffer by position, the send buffer of gradients and the rows updated;
+# K3 sums the duplicate-id gradients and, on the owner, the received ones
+HYBRID_STEP = {"embedding_gather": 4, "hot_onehot_push": 2}
+# the step's kernel calls in the order it makes them
+HYBRID_SITES = (("embedding_gather", "owner_read"),
+                ("embedding_gather", "by_position"),
+                ("hot_onehot_push", "dup_sum"),
+                ("embedding_gather", "send_grads"),
+                ("hot_onehot_push", "owner_sum"),
+                ("embedding_gather", "update_rows"))
+
+
+@contextlib.contextmanager
+def _patched(repl: dict):
+    """Module attributes replaced ({(module, name): fn}) while open."""
+    saved = {key: getattr(*key) for key in repl}
+    for (mod, name), fn in repl.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _hybrid_hooks(fns: dict) -> dict:
+    """{(module, name): fn} for the names through which the hybrid step
+    calls K1 (the engine and the exchange) and K3 (ops.embedding)."""
+    from herald_tpu_torch.ops import embedding as emb_mod
+    from herald_tpu_torch.parallel import exchange as ex_mod
+    from herald_tpu_torch.train import engine as eng_mod
+    return {(ex_mod, "embedding_gather"): fns["embedding_gather"],
+            (eng_mod, "embedding_gather"): fns["embedding_gather"],
+            (emb_mod, "hot_onehot_push"): fns["hot_onehot_push"]}
+
+
+def _host_k3(ids, grads, num_rows):
+    """K3's plain version on the host, where `index_add_` adds in position
+    order: the kernel's order for segments of at most 32 positions."""
+    return hot_onehot_push_ref(ids.cpu(), grads.cpu(), num_rows).to(
+        grads.device)
+
+
+def _recording(calls: list) -> dict:
+    """Hooks that append (kernel, args) of every K1 and K3 call, the args
+    cloned but for the shard's table (read in place), then launch."""
+    def wrap(name, fn):
+        def call(*args):
+            calls.append((name, [a.clone() if isinstance(a, torch.Tensor)
+                                 and a.numel() * a.element_size() < 1 << 28
+                                 else a for a in args]))
+            return fn(*args)
+        return call
+    return _hybrid_hooks({"embedding_gather": wrap("embedding_gather",
+                                                   embedding_gather),
+                          "hot_onehot_push": wrap("hot_onehot_push",
+                                                  hot_onehot_push)})
+
+
+def _hybrid_site_timing(name: str, inputs: list) -> dict:
+    """One kernel site of the hybrid step, each launch on the inputs of
+    another recorded step: held against the plain version (K1 bit for
+    bit; K3 bit for bit on integer-valued grads at the recorded ids, and
+    on the recorded grads within 1e-6 * sum|g| of each output element, as
+    phase_kernel_push holds it), events and device time of kernel,
+    plain version and library call, and the bound from what these inputs
+    need. K1's library call is `index_select` (+ `.to(float32)` where the
+    site widens) where every id lies in the table, else none (no single
+    call zero-fills); K3's is zeros + `index_add_` of the grads widened to
+    f32, the dropped positions sent to one extra row."""
+    k = len(inputs)
+    worst = 0.0
+    if name == "embedding_gather":
+        plain_fn, marker = embedding_gather_ref, K1
+        tab, ids = inputs[0][0], inputs[0][1]
+        od = inputs[0][2] if len(inputs[0]) > 2 else None
+        for a in inputs:
+            got, want = embedding_gather(*a), embedding_gather_ref(*a)
+            if not torch.equal(got, want):
+                raise AssertionError("embedding_gather differs from its "
+                                     "plain version at a hybrid site")
+        in_range = all(bool(((a[1] >= 0) & (a[1] < a[0].shape[0])).all())
+                       for a in inputs)
+        lib = None
+        if in_range:
+            def lib(t, i, o=None):
+                out = torch.index_select(t, 0, i)
+                return out if o is None else out.to(o)
+        valid = [a[1][(a[1] >= 0) & (a[1] < a[0].shape[0])] for a in inputs]
+        mean_u = sum(int(torch.unique(v).numel()) for v in valid) / k
+        n = ids.numel()
+        D = tab.shape[1]
+        out_bytes = (od or tab.dtype).itemsize
+        bytes_moved = (mean_u * D * tab.element_size() + n * D * out_bytes
+                       + n * ids.element_size())
+        shape = {"table_rows": tab.shape[0], "width": D, "ids": n,
+                 "mean_distinct_rows": mean_u,
+                 "out_dtype": str(od or tab.dtype).replace("torch.", "")}
+    else:
+        plain_fn, marker = hot_onehot_push_ref, "sum_segments"
+        ids, grads, H = inputs[0]
+        for a in inputs:
+            # integer-valued grads at the recorded ids: exact sums
+            gi = torch.randint(-8, 9, a[1].shape, device=a[1].device).to(
+                a[1].dtype)
+            if not torch.equal(hot_onehot_push(a[0], gi, a[2]),
+                               hot_onehot_push_ref(a[0], gi, a[2])):
+                raise AssertionError("hot_onehot_push differs from its "
+                                     "plain version on integer grads at "
+                                     "a hybrid site")
+            err = (hot_onehot_push(*a) - hot_onehot_push_ref(*a)).abs()
+            bound = 1e-6 * hot_onehot_push_ref(a[0], a[1].abs(), a[2])
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"hot_onehot_push differs from its "
+                                     f"plain version at a hybrid site "
+                                     f"beyond 1e-6*sum|g| per element: max "
+                                     f"{float(err.max())}")
+            worst = max(worst, float(err.max()))
+        lib_ids = [torch.where((a[0] >= 0) & (a[0] < a[2]), a[0], a[2])
+                   for a in inputs]
+
+        def lib(i, g, h, j=None):
+            return torch.zeros((h + 1, g.shape[1]), device=g.device,
+                               dtype=torch.float32).index_add_(
+                0, j, g.to(torch.float32))
+        kept = sum(int(((a[0] >= 0) & (a[0] < a[2])).sum())
+                   for a in inputs) / k
+        D = grads.shape[1]
+        bytes_moved = (ids.numel() * ids.element_size()
+                       + kept * D * grads.element_size() + H * D * 4)
+        shape = {"positions": ids.numel(), "kept_positions": kept,
+                 "num_rows": H, "width": D,
+                 "grads_dtype": str(grads.dtype).replace("torch.", "")}
+    fns = {"kernel": lambda i: (embedding_gather if marker == K1
+                                else hot_onehot_push)(*inputs[i % k]),
+           "plain": lambda i: plain_fn(*inputs[i % k])}
+    if lib is not None:
+        fns["library"] = (lambda i: lib(*inputs[i % k])) if marker == K1 \
+            else (lambda i: lib(*inputs[i % k], j=lib_ids[i % k]))
+    ev = {w: cuda_ms(f, k) for w, f in fns.items()}
+    dev = {w: device_profile(f, k, marker if w == "kernel" else None)[0]
+           for w, f in fns.items()}
+    return {**shape, "launches_timed": k, "max_abs_err": worst,
+            "kernel_ms": ev["kernel"], "plain_ms": ev["plain"],
+            "library_ms": ev.get("library"),
+            "kernel_device_ms": dev["kernel"],
+            "plain_device_ms": dev["plain"],
+            "library_device_ms": dev.get("library"),
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": bytes_moved}
+
+
+def _movement(start, got, want) -> dict:
+    """How touched rows moved from `start` in two runs: the elements that
+    moved in `want`'s run and in `got`'s, and sum|moved_got - moved_want| /
+    sum|moved_want|. At SGD lr 0.01 most bf16 elements of a row move less
+    than half an ulp, so a check of the values alone would pass rows that
+    were never updated."""
+    s = start.float()
+    mg, mw = got.float() - s, want.float() - s
+    total = float(mw.abs().sum())
+    return {"elements": mw.numel(), "moved": int((mw != 0).sum()),
+            "moved_got": int((mg != 0).sum()),
+            "move_err_ratio": float((mg - mw).abs().sum()) / total
+            if total else None}
+
+
+def _moved_ok(m: dict) -> bool:
+    """Rows that moved, and moved as the reference's did, within 1%."""
+    return m["moved"] > 0 and m["move_err_ratio"] is not None \
+        and m["move_err_ratio"] <= 1e-2
+
+
+def hybrid_rank(rank: int, tmp: Path) -> None:
+    """One rank of the hybrid phase, in a process of its own on the card
+    (`--hybrid-rank R --hybrid-dir DIR`): its own init_state(0), held
+    against the strided rows and the tower of the one-device engine's
+    init_state(0) (one seed, one logical table), then 8 steps through the
+    kernels (their
+    launches counted), the same 8 from the same state with the plain
+    versions of K1 and K3, 64 timed steps, one profiled chunk of 8 (rank
+    0), 8 steps whose K1 and K3 inputs rank 0 records and then times.
+    Writes rank<R>.pt to DIR."""
+    import torch.distributed as dist
+    from herald_tpu_torch.parallel.comm import setup
+    setup(DEVICE + ":0", init_method=f"file://{tmp}/store", rank=rank,
+          world_size=HYBRID_S)
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, table_dtype=torch.bfloat16,
+                       comm_mode="hybrid")
+    eng = Engine(cfg, table_rows=FULL_ROWS, device=DEVICE + ":0")
+    comm = eng.comm
+    gb = HYBRID_S * BATCH
+    torch.cuda.reset_peak_memory_stats()
+    one = Engine(HeraldConfig(model="wdl_criteo", batch_size=gb,
+                              embedding_dim=EMB, table_dtype=torch.bfloat16),
+                 table_rows=FULL_ROWS, device=comm.device)
+    full = one.init_state(0)
+    state = eng.init_state(0)
+    n_mine = len(range(rank, FULL_ROWS, HYBRID_S))
+    init_equal = bool(torch.equal(
+        state.table[:n_mine], full.table[rank:FULL_ROWS:HYBRID_S])) and all(
+        torch.equal(state.dense[k], v) for k, v in full.dense.items())
+    del full, one
+    _free()
+    n = 2 * HYBRID_STEPS + HYBRID_TIMED
+    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, n * gb,
+                                               seed=0, num_rows=FULL_ROWS)
+
+    def batches(lo, k):
+        z = slice(lo * gb, (lo + k) * gb)
+        return dense[z], sparse[z], labels[z]
+
+    touched = np.unique(sparse[:HYBRID_STEPS * gb])
+    mine = touched[touched % HYBRID_S == rank]
+    local = torch.as_tensor(mine // HYBRID_S, device=comm.device)
+    start = (state.table[local].clone(),
+             {k: v.clone() for k, v in state.dense.items()})
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, st = eng.train_epoch(state, *batches(0, HYBRID_STEPS))
+    launches = _launch_counts()
+    losses, overflow = st["loss"].cpu(), st["overflow"].cpu()
+    rows = state.table[local].clone()
+    dense_after = {k: v.clone() for k, v in state.dense.items()}
+    # the same steps from the same state through the plain versions
+    state.table[local] = start[0]
+    for k, v in start[1].items():
+        state.dense[k].copy_(v)
+    state.step.zero_()
+    with _patched(_hybrid_hooks({"embedding_gather": embedding_gather_ref,
+                                 "hot_onehot_push": _host_k3})):
+        state, st = eng.train_epoch(state, *batches(0, HYBRID_STEPS))
+    p_losses, p_rows = st["loss"].cpu(), state.table[local]
+    plain = {
+        **_movement(start[0], rows, p_rows),
+        "losses_identical": bool(torch.equal(losses, p_losses)),
+        "rows_identical": bool(torch.equal(rows, p_rows)),
+        "dense_identical": all(torch.equal(dense_after[k], state.dense[k])
+                               for k in state.dense),
+        "loss_max_rel_err": float(((losses - p_losses).abs()
+                                   / p_losses.abs()).max()),
+        "rows_within_one_ulp": bool(torch.allclose(
+            rows.float(), p_rows.float(), rtol=2 ** -7, atol=0)),
+        "dense_max_err": max(float((dense_after[k] - state.dense[k]).abs()
+                                   .max()) for k in state.dense)}
+
+    # 64 timed steps, both ranks from one barrier
+    dist.barrier()
+    torch.cuda.synchronize()
+    sec0 = dict(comm.seconds)
+    t0 = time.perf_counter()
+    state, st = eng.train_epoch(state, *batches(HYBRID_STEPS, HYBRID_TIMED))
+    float(st["loss"][-1])
+    timed_s = time.perf_counter() - t0
+    comm_s = {k: v - sec0.get(k, 0.0) for k, v in comm.seconds.items()}
+
+    # one chunk of 8 steps profiled on rank 0
+    holder = [state]
+    prof_batches = batches(HYBRID_STEPS + HYBRID_TIMED, HYBRID_STEPS)
+
+    def chunk(_i):
+        holder[0], _ = eng.train_epoch(holder[0], *prof_batches)
+
+    sec0 = dict(comm.seconds)
+    profile = None
+    if rank == 0:
+        prof, host_ms, lost = _session(chunk, 1)
+        per, _ = _device_items(prof, HYBRID_STEPS)
+        host_ms /= HYBRID_STEPS
+        busy = None if lost else sum(per.values())
+        a2a = (comm.seconds["all_to_all"] - sec0["all_to_all"]) * 1e3 \
+            / HYBRID_STEPS
+        profile = {"steps": HYBRID_STEPS, "device_busy_ms": busy,
+                   "host_ms_profiled": host_ms,
+                   "device_idle_share": None if busy is None
+                   else 1 - busy / host_ms,
+                   "embedding_gather_device_ms": _own_ms(per, K1),
+                   "hot_onehot_push_device_ms": _k3_ms(per),
+                   "all_to_all_host_ms": a2a,
+                   "all_to_all_share": a2a / host_ms,
+                   "all_reduce_host_ms": (comm.seconds["all_reduce"]
+                                          - sec0["all_reduce"]) * 1e3
+                   / HYBRID_STEPS,
+                   "top_device_ms": _top(per), "lost_launches": len(lost)}
+    else:
+        chunk(0)
+        torch.cuda.synchronize()
+    state = holder[0]
+
+    # the K1 and K3 inputs of 8 steps, recorded on rank 0, then timed
+    calls = []
+    with _patched(_recording(calls) if rank == 0 else {}):
+        state, _ = eng.train_epoch(state, *batches(0, HYBRID_STEPS))
+    sites = None
+    if rank == 0:
+        per_step = len(HYBRID_SITES)
+        if len(calls) != per_step * HYBRID_STEPS or any(
+                calls[i][0] != HYBRID_SITES[i % per_step][0]
+                for i in range(len(calls))):
+            raise AssertionError(f"the hybrid step called "
+                                 f"{[c[0] for c in calls[:per_step]]}")
+        sites = {f"{kern}:{site}": _hybrid_site_timing(kern, [
+            calls[i][1] for i in range(j, len(calls), per_step)])
+            for j, (kern, site) in enumerate(HYBRID_SITES)}
+    dist.barrier()
+    torch.save({"mine": mine, "rows": rows.cpu(), "losses": losses,
+                "overflow": overflow,
+                "dense": {k: v.cpu() for k, v in dense_after.items()},
+                "summary": {
+                    "rank": rank, "backend": comm.backend,
+                    "world_size": comm.size, "init_equal": init_equal,
+                    "launches": launches, "plain_kernels": plain,
+                    "timed_steps": HYBRID_TIMED, "timed_s": timed_s,
+                    "comm_host_s": comm_s, "step_profile": profile,
+                    "sites": sites, "table_shape": list(state.table.shape),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}},
+               tmp / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_hybrid() -> dict:
+    """wdl_criteo at full width (batch 256 a rank, the 33,762,577-row bf16
+    table row-sharded: 16,881,296 rows, 4.32 GB a rank) trained by
+    HYBRID_S ranks on this card over gloo, each a process of its own
+    (`hybrid_rank`, with a timeout). Gates: 8 steps against the
+    one-device engine (batch 512) from the same logical state over the
+    same global batches, run here after the ranks exit: losses within
+    rtol 1e-5, overflow 0, every touched row within 2^-7 of its value
+    plus 2^-13 and the dense params within rtol 1e-4, atol 1e-6 (the
+    tolerances of tests/test_torch_hybrid.py); the same 8 steps through
+    the plain versions of K1 and K3: losses within 1e-5 relative, rows
+    within one bf16 ulp, dense within 1e-5 (train's gates). In both, the
+    touched rows' movement from the start (`_movement`): some element
+    moved, and the hybrid rows' movement is within 1% of the reference's
+    (summed over the elements). Each rank's own init_state(0) is the
+    one-device engine's, and each step launches HYBRID_STEP. Then 64
+    timed steps (global examples/s), rank 0's step profile and the six
+    kernel sites timed at their shapes."""
+    _free()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        logs = [open(tmp / f"rank{r}.log", "w") for r in range(HYBRID_S)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--hybrid-rank",
+             str(r), "--hybrid-dir", str(tmp)], cwd=ROOT, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(HYBRID_S)]
+        try:
+            for r, p in enumerate(procs):
+                p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        ranks_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"hybrid rank {r} exited {p.returncode}:\n"
+                    f"{(tmp / f'rank{r}.log').read_text()[-4000:]}")
+        res = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+               for r in range(HYBRID_S)]
+    summ = [r["summary"] for r in res]
+    want_launches = _want(HYBRID_STEP, HYBRID_STEPS)
+    for s in summ:
+        if s["backend"] != "gloo" or s["world_size"] != HYBRID_S:
+            raise AssertionError(f"rank {s['rank']}: {s['backend']} over "
+                                 f"{s['world_size']} ranks")
+        if s["launches"] != want_launches:
+            raise AssertionError(f"rank {s['rank']} launched "
+                                 f"{s['launches']}; expected "
+                                 f"{want_launches}")
+        if not s["init_equal"]:
+            raise AssertionError(f"rank {s['rank']}'s init_state(0) is not "
+                                 f"its block of the one-device engine's")
+        p = s["plain_kernels"]
+        if p["loss_max_rel_err"] > 1e-5 or not p["rows_within_one_ulp"] \
+                or p["dense_max_err"] > 1e-5 or not _moved_ok(p):
+            raise AssertionError(f"rank {s['rank']}'s steps differ from "
+                                 f"the plain versions of K1 and K3: {p}")
+    if any(not torch.equal(r["losses"], res[0]["losses"]) for r in res) \
+            or any(int(r["overflow"].sum()) for r in res):
+        raise AssertionError("the ranks' losses differ or overflowed")
+
+    # the one-device engine over the same global batches, same state
+    gb = HYBRID_S * BATCH
+    one = Engine(HeraldConfig(model="wdl_criteo", batch_size=gb,
+                              embedding_dim=EMB, table_dtype=torch.bfloat16),
+                 table_rows=FULL_ROWS, device=DEVICE)
+    st = one.init_state(0)
+    n = 2 * HYBRID_STEPS + HYBRID_TIMED
+    dense, sparse, labels = synthetic_ctr_data(one.model.spec, n * gb,
+                                               seed=0, num_rows=FULL_ROWS)
+    z = slice(0, HYBRID_STEPS * gb)
+    mine = [torch.as_tensor(r["mine"], device=DEVICE) for r in res]
+    start = [st.table[m].clone() for m in mine]
+    st, stats = one.train_epoch(st, dense[z], sparse[z], labels[z])
+    want_l = stats["loss"].cpu()
+    got_l = res[0]["losses"]
+    loss_err = float(((got_l - want_l).abs() / want_l.abs()).max())
+    row_err, dense_err, rows_ok = 0.0, 0.0, True
+    moves = []
+    for r, m, s0 in zip(res, mine, start):
+        want_rows = st.table[m]
+        a, b = r["rows"].to(DEVICE).float(), want_rows.float()
+        row_err = max(row_err, float((a - b).abs().max()))
+        rows_ok &= bool(torch.allclose(a, b, rtol=2 ** -7, atol=2 ** -13))
+        moves.append(_movement(s0, r["rows"].to(DEVICE), want_rows))
+        rows_ok &= _moved_ok(moves[-1])
+    for k, v in res[0]["dense"].items():
+        dense_err = max(dense_err, float((v - st.dense[k].cpu()).abs().max()))
+        rows_ok &= bool(torch.allclose(v, st.dense[k].cpu(), rtol=1e-4,
+                                       atol=1e-6))
+    touched = sum(len(r["mine"]) for r in res)
+    del st, one, start
+    _free()
+    if loss_err > 1e-5 or not rows_ok:
+        raise AssertionError(f"the hybrid steps differ from the one-device "
+                             f"engine's: loss {loss_err}, rows {row_err}, "
+                             f"dense {dense_err}, movement {moves}")
+    timed = max(s["timed_s"] for s in summ)
+    out = {"phase": "hybrid", "model": "wdl_criteo",
+           "backend": summ[0]["backend"], "world_size": HYBRID_S,
+           # gloo takes the CUDA tensors of every collective this phase
+           # makes and copies them through host memory itself;
+           # parallel/comm.py stages nothing of its own
+           "staged_through_host": False,
+           "init_equal_one_device": True,
+           "batch_per_rank": BATCH, "global_batch": gb,
+           "table_shape_per_rank": summ[0]["table_shape"],
+           "ranks_command_s": ranks_s,
+           "losses": got_l.tolist(), "overflow": 0,
+           "one_device": {"steps": HYBRID_STEPS, "touched_rows": touched,
+                          "loss_max_rel_err": loss_err,
+                          "row_max_err": row_err,
+                          "row_movement": moves,
+                          "dense_max_err": dense_err},
+           "plain_kernels": [s["plain_kernels"] for s in summ],
+           "launches": summ[0]["launches"],
+           "train_examples_per_s": HYBRID_TIMED * gb / timed,
+           "step_ms": timed / HYBRID_TIMED * 1e3,
+           "comm_host_s_timed": [s["comm_host_s"] for s in summ],
+           "step_profile": summ[0]["step_profile"],
+           "kernel_sites": summ[0]["sites"],
+           "peak_mem_gb": [s["peak_mem_gb"] for s in summ]}
+    emit(out)
+    return out
+
+
+def phase_launch_hybrid() -> dict:
+    """`torch.distributed.run --standalone` in subprocesses, at full width:
+    2 ranks on card 0 (`--device cuda:0`, so gloo) for 16 steps; then 1
+    rank (its own card, so NCCL) and the local launcher over the same data
+    for 8 steps, whose per-step losses must be equal."""
+    common = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
+              "--bf16-table", "--rows", str(FULL_ROWS), "--samples", "16384",
+              "--scan-steps", "8"]
+    run = ["torch.distributed.run", "--standalone", "--nproc-per-node"]
+    t0 = time.perf_counter()
+    two = _report(_run(run + ["2", "-m", *common, "--comm", "hybrid",
+                              "--device", "cuda:0", "--max-steps", "16"]))
+    two_s = time.perf_counter() - t0
+    if (two["devices"], two["backend"], two["steps"]) != (2, "gloo", 16) \
+            or not np.isfinite(two["train_loss_last"]) \
+            or two["overflow_rows"] != 0 or not 0.0 <= two["val_auc"] <= 1.0:
+        raise AssertionError(f"2-rank hybrid launch report: {two}")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        one = _report(_run(run + ["1", "-m", *common, "--comm", "hybrid",
+                                  "--max-steps", "8", "--log-dir",
+                                  str(tmp / "one")]))
+        local = _report(_run(common + ["--max-steps", "8", "--log-dir",
+                                       str(tmp / "local")]))
+        la, lb = (np.load(tmp / d / "losses.npy") for d in ("one", "local"))
+    if (one["devices"], one["backend"]) != (1, "nccl") \
+            or not np.array_equal(la, lb) or one["val_auc"] != \
+            local["val_auc"]:
+        raise AssertionError(f"1-rank hybrid launch {one} against the "
+                             f"local launcher {local}")
+    out = {"phase": "launch:hybrid", "two_ranks_command_s": two_s,
+           "two_ranks": {k: two[k] for k in (
+               "devices", "backend", "device", "steps", "train_loss_last",
+               "val_auc", "examples_per_sec")},
+           "one_rank": {k: one[k] for k in ("devices", "backend", "steps",
+                                            "val_auc")},
+           "one_rank_losses_equal_local": True}
+    emit(out)
+    return out
+
+
 def _times(k: dict) -> dict:
     """A timing's summary keys; K1's and K2's also carry the route they
     replaced and the call before it (K1 on unique ids in bf16, K2 without
@@ -3107,6 +3627,9 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
+    if "hybrid" in k:
+        out["hybrid"] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
+                         for site, v in k["hybrid"].items()}
     return out
 
 
@@ -3128,13 +3651,21 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
-                                        "assigned"),
+                                        "assigned", "hybrid"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
-                         "launch:assigned)")
+                         "launch:assigned; hybrid: hybrid and "
+                         "launch:hybrid)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
+    ap.add_argument("--hybrid-rank", type=int,
+                    help="run one rank of the hybrid phase (its parent "
+                         "starts them)")
+    ap.add_argument("--hybrid-dir", help="the hybrid phase's directory")
     args = ap.parse_args()
+    if args.hybrid_rank is not None:
+        hybrid_rank(args.hybrid_rank, Path(args.hybrid_dir))
+        return
     smi = phase_device()
     if args.root:
         pkg = Path(herald_tpu_torch.__file__).resolve().parents[1]
@@ -3159,6 +3690,9 @@ def main() -> None:
         del eng
         _free()
         phase_launch_assigned()
+    elif args.phase == "hybrid":
+        phase_hybrid()
+        phase_launch_hybrid()
     if args.phase:
         emit({"phase": "profiler", **PROFILER})
         return
@@ -3200,6 +3734,13 @@ def main() -> None:
     del hot, uniqs, positions
     _free()
     phase_launch_scheduled()
+    # the row-sharded exchange: two ranks sharing this card over gloo
+    hybrid = phase_hybrid()
+    for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push")):
+        k["hybrid"] = {site.split(":")[1]: v for site, v in
+                       hybrid["kernel_sites"].items()
+                       if site.startswith(name + ":")}
+    phase_launch_hybrid()
 
     # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
     torch.cuda.reset_peak_memory_stats()
@@ -3228,6 +3769,7 @@ def main() -> None:
              "assigned": assigned["launches"], "fae": fae["launches"],
              "scheduled": sched["launches_tape"],
              "scheduled:pinned": pinned["launches"],
+             "hybrid": hybrid["launches"],
              "serve:dfm": serve_dfm["launches"],
              "train:dfm": train_dfm["launches"],
              "scheduled:dfm": sched_dfm["launches_tape"]}

@@ -5,7 +5,11 @@
 its `CachedTrainState` when the leaves carry the cache arrays, or its
 `FaeTrainState` when they carry a hot block and no cache;
 `state_to_numpy` goes the other way, to a state of host arrays in the
-same NamedTuple type.
+same NamedTuple type. `shard_state` takes JAX's hybrid state (the
+physical, row-sharded table and its slots, the replicated tower) to one
+rank's state, its block of each table, and `join_states` takes the
+ranks' states back to the physical one (`ExchangeSpec.to_logical` then
+gives the logical table).
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -94,3 +98,30 @@ def state_to_numpy(state):
             return {k: tree(v) for k, v in x.items()}
         return conv(x)
     return type(state)(*(tree(f) for f in state))
+
+
+def shard_state(leaves, spec, rank: int, device) -> TrainState:
+    """JAX's hybrid TrainState of numpy arrays (table and slots
+    [S * rows_per_shard, W] in the physical layout of `spec`, an
+    `ExchangeSpec` of `parallel/exchange.py`) -> rank `rank`'s TrainState:
+    rows [rank * rows_per_shard, (rank + 1) * rows_per_shard) of the
+    table and of each slot, and the whole tower."""
+    rps = spec.rows_per_shard
+    blocks = type(leaves)(**{
+        **leaves._asdict(),
+        "table": leaves.table[rank * rps:(rank + 1) * rps],
+        "table_slots": {k: v[rank * rps:(rank + 1) * rps]
+                        for k, v in leaves.table_slots.items()}})
+    return state_from_numpy(blocks, device)
+
+
+def join_states(rank_leaves):
+    """The ranks' states as host arrays (`state_to_numpy` of each, in rank
+    order) -> one state: the blocks of the table and of each slot one
+    after the other (the physical layout), and rank 0's tower."""
+    first = rank_leaves[0]
+    return first._replace(
+        table=np.concatenate([r.table for r in rank_leaves]),
+        table_slots={k: np.concatenate([r.table_slots[k]
+                                        for r in rank_leaves])
+                     for k in first.table_slots})

@@ -6,16 +6,27 @@
         --batch-size 1024 --embedding-size 512 --rows 33762577
     python -m herald_tpu_torch.launch --scheduled [--pinned-rows P \
         --plan-cache DIR --device-data --autosize] [--device cuda|cpu]
+    python -m torch.distributed.run --standalone --nproc-per-node S \
+        -m herald_tpu_torch.launch --comm hybrid [--device cuda:0|cpu]
 
 The flags are herald_tpu.launch's, plus `--device`; `--model` takes every
 name of `herald_tpu_torch.models.available_models()`. Four of its
 branches are ported:
-- the plain local trainer (`cli.py:1126-1238`): init or `--resume`,
-  chunks of `--scan-steps` steps through `Engine.train_epoch`, checkpoints
-  at `--ckpt-every` crossings and at the end, `--max-steps`, a validation
+- the plain trainer (`cli.py:1126-1238`): init or `--resume`, chunks of
+  `--scan-steps` steps through `Engine.train_epoch`, checkpoints at
+  `--ckpt-every` crossings and at the end, `--max-steps`, a validation
   pass per finished epoch and at the end, and the same report. It stages
   each chunk from the host in one copy, whatever `--no-prefetch` says (the
-  async prefetcher is a later item);
+  async prefetcher is a later item). `--comm hybrid` runs it over the
+  ranks of `torch.distributed.run` (`parallel/comm.py`; one rank without
+  it): the table row-sharded over S ranks, global batches of
+  `--batch-size * S` rows, gloo on the CPU or when the ranks share a card
+  (`--device cuda:0` puts every local rank on card 0), NCCL when each rank
+  has a card of its own. Every rank trains; rank 0 alone prints and
+  writes the outputs, and the report names `devices` (S) and `backend`.
+  Over S > 1 ranks `--scheduled`, `--fae` and the `fae_*` models,
+  `--assign-only` (ROADMAP item 8), `--ckpt` and `--resume` (item 9) are
+  refused;
 - the scheduled branch (`cli.py:736-1069`): the lookahead planner (live,
   or a plan tape with `--plan-cache`) drives `CachedEngine` chunk by chunk,
   with `--pinned-rows` over frequency-remapped ids, `--device-data`,
@@ -306,14 +317,15 @@ def build_parser() -> argparse.ArgumentParser:
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
-    ("multihost", "--multihost", "items 7-9 (multi-rank engines and "
+    ("multihost", "--multihost", "items 8-9 (multi-rank engines and "
      "checkpoints)"),
     ("preprocess_raw", "--preprocess-raw", "item 10 (launcher and input "
      "feed: data/preprocess.py)"),
-    # the flush wire exists only across devices (JAX: num_shards > 1);
-    # a flush_wire_dtype in a config is accepted and, as in JAX, unused
-    ("int8_flush", "--int8-flush", "item 7 (hybrid exchange: the int8 "
-     "flush wire)"),
+    # the flush wire exists only across devices (JAX: num_shards > 1), in
+    # the multi-rank cached engine; a flush_wire_dtype in a config is
+    # accepted and, as in JAX, unused
+    ("int8_flush", "--int8-flush", "item 8 (the multi-rank cached "
+     "engine's int8 flush wire)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
      "--device"),
 )
@@ -341,10 +353,26 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--mp-shards > 1 is not ported to herald_tpu_torch yet "
             "(ROADMAP queue 1, item 13: tensor parallel)")
-    if cfg.comm_mode != "local":
-        raise NotImplementedError(
-            f"--comm {cfg.comm_mode} is not ported to herald_tpu_torch yet "
-            f"(ROADMAP queue 1, item 7: hybrid exchange)")
+    from herald_tpu_torch.parallel.comm import world_size
+    S = world_size() if cfg.comm_mode == "hybrid" else 1
+    if S == 1:
+        return
+    # the modes of herald_tpu.launch that run over several ranks in JAX
+    # and not yet in the port, each with its ROADMAP item (queue 1)
+    for on, flag, item in (
+            (args.scheduled, "--scheduled", "item 8 (the broadcast planner "
+             "and the multi-rank cached engine)"),
+            (_uses_fae(args, cfg), "--fae (and the fae_* models)",
+             "item 8 (the multi-rank FAE engine)"),
+            (args.assign_only, "--assign-only", "item 8 (the multi-rank "
+             "scheduler)"),
+            (args.ckpt, "--ckpt", "item 9 (multi-process checkpoints)"),
+            (args.resume, "--resume", "item 9 (multi-process "
+             "checkpoints)")):
+        if on:
+            raise NotImplementedError(
+                f"{flag} over {S} ranks is not ported to herald_tpu_torch "
+                f"yet (ROADMAP queue 1, {item})")
 
 
 def resolve_config(args) -> "HeraldConfig":
@@ -518,9 +546,9 @@ class _ChunkStats:
 
 
 def _fail_on_overflow(total: int) -> None:
-    """The JAX launcher's abort on dropped exchange rows. One device has
-    no exchange, so the count stays 0; the check stays beside every
-    checkpoint as in JAX."""
+    """The JAX launcher's abort on rows dropped by the exchange's static
+    buckets (one device has no exchange: the count stays 0), beside every
+    checkpoint and after training, as in JAX."""
     if total > 0:
         raise RuntimeError(
             f"exchange overflow: {total} embedding rows were dropped this "
@@ -837,6 +865,7 @@ def run_training(args) -> dict:
     from herald_tpu_torch.data import (dataset_for_model, frequency_remap,
                                        load_dataset)
     from herald_tpu_torch.models import get_model
+    from herald_tpu_torch.parallel.comm import setup as setup_comm
     from herald_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
     from herald_tpu_torch.train.engine import Engine, resolve_device
@@ -844,11 +873,14 @@ def run_training(args) -> dict:
 
     cfg = resolve_config(args)
     _refuse_unported(args, cfg)
-    device = resolve_device(args.device)   # no card: raise before any work
+    # no card: raise before any work
+    comm = setup_comm(args.device) if cfg.comm_mode == "hybrid" else None
+    device = comm.device if comm else resolve_device(args.device)
+    lead = comm is None or comm.rank == 0     # the rank that writes
     if args.ckpt_serve_view and not args.scheduled:
         raise ValueError("--ckpt-serve-view only applies to --scheduled "
                          "runs (plain checkpoints already serve exactly)")
-    if args.save_config:
+    if args.save_config and lead:
         parent = os.path.dirname(args.save_config)
         if parent:
             os.makedirs(parent, exist_ok=True)
@@ -887,7 +919,8 @@ def run_training(args) -> dict:
         if approx:
             rec["val_approx_unsynced_cache"] = True
         epoch_records.append(rec)
-        print(json.dumps({"epoch_eval": rec}), flush=True)
+        if lead:
+            print(json.dumps({"epoch_eval": rec}), flush=True)
 
     timer = StepTimer()
     t_start = time.perf_counter()
@@ -931,7 +964,8 @@ def run_training(args) -> dict:
                             maybe_ckpt, timer)
     else:
         eng = Engine(cfg, model=model, table_rows=rows, device=device)
-        prof = _start_trace(device) if args.log_dir else None
+        prof = _start_trace(device) if args.log_dir and lead else None
+        gb = cfg.batch_size * eng.num_shards     # the global batch
         steps_per_epoch = len(trn[1]) // gb
         start_step = 0
         if args.resume:
@@ -966,6 +1000,7 @@ def run_training(args) -> dict:
                 maybe_ckpt(state, ep * steps_per_epoch + done)
             if done >= steps_per_epoch and trained:
                 eval_epoch(eng, state, ep, losses[-trained:])
+        _fail_on_overflow(overflow_total)
         stopped_early = total_target < args.nepoch * steps_per_epoch
         extra = {}
 
@@ -988,7 +1023,10 @@ def run_training(args) -> dict:
         "mode": ("scheduled" if args.scheduled
                  else "assigned" if args.assign_only else "baseline"),
         "comm": cfg.comm_mode,
-        "devices": 1,
+        "devices": eng.num_shards,
+        # a hybrid run names its process group's backend (None: one rank
+        # without a group)
+        **({"backend": comm.backend} if comm else {}),
         "device": str(eng.device),
         "steps": len(losses),
         "stopped_early": stopped_early,
@@ -1001,14 +1039,18 @@ def run_training(args) -> dict:
         "timing": timer.report(),
         **extra,
     }
-    _dump_logs(args, report, losses)
+    if lead:
+        _dump_logs(args, report, losses)
     return report
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     report = run_training(args)
-    print(json.dumps(report, indent=2, default=float))
+    # over several ranks every rank returns the report; rank 0 prints it
+    import torch.distributed as dist
+    if not (dist.is_initialized() and dist.get_rank() > 0):
+        print(json.dumps(report, indent=2, default=float))
     return 0
 
 

@@ -1,0 +1,175 @@
+"""The process group of the row-sharded engine and its collectives: what
+JAX's mesh axis gives the hybrid engine for free (`lax.all_to_all`,
+`lax.psum` and `axis_index_groups` inside `shard_map`).
+
+`setup` joins the group of `torch.distributed.run` (its RANK, WORLD_SIZE,
+LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT), or one given
+by an explicit `init_method` (a `file://` store in the tests), or a group
+already initialized in the process. With none of them the world is one
+rank and no group is made.
+
+- Device: `cuda:LOCAL_RANK` unless the caller names one. A named index is
+  the same card for every local rank (the launcher hands every rank the
+  same `--device`), so two local ranks then share it.
+- Backend, fixed before the group is made: `nccl` when the device is a
+  card that no two local ranks share, `gloo` otherwise (the CPU, or ranks
+  sharing a card, which NCCL refuses). Nothing falls back from one to the
+  other.
+- `all_to_all` moves [S, ...] blocks with equal splits as bytes (uint8
+  views: gloo refuses int16 and bf16 needs no arithmetic), `all_reduce_`
+  sums one flat buffer in place, `all_gather` stacks a tensor of every
+  rank, `broadcast_` copies rank 0's tensors to every rank, `subgroups`
+  makes dense-sync groups on every rank in one order. At S = 1 each
+  returns its input. The split sizes are fixed, so no collective waits on
+  the host to size itself. gloo takes CUDA tensors for every one of these
+  (and copies them through host memory itself); this module stages
+  nothing.
+- Each collective adds its host seconds to `seconds`, for the profiles of
+  `chip_smoke.py`; under gloo a call returns when its bytes have moved.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def world_size() -> int:
+    """The size of the group in place or about to be joined: the
+    initialized group's, else `WORLD_SIZE` of the environment, else 1."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """The rank's device: `device`, or `cuda:LOCAL_RANK` when none (or a
+    bare "cuda") is given. Raises when the card does not exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "herald_tpu_torch runs on a CUDA device and none is "
+                "available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local_rank)
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"local rank {local_rank}: {dev} does not exist (this host "
+                f"has {torch.cuda.device_count()} cards); to put every "
+                f"local rank on one card name it, e.g. --device cuda:0")
+    return dev
+
+
+def choose_backend(dev: torch.device, shared: bool) -> str:
+    """nccl for a card of the rank's own, gloo otherwise."""
+    return "nccl" if dev.type == "cuda" and not shared else "gloo"
+
+
+class Comm:
+    """One rank's view of the group: its rank, the group's size, its
+    device and the collectives over `group` (None: the default group)."""
+
+    def __init__(self, rank: int, size: int, device: torch.device,
+                 backend: Optional[str], group=None):
+        self.rank, self.size, self.device = rank, size, device
+        self.backend, self.group = backend, group
+        self.seconds: Dict[str, float] = {}
+
+    def _timed(self, name: str, t0: float) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + (
+            time.perf_counter() - t0)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Block i of x goes to rank i; block j of the result came from
+        rank j. x is [S, ...]."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out.view(self.size, -1).view(torch.uint8),
+                               x.view(self.size, -1).view(torch.uint8),
+                               group=self.group)
+        self._timed("all_to_all", t0)
+        return out
+
+    def all_reduce_(self, flat: torch.Tensor, group=None) -> torch.Tensor:
+        """Sum `flat` over the group (or the given subgroup) in place."""
+        if self.size > 1:
+            t0 = time.perf_counter()
+            dist.all_reduce(flat, group=group or self.group)
+            self._timed("all_reduce", t0)
+        return flat
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[S, *x.shape]: every rank's x, in rank order."""
+        if self.size == 1:
+            return x[None]
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        out = x.new_empty((self.size,) + tuple(x.shape))
+        dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        self._timed("all_gather", t0)
+        return out
+
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Copy rank 0's tensors into every rank's, one call for each
+        dtype (the tensors packed into one flat buffer)."""
+        if self.size == 1:
+            return
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.broadcast(flat, 0, group=self.group)
+            for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
+                t.copy_(v.view(t.shape))
+
+    def subgroups(self, size: int):
+        """The group of `size` consecutive ranks this rank belongs to.
+        Every rank creates every group, in one order, as
+        `dist.new_group` requires."""
+        mine = None
+        for a in range(0, self.size, size):
+            g = dist.new_group(list(range(a, a + size)))
+            if a <= self.rank < a + size:
+                mine = g
+        return mine
+
+
+def setup(device=None, init_method: Optional[str] = None,
+          rank: Optional[int] = None,
+          world_size: Optional[int] = None) -> Comm:
+    """This rank's Comm, joining or making the process group (see the
+    module's docstring). `rank` and `world_size` go with `init_method`;
+    without it they come from the environment."""
+    env = os.environ
+    if dist.is_initialized():
+        r, size = dist.get_rank(), dist.get_world_size()
+        dev = rank_device(device, int(env.get("LOCAL_RANK", r)))
+        return Comm(r, size, dev, dist.get_backend())
+    if init_method is None and "WORLD_SIZE" not in env:
+        return Comm(0, 1, rank_device(device, 0), None)
+    r = int(env["RANK"]) if rank is None else rank
+    size = int(env["WORLD_SIZE"]) if world_size is None else world_size
+    local_rank = int(env.get("LOCAL_RANK", r))
+    local_size = int(env.get("LOCAL_WORLD_SIZE", size))
+    dev = rank_device(device, local_rank)
+    named = device is not None and torch.device(device).index is not None
+    backend = choose_backend(dev, shared=named and local_size > 1)
+    kw = {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        if backend == "nccl":
+            kw["device_id"] = dev
+    dist.init_process_group(backend, init_method=init_method, rank=r,
+                            world_size=size, **kw)
+    return Comm(r, size, dev, backend)

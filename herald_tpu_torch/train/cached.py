@@ -67,7 +67,8 @@ from herald_tpu_torch.ops.kernels import (embedding_gather,
                                           hot_onehot_gather_add_,
                                           hot_onehot_push)
 from herald_tpu_torch.sched.planner import CachePlanner
-from herald_tpu_torch.train.engine import Engine, TrainState, make_exchange
+from herald_tpu_torch.parallel.exchange import make_exchange
+from herald_tpu_torch.train.engine import Engine, TrainState
 from herald_tpu_torch.train.graphs import Layout, unpack
 
 
@@ -138,6 +139,11 @@ class CachedEngine(Engine):
         cfg.use_cache = True
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                "the cached engine over several ranks is not ported to "
+                "herald_tpu_torch yet (ROADMAP queue 1, item 8: the "
+                "broadcast planner and the multi-rank cached engine)")
         self.cache_rows = cfg.cache_rows(self.num_rows)
         self.pinned_rows = int(cfg.pinned_rows or 0)
         assert self.pinned_rows <= self.num_rows
@@ -160,8 +166,8 @@ class CachedEngine(Engine):
         # the flush wire's capacity feeds the planner's per-owner budget
         # (owner_cap); on one device there is no wire to size
         self.flush_exchange = make_exchange(
-            self.num_rows, self.F_cap,
-            min(cfg.a2a_flush_capacity or self.F_cap, self.F_cap))
+            self.num_rows, 1, self.F_cap,
+            capacity=min(cfg.a2a_flush_capacity or self.F_cap, self.F_cap))
 
     # ------------------------------------------------------------------
     def make_planner(self, sparse_ids: np.ndarray, epochs: int = 1,

@@ -34,8 +34,28 @@ same bodies uncaptured, for checks; on the CPU they always run so.
 A step updates the table, its slots, the dense params and the step in
 place, and the dense slots are new tensors (copied back into the old
 ones under a graph): JAX donates the state to the step, so the state
-handed in is consumed in both packages. The row-sharded hybrid exchange
-comes in a later slice.
+handed in is consumed in both packages.
+
+`comm_mode="hybrid"` is JAX's hybrid mode over `torch.distributed`
+(`parallel/comm.py`): the table is row-sharded over the group's S ranks
+(rank r holds block r of the physical array, `[rows_per_shard, W]`, and
+its slots), the tower is replicated, and every entry point takes the
+global batch (`batch_size * S` rows), of which rank r runs block r, as
+JAX's `P("dp")` gives. One step body serves every S and branches on
+the exchange, as JAX's does on `num_shards`. A step
+(`engine.py:357-425`): the static-size
+dedup, `route_ids` and `owner_rows` (the owner's K1 read and the return
+all-to-all), one K1 read of the returned buffer by position into the
+tower's f32 input; the loss scaled by 1/S; the dense grads, the loss and
+the overflow summed in one all-reduce of one flat buffer; K3 sums the
+duplicate-id grads, `scatter_grads` sends them to their owners and sums
+them there (K3), the owner's rows and slots are read through K1, moved
+by `apply_rows` under every optimizer (JAX's SGD fast path is one-device
+only) and written back by `write_rows`. The dense-sync relaxation
+(`dense_sync_every`, `dense_sync_group`) is JAX's. At S > 1 the steps run
+uncaptured (gloo cannot be captured), and `predict` and `evaluate` read
+the eval exchange's overflow back from the card and raise on one. At
+S = 1 hybrid is the local engine, as in JAX.
 
 Entry points run on the card unless the caller passes `device="cpu"`;
 with no device given and no card present they raise.
@@ -43,6 +63,7 @@ with no device given and no card present they raise.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -54,9 +75,15 @@ from herald_tpu_torch.ops.embedding import segment_sum_grads, unique_static
 from herald_tpu_torch.ops.kernels import embedding_gather, rows_scatter_add
 from herald_tpu_torch.optim import get_optimizer
 from herald_tpu_torch.optim.schedules import get_schedule
+from herald_tpu_torch.parallel.comm import setup as setup_comm
+from herald_tpu_torch.parallel.exchange import (make_exchange, owner_rows,
+                                                route_ids, scatter_grads)
 from herald_tpu_torch.train.graphs import (TORCH_DTYPES, StepGraphs,
                                            feed_inputs, pack, pack_tensors)
 from herald_tpu_torch.utils import metrics as M
+
+# logical table rows drawn at a time by `Engine.init_state`
+INIT_CHUNK_ROWS = 1 << 20
 
 
 class TrainState(NamedTuple):
@@ -78,34 +105,6 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         device = "cuda"
     return torch.device(device)
-
-
-class ExchangeSpec(NamedTuple):
-    """The one-device form of `herald_tpu/parallel/exchange.py`'s spec:
-    every row is local, the table pads to a multiple of 8 rows and a
-    logical row is its own physical position. The row-sharded form comes
-    with the hybrid exchange (ROADMAP queue 1, item 7)."""
-    num_rows: int
-    rows_per_shard: int
-    capacity: int
-    num_shards: int = 1
-
-    @property
-    def padded_rows(self) -> int:
-        return self.num_shards * self.rows_per_shard
-
-    def phys_index(self, ids):
-        return (ids % self.num_shards) * self.rows_per_shard \
-            + ids // self.num_shards
-
-
-def make_exchange(num_rows: int, ids_per_step: int,
-                  capacity: Optional[int] = None) -> ExchangeSpec:
-    """`exchange.make_exchange` for one shard: capacity defaults to the
-    ids of one step."""
-    rows_per_shard = -(-num_rows // 8) * 8
-    return ExchangeSpec(num_rows, rows_per_shard,
-                        ids_per_step if capacity is None else int(capacity))
 
 
 def write_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
@@ -137,32 +136,49 @@ def write_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 
 
 class Engine:
-    """Trains and scores one model over a table on one device."""
+    """Trains and scores one model over a table on one device, or over a
+    table row-sharded across the ranks of a process group
+    (`comm_mode="hybrid"`)."""
 
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
                  table_rows: Optional[int] = None, device=None,
                  cuda_graphs: bool = True):
-        if cfg.comm_mode != "local":
+        if cfg.comm_mode not in ("local", "hybrid"):
+            raise ValueError(f"comm_mode={cfg.comm_mode!r}: 'local' or "
+                             f"'hybrid'")
+        if cfg.mp_shards > 1:
             raise NotImplementedError(
-                f"comm_mode={cfg.comm_mode!r}: the row-sharded all-to-all "
-                f"exchange comes in a later slice of the port (ROADMAP "
-                f"queue 1, multi-rank plain engine); use comm_mode='local'")
+                "mp_shards > 1 is not ported to herald_tpu_torch yet "
+                "(ROADMAP queue 1, item 13: tensor parallel)")
         self.cfg = cfg
         self.model = model or get_model(cfg.model)
-        self.device = resolve_device(device or cfg.device)
+        if cfg.comm_mode == "hybrid":
+            # the group of torch.distributed.run, or one already made in
+            # the process; with neither, one rank (JAX's one-device mesh)
+            self.comm = setup_comm(device or cfg.device)
+            self.device = self.comm.device
+        else:
+            self.comm = None
+            self.device = resolve_device(device or cfg.device)
         # the tower runs in f32 and is held to the JAX package at f32
         # tolerances: keep TF32 out of matrix products and convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.width = self.model.emb_width(cfg.embedding_dim)
         self.num_rows = table_rows or self.model.table_rows
-        # one device: the JAX local engine's num_shards = 1, and its
-        # exchange pads the table to a multiple of 8 rows
-        # (parallel/exchange.py:93-94); kept so checkpoints interchange
-        self.num_shards = 1
+        self.num_shards = self.comm.size if self.comm else 1
+        self.rank = self.comm.rank if self.comm else 0
         self.ids_per_worker = cfg.batch_size * self.model.spec.num_sparse
-        self.exchange = make_exchange(self.num_rows, self.ids_per_worker,
-                                      cfg.a2a_pull_capacity)
+        # the table pads to S blocks of a multiple of 8 rows
+        # (parallel/exchange.py:93-94), so checkpoints interchange
+        self.exchange = make_exchange(
+            self.num_rows, self.num_shards, self.ids_per_worker,
+            cfg.a2a_capacity_factor, cfg.a2a_pull_capacity)
+        # evaluation pulls every unique id: worst-case factor sizing even
+        # when the train exchange is sized tight (engine.py:89-97)
+        self.eval_exchange = make_exchange(
+            self.num_rows, self.num_shards, self.ids_per_worker,
+            cfg.a2a_capacity_factor)
         self.padded_rows = self.exchange.padded_rows
         self.dense_opt = get_optimizer(cfg.optimizer, cfg.learning_rate)
         self.embed_opt = get_optimizer(cfg.embed_optimizer,
@@ -172,15 +188,104 @@ class Engine:
                                    **sched_kw)
         self._elr_fn = get_schedule(cfg.lr_schedule,
                                     cfg.embed_learning_rate, **sched_kw)
-        self._fast_local_sgd = (self.embed_opt.name == "sgd"
+        self._fast_local_sgd = (self.num_shards == 1
+                                and self.embed_opt.name == "sgd"
                                 and not cfg.use_cache)
-        # a step's overflow count: one device and no exchange, so always 0
+        # a one-device step's overflow count: no exchange, so always 0;
+        # over S ranks, the eval exchange's since the last readback
         self._zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._eval_overflow = torch.zeros_like(self._zero)
+        self._init_dsync()
         # the steps' CUDA graphs on a card; cuda_graphs=False runs the same
-        # bodies uncaptured there, as on the CPU
+        # bodies uncaptured there, as on the CPU. Steps over several ranks
+        # run uncaptured (gloo's collectives cannot be captured)
         self.graphs = (StepGraphs(self.device)
                        if cuda_graphs and self.device.type == "cuda"
-                       else None)
+                       and self.num_shards == 1 else None)
+
+    # ------------------------------------------------------------------
+    # dense-sync relaxation (engine.py:104-183)
+    # ------------------------------------------------------------------
+    def _init_dsync(self):
+        """`dense_sync_every` k and `dense_sync_group` g: the dense grads
+        summed over static subgroups of g ranks each step, and the whole
+        group's dense params and slots averaged every k steps and at the
+        end of each `train_epoch`. Every rank makes every subgroup, in one
+        order."""
+        cfg = self.cfg
+        S = self.num_shards
+        self.dsync_k = cfg.dense_sync_every
+        g = cfg.dense_sync_group or S
+        if S > 1 and g > S:
+            raise ValueError(f"dense_sync_group={g} exceeds the dp axis "
+                             f"({S} workers)")
+        self.dsync_g = g if S > 1 else 1
+        self._dsync_on = S > 1 and (self.dsync_k > 1 or self.dsync_g < S)
+        self._dsync_group = None
+        if not self._dsync_on:
+            return
+        if S % self.dsync_g:
+            raise ValueError(f"dense_sync_group={self.dsync_g} does not "
+                             f"divide the dp axis ({S} workers)")
+        if self.dsync_g < S:
+            self._dsync_group = self.comm.subgroups(self.dsync_g)
+        if self.dsync_k == 1:
+            warnings.warn(
+                "dense_sync_group with dense_sync_every=1 averages the "
+                "full model every step — MORE collective bytes than exact "
+                "BSP. Useful for equivalence testing only; set "
+                "dense_sync_every > 1 for the traffic saving.",
+                UserWarning, stacklevel=3)
+
+    def _warn_per_step_dsync(self):
+        """A single step must leave the dense state replicated, so it
+        averages every step; k > 1 takes effect in `train_epoch` only."""
+        if (self._dsync_on and self.dsync_k > 1
+                and not getattr(self, "_dsync_warned", False)):
+            self._dsync_warned = True
+            warnings.warn(
+                "dense_sync_every > 1 cannot defer syncs on per-step "
+                "dispatch (every step is a jit boundary and must end "
+                "replicated) — this path averages the model every step; "
+                "use the scanned train_epoch* entry points for the "
+                "traffic saving", UserWarning, stacklevel=3)
+
+    def _sync_dense(self, state: TrainState) -> None:
+        """Average the dense params and their slots over the whole group,
+        in place: one all-reduce of one flat buffer, then / S."""
+        ts = [*state.dense.values(),
+              *(v for s in state.dense_slots.values() for v in s.values())]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        self.comm.all_reduce_(flat).div_(self.num_shards)
+        for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
+            t.copy_(v.view(t.shape))
+
+    def _reduce(self, dgrads, loss, route):
+        """(dense grads, the step's result). Over S ranks the result is f32
+        [loss, overflow], summed over the group with the grads in one
+        all-reduce of one flat buffer; on one device (`route` None) the
+        grads are as they are and the result is the loss alone (no
+        overflow, and no kernel to make one). Under a dense-sync subgroup
+        the grads go over it instead and are scaled by S/g (the loss was
+        scaled by 1/S, so the group's sum is g/S of its mean), and the loss
+        and overflow take a second call."""
+        if route is None:
+            return dgrads, loss
+        names = list(dgrads)
+        parts = [dgrads[k].reshape(-1) for k in names]
+        stats = torch.stack([loss.to(torch.float32),
+                             route.overflow.to(torch.float32)])
+        if self._dsync_group is None:
+            flat = self.comm.all_reduce_(torch.cat(parts + [stats]))
+            stats = flat[-2:]
+        else:
+            flat = self.comm.all_reduce_(torch.cat(parts),
+                                         group=self._dsync_group)
+            flat.mul_(self.num_shards / self.dsync_g)
+            self.comm.all_reduce_(stats)
+        sizes = [p.numel() for p in parts]
+        return {k: v.view(dgrads[k].shape) for k, v in zip(
+            names, torch.split(flat[:sum(sizes)], sizes))}, stats
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -188,17 +293,37 @@ class Engine:
         directly in `table_dtype` on the device (no f32 intermediate: at
         full width that would be 17 GB), zero table slots in the table
         dtype, then the tower and its zero slots (`{name: {}}` for a
-        slotless optimizer, as JAX's tree has it)."""
+        slotless optimizer, as JAX's tree has it). The table is one
+        logical table at every S: its first ceil8(num_rows) logical rows
+        are drawn from `seed` in chunks of INIT_CHUNK_ROWS, and each rank
+        keeps its strided rows (its block's other slots stay zero), so the
+        peak is one block and one chunk. The tower is drawn from the same
+        generator after the table, so it too is the one-device engine's;
+        over S > 1 ranks rank 0's tower and slots are broadcast as well, so
+        that they are identical on every rank."""
         seed = self.cfg.seed if seed is None else seed
+        S, W = self.num_shards, self.width
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        table = torch.randn((self.padded_rows, self.width), generator=gen,
+        table = torch.zeros((self.exchange.rows_per_shard, W),
                             dtype=self.cfg.table_dtype, device=self.device)
+        drawn = -(-self.num_rows // 8) * 8
+        for c0 in range(0, drawn, INIT_CHUNK_ROWS):
+            c1 = min(c0 + INIT_CHUNK_ROWS, drawn)
+            chunk = torch.randn((c1 - c0, W), generator=gen,
+                                dtype=self.cfg.table_dtype,
+                                device=self.device)
+            first = c0 + (self.rank - c0) % S     # this rank's first row
+            rows = chunk[first - c0::S]
+            table[first // S:first // S + rows.shape[0]] = rows
         table.mul_(0.01)
         slots = {k: torch.zeros_like(table)
                  for k in self.embed_opt.slot_names}
         dense = self.model.init_dense(gen, self.cfg.embedding_dim)
         dense_slots = {k: self.dense_opt.init_slots(v)
                        for k, v in dense.items()}
+        if S > 1:
+            self.comm.broadcast_([*dense.values(), *(
+                v for s in dense_slots.values() for v in s.values())])
         step = torch.zeros((), dtype=torch.int32, device=self.device)
         return TrainState(table=table, table_slots=slots, dense=dense,
                           dense_slots=dense_slots, step=step)
@@ -215,91 +340,140 @@ class Engine:
         emb = embedding_gather(table, ids.reshape(-1), torch.float32)
         return emb.reshape(B, F, self.width)
 
-    def _dedup_read(self, table, ids):
-        """ids [B, F] -> (f32 emb [B, F, W] read by position, uniq [B*F],
-        inv): the training steps' read, and the static-size dedup their
-        sparse update sums and writes over (-1 in the spare slots)."""
+    def _sparse_read(self, table, ids, spec):
+        """ids [B, F] -> (f32 emb [B, F, W], uniq [B*F], inv, route): the
+        static-size dedup (-1 in the spare slots) that the sparse update
+        sums and writes over, and the tower's input. On one device the
+        rows are read by position from the table and `route` is None. Over
+        S ranks the unique ids are routed to their owners through `spec`'s
+        exchange, the owners' rows come back in the [S*C, W] send-slot
+        buffer, and one K1 read of it by position (`pos[inv]`; a dropped
+        id's S*C reads a zero row) writes the tower's input
+        (engine.py:295-313)."""
+        B, F = ids.shape
         uniq, inv = unique_static(ids, ids.numel())
-        return self._read(table, ids), uniq, inv
+        if self.num_shards == 1:
+            return self._read(table, ids), uniq, inv, None
+        route = route_ids(spec, uniq, uniq >= 0, self.comm)
+        back = owner_rows(spec, table, route, self.comm)
+        emb = embedding_gather(back, route.pos[inv], torch.float32)
+        return emb.view(B, F, self.width), uniq, inv, route
 
-    def _loss_and_grads(self, dense, emb, dense_x, labels):
+    def _loss_and_grads(self, dense, emb, dense_x, labels, scale=None):
         """(loss, {name: dense grad}, emb grad): `value_and_grad` with
-        respect to the dense params and the f32 `emb`."""
+        respect to the dense params and the f32 `emb`, of the loss times
+        `scale` when given (1/S over S ranks, as JAX scales it)."""
         params = {k: v.detach().requires_grad_(True)
                   for k, v in dense.items()}
         emb = emb.detach().requires_grad_(True)
         with torch.enable_grad():
             logits = self.model.apply(params, emb, dense_x)
             loss = bce_with_logits(logits, labels)
+            if scale is not None:
+                loss = loss * scale
             grads = torch.autograd.grad(loss, [*params.values(), emb])
         return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
 
-    def _apply_sparse_grads(self, table, slots, step, uniq, inv, emb_grad):
+    def _apply_sparse_grads(self, table, slots, step, uniq, inv, emb_grad,
+                            route=None):
         """Sum the grads per unique id (K3, in f32, rounded once to the
         grads' dtype), cast the sums to the table dtype, update the rows
         and slots with the table optimizer, write them back. In place.
         Slots of negative ids (the dedup's spare slots, the FAE step's -1
-        at hot positions) are masked and dropped."""
+        at hot positions) are masked and dropped. With a `route` (S > 1)
+        the sums go to their owners first (`scatter_grads`), and the rows
+        updated are the owner's (engine.py:315-355)."""
         g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0]).to(
             table.dtype)
-        row_mask = uniq >= 0
-        safe_idx = torch.where(row_mask, uniq, 0)
+        if route is None:
+            rows_idx, row_grads, row_mask = uniq, g_uniq, uniq >= 0
+            keep = row_mask & (uniq < table.shape[0])
+        else:
+            rows_idx, row_grads, _, row_mask = scatter_grads(
+                self.exchange, route, g_uniq, self.comm)
+            keep = row_mask
+        safe_idx = torch.where(row_mask, rows_idx, 0)
         rows = embedding_gather(table, safe_idx)
         row_slots = {k: embedding_gather(v, safe_idx)
                      for k, v in slots.items()}
         new_rows, new_slots = self.embed_opt.apply_rows(
-            rows, g_uniq, row_slots, step,
+            rows, row_grads, row_slots, step,
             lr=self._elr_fn(step), mask=row_mask)
-        keep = row_mask & (uniq < table.shape[0])
-        write_rows(table, uniq, new_rows, keep)
+        write_rows(table, rows_idx, new_rows, keep)
         for k in slots:
-            write_rows(slots[k], uniq, new_slots[k], keep)
+            write_rows(slots[k], rows_idx, new_slots[k], keep)
         return table, slots
 
-    def _train_step_body(self, state: TrainState, a):
-        """One step on the inputs `a` ("d", "s", "y"): (state, loss)."""
-        if self._fast_local_sgd:
-            return self._train_step_body_fast(state, a["d"], a["s"], a["y"])
-        step = state.step.add_(1)
-        emb, uniq, inv = self._dedup_read(state.table, a["s"])
-        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
-                                                      a["d"], a["y"])
-        dense, dense_slots = self.dense_opt.apply_dense(
-            state.dense, dgrads, state.dense_slots, step,
-            lr=self._lr_fn(step), in_place=True)
-        # the grad of a table-dtype leaf cast to f32, as JAX's is
-        table, table_slots = self._apply_sparse_grads(
-            state.table, state.table_slots, step, uniq, inv,
-            emb_grad.to(state.table.dtype))
-        new_state = TrainState(table=table, table_slots=table_slots,
-                               dense=dense, dense_slots=dense_slots,
-                               step=step)
-        return new_state, loss
+    def _rank_block(self, x, dtype, axis: int = 0) -> np.ndarray:
+        """This rank's block of a global host batch along `axis` ([W, B,
+        ...] flattens to [W*B, ...] first when axis is 0)."""
+        a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if axis == 0 and a.ndim >= 3:
+            a = a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+        n = a.shape[axis]
+        if n % self.num_shards:
+            raise ValueError(f"a global batch of {n} rows does not split "
+                             f"over {self.num_shards} ranks")
+        b = n // self.num_shards
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(self.rank * b, (self.rank + 1) * b)
+        return a[tuple(idx)].astype(dtype, copy=False)
 
-    def _train_step_body_fast(self, state: TrainState, dense_x, ids, labels):
-        """SGD on the table: K1 read, f32 emb grads summed per distinct id
-        through K3, `-lr * g` added through K2. JAX casts the gather to f32
-        before `value_and_grad`, so its emb grad is f32, as here."""
+    def _check_eval_overflow(self) -> None:
+        """JAX's readback of the eval exchange's overflow since the last
+        check, summed over the group (engine.py:673-681): a dropped id
+        would score on a zero row."""
+        total = self.comm.all_reduce_(
+            self._eval_overflow.to(torch.float32).reshape(1))
+        self._eval_overflow.zero_()
+        if int(total) > 0:
+            raise RuntimeError(
+                "eval exchange overflow: predictions would be computed "
+                "on zero-filled embeddings; raise a2a_capacity_factor")
+
+    def _train_step_body(self, state: TrainState, a):
+        """One step on this rank's inputs `a` ("d", "s", "y"): (state,
+        result), the result as `_reduce` gives it: the loss on one device,
+        [loss, overflow] summed over the group over S ranks
+        (engine.py:357-425, without its tensor-parallel branch)."""
         step = state.step.add_(1)
-        emb, uniq, inv = self._dedup_read(state.table, ids)
-        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
-                                                      dense_x, labels)
+        emb, uniq, inv, route = self._sparse_read(state.table, a["s"],
+                                                  self.exchange)
+        loss, dgrads, emb_grad = self._loss_and_grads(
+            state.dense, emb, a["d"], a["y"],
+            scale=None if route is None else 1.0 / self.num_shards)
+        dgrads, res = self._reduce(dgrads, loss, route)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)
-        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])   # f32
-        table = rows_scatter_add(state.table, uniq, g_uniq,
-                                 lr=self._elr_fn(step))
-        new_state = TrainState(table=table, table_slots=state.table_slots,
-                               dense=dense, dense_slots=dense_slots,
-                               step=step)
-        return new_state, loss
+        if self._fast_local_sgd:
+            # SGD on the table: the f32 emb grads (JAX casts the gather to
+            # f32 before `value_and_grad`) summed per distinct id through
+            # K3, and `-lr * g` added through K2
+            g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
+            table = rows_scatter_add(state.table, uniq, g_uniq,
+                                     lr=self._elr_fn(step))
+            table_slots = state.table_slots
+        else:
+            # the grad of a table-dtype leaf cast to f32, as JAX's is
+            table, table_slots = self._apply_sparse_grads(
+                state.table, state.table_slots, step, uniq, inv,
+                emb_grad.to(state.table.dtype), route)
+        return TrainState(table=table, table_slots=table_slots, dense=dense,
+                          dense_slots=dense_slots, step=step), res
 
     def _eval_step_body(self, state: TrainState, a):
-        """Probabilities [B] of the inputs `a` ("d", "s"): (state, probs)."""
-        logits = self.model.apply(state.dense, self._read(state.table,
-                                                          a["s"]), a["d"])
-        return state, torch.sigmoid(logits)
+        """Probabilities [B] of this rank's inputs `a` ("d", "s"): (state,
+        probs). Over S ranks the ids go through the eval exchange, whose
+        overflow adds to `_eval_overflow` (engine.py:478-494)."""
+        if self.num_shards == 1:
+            emb = self._read(state.table, a["s"])
+        else:
+            emb, _, _, route = self._sparse_read(state.table, a["s"],
+                                                 self.eval_exchange)
+            self._eval_overflow += route.overflow
+        return state, torch.sigmoid(self.model.apply(state.dense, emb,
+                                                     a["d"]))
 
     # ------------------------------------------------------------------
     # feeding steps
@@ -325,11 +499,16 @@ class Engine:
     def _batch_feed(self, spec: Dict[str, tuple]):
         """{name: (array or tensor, dtype)} of one batch -> a feed. Tensors
         on the engine's card are fed as they are; anything else is packed
-        on the host. [W, B, ...] flattens to [W*B, ...] as in JAX."""
+        on the host. [W, B, ...] flattens to [W*B, ...] as in JAX. Over S
+        ranks the batch is the global one, and this rank's block of it is
+        packed on the host."""
         def flat(x):
             return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:]) \
                 if x.ndim >= 3 else x
 
+        if self.num_shards > 1:     # this rank's block of the global batch
+            spec = {k: (self._rank_block(x, dt), dt)
+                    for k, (x, dt) in spec.items()}
         if self.device.type == "cuda" and all(
                 isinstance(x, torch.Tensor) and x.is_cuda
                 and self.device.index in (None, x.device.index)
@@ -343,14 +522,22 @@ class Engine:
 
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, dense_x, sparse_ids, labels):
-        """One step on one batch: (state, {"loss", "overflow"}). The state
-        handed in is consumed."""
-        state, loss = self._run("train", self._train_step_body, state,
-                                self._batch_feed({
-                                    "d": (dense_x, np.float32),
-                                    "s": (sparse_ids, np.int32),
-                                    "y": (labels, np.float32)}))
-        return state, {"loss": loss, "overflow": self._zero}
+        """One step on one global batch: (state, {"loss", "overflow"}). The
+        state handed in is consumed. Over S ranks the batch is the global
+        one (`batch_size * S` rows, or [S, batch_size, ...]); each rank
+        runs its block, and a dense-sync relaxation averages the dense
+        state after the step, as JAX's single step does."""
+        self._warn_per_step_dsync()
+        state, res = self._run("train", self._train_step_body, state,
+                                 self._batch_feed({
+                                     "d": (dense_x, np.float32),
+                                     "s": (sparse_ids, np.int32),
+                                     "y": (labels, np.float32)}))
+        if self._dsync_on:
+            self._sync_dense(state)
+        if self.num_shards == 1:
+            return state, {"loss": res, "overflow": self._zero}
+        return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
 
     def train_epoch(self, state: TrainState, dense_x, sparse_ids, labels,
                     steps: Optional[int] = None):
@@ -360,37 +547,56 @@ class Engine:
         [steps, B, ...] are packed on their card. Returns (state, stats)
         with per-step `loss` and `overflow` tensors [steps]. Each step is
         one replay of the step's graph (JAX scans the steps in one
-        program)."""
-        gb = self.cfg.batch_size
+        program). Over S ranks the arrays hold global batches of
+        `batch_size * S` rows, each rank's blocks of the steps are packed
+        on the host, and the steps run uncaptured; a dense-sync relaxation
+        averages the dense state every `dense_sync_every` steps and at the
+        end (engine.py:455-476)."""
+        S = self.num_shards
+        gb = self.cfg.batch_size * S
         steps = steps or len(sparse_ids) // gb
         if steps < 1:
             raise ValueError(f"not enough samples for one step of {gb}")
-        spec = {"d": (dense_x, np.float32), "s": (sparse_ids, np.int32),
-                "y": (labels, np.float32)}
 
         def staged(x):      # a tensor already shaped [steps, B, ...]
             return isinstance(x, torch.Tensor) and x.dim() >= 2 \
                 and x.shape[0] == steps
 
-        def host(x, dt):
-            a = np.asarray(x)[: steps * gb].astype(dt, copy=False)
-            return a.reshape(steps, gb, *a.shape[1:])
+        def by_step(x, dt):     # [steps, gb, ...]: this rank's block of it
+            if not staged(x):
+                a = np.asarray(x)[: steps * gb].astype(dt, copy=False)
+                x = a.reshape(steps, gb, *a.shape[1:])
+            return x if S == 1 else self._rank_block(x, dt, axis=1)
 
-        if any(staged(x) for x, _ in spec.values()):
+        arrays = {k: (by_step(x, dt), dt) for k, (x, dt) in {
+            "d": (dense_x, np.float32), "s": (sparse_ids, np.int32),
+            "y": (labels, np.float32)}.items()}
+        if any(isinstance(x, torch.Tensor) for x, _ in arrays.values()):
             buf, layout = pack_tensors({
-                k: (x if staged(x) else torch.as_tensor(host(x, dt))).to(
-                    self.device, TORCH_DTYPES[np.dtype(dt)])
-                for k, (x, dt) in spec.items()}, steps)
+                k: torch.as_tensor(x).to(self.device,
+                                         TORCH_DTYPES[np.dtype(dt)])
+                for k, (x, dt) in arrays.items()}, steps)
         else:
             buf, layout = self._to_device(
-                {k: host(x, dt) for k, (x, dt) in spec.items()}, steps)
-        losses = torch.empty(steps, dtype=torch.float32, device=self.device)
+                {k: x for k, (x, _) in arrays.items()}, steps)
+        res = torch.empty((2, steps), dtype=torch.float32,
+                          device=self.device)     # loss; overflow
+        # the scanned body's sync every k steps (engine.py:176-183); the
+        # step count is read once a call, only when k > 1 needs it
+        step0 = int(state.step) if self._dsync_on and self.dsync_k > 1 \
+            else 0
         for k in range(steps):
             state, _ = self._run("train", self._train_step_body, state,
-                                 (buf[k], layout), out=losses[k])
-        return state, {"loss": losses,
-                       "overflow": torch.zeros(steps, dtype=torch.int32,
-                                               device=self.device)}
+                                 (buf[k], layout),
+                                 out=res[:, k] if S > 1 else res[0, k])
+            if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
+                self._sync_dense(state)
+        if self._dsync_on:
+            # the chunk's end leaves the dense state replicated
+            self._sync_dense(state)
+        return state, {"loss": res[0], "overflow": torch.zeros(
+            steps, dtype=torch.int32, device=self.device) if S == 1
+            else res[1].to(torch.int32)}
 
     def train_epoch_assigned(self, state: TrainState, scheduler, dense_x,
                              sparse_ids, labels, steps: int):
@@ -415,10 +621,19 @@ class Engine:
     @torch.inference_mode()
     def predict(self, state: TrainState, dense_x, sparse_ids
                 ) -> torch.Tensor:
-        """Probabilities [B] of one batch, on the engine's device."""
-        return self._run("eval", self._eval_step_body, state,
-                         self._batch_feed({"d": (dense_x, np.float32),
-                                           "s": (sparse_ids, np.int32)}))[1]
+        """Probabilities [B] of one batch, on the engine's device. Over S
+        ranks the batch is the global one, every rank returns the
+        probabilities of all of it (gathered from the ranks), and the eval
+        exchange's overflow is read back from the card: an overflow
+        raises (engine.py:673-681). On one device nothing waits for the
+        card."""
+        probs = self._run("eval", self._eval_step_body, state,
+                          self._batch_feed({"d": (dense_x, np.float32),
+                                            "s": (sparse_ids, np.int32)}))[1]
+        if self.num_shards == 1:
+            return probs
+        self._check_eval_overflow()
+        return self.comm.all_gather(probs).reshape(-1)
 
     @torch.inference_mode()
     def evaluate(self, state: TrainState, dense_x, sparse_ids, labels,
@@ -426,11 +641,17 @@ class Engine:
         """Full-dataset AUC and accuracy. The tail is padded to a full
         batch by repeating the last sample and its extra predictions are
         dropped, so every sample is scored once. Batches go in blocks of
-        up to T=32: one copy to the device and one back per block."""
+        up to T=32: one copy to the device and one back per block. Over S
+        ranks a batch is global, at most `batch_size * S` rows (the eval
+        exchange is sized for that, engine.py:693-697): each rank scores
+        its block, the probabilities are gathered, and the eval
+        exchange's overflow is read back once a block and raises."""
         n = len(sparse_ids)
         if n == 0:
             return {"auc": 0.5, "acc": float("nan")}
-        batch = batch or self.cfg.batch_size
+        S = self.num_shards
+        gb = self.cfg.batch_size * S
+        batch = min(batch or gb, gb) if S > 1 else (batch or gb)
         nb = -(-n // batch)
         T = min(32, nb)
         blocks = -(-nb // T)
@@ -447,14 +668,20 @@ class Engine:
         preds = []
         for b in range(blocks):
             sl = slice(b * rows, (b + 1) * rows)
-            buf, layout = self._to_device({
-                "d": d_all[sl].reshape(T, batch, *d_all.shape[1:]),
-                "s": s_all[sl].reshape(T, batch, *s_all.shape[1:])}, T)
-            p = torch.empty((T, batch), dtype=torch.float32,
+            dk = d_all[sl].reshape(T, batch, *d_all.shape[1:])
+            sk = s_all[sl].reshape(T, batch, *s_all.shape[1:])
+            if S > 1:       # this rank's block of each batch
+                dk = self._rank_block(dk, np.float32, axis=1)
+                sk = self._rank_block(sk, np.int32, axis=1)
+            buf, layout = self._to_device({"d": dk, "s": sk}, T)
+            p = torch.empty((T, sk.shape[1]), dtype=torch.float32,
                             device=self.device)
             for t in range(T):
                 self._run("eval", self._eval_step_body, state,
                           (buf[t], layout), out=p[t])
+            if S > 1:       # [S, T, b] -> the batches' sample order
+                self._check_eval_overflow()
+                p = self.comm.all_gather(p).permute(1, 0, 2)
             preds.append(p.reshape(-1).cpu().numpy())
         y_score = np.concatenate(preds)[:n]
         y_true = np.asarray(labels).reshape(-1)[: len(y_score)]

@@ -32,8 +32,9 @@ A step on the card:
 
 A step's four inputs go to the card packed in one copy from pinned
 memory, and the step waits for the card nowhere; on a card it replays as
-a CUDA graph (`train/graphs.py`). The row-sharded hybrid form waits for
-the multi-rank engine.
+a CUDA graph (`train/graphs.py`). Over one rank `comm_mode="hybrid"` runs
+it as it is; its row-sharded form over several ranks is ROADMAP queue 1,
+item 8, and the engine refuses it.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ class FaeEngine(Engine):
                  cuda_graphs: bool = True):
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                "the FAE engine over several ranks is not ported to "
+                "herald_tpu_torch yet (ROADMAP queue 1, item 8)")
         # of the logical rows, not the padded ones
         self.num_hot = num_hot or max(1, int(self.num_rows * hot_rate))
 

@@ -87,7 +87,32 @@ def test_init_state_is_seeded_and_in_table_dtype():
     assert int(a.step) == 0 and a.step.dtype == torch.int32
 
 
-def test_hybrid_mode_is_a_later_slice():
-    cfg = HeraldConfig(model="wdl_criteo", comm_mode="hybrid")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(cfg, device="cpu")
+def test_hybrid_at_world_size_one_is_the_local_engine(monkeypatch):
+    """With no process group and no torch.distributed.run environment,
+    `comm_mode="hybrid"` is one rank: the local engine, as JAX's hybrid
+    engine on a one-device mesh is, bit for bit from one seed (the SGD
+    fast path and CUDA graphs included)."""
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    spec = get_model("wdl_criteo").spec
+    dense, sparse, labels = synthetic_ctr_data(spec, B * 6, seed=2,
+                                               num_rows=ROWS)
+    for opt in ("sgd", "adam"):
+        engines = [Engine(HeraldConfig(model="wdl_criteo", batch_size=B,
+                                       embedding_dim=8, optimizer=opt,
+                                       learning_rate=0.1, comm_mode=mode),
+                          table_rows=ROWS, device="cpu")
+                   for mode in ("local", "hybrid")]
+        assert engines[1].num_shards == 1 and engines[1].comm.backend is None
+        assert engines[1]._fast_local_sgd == (opt == "sgd")
+        assert engines[1].exchange == engines[0].exchange
+        out = []
+        for eng in engines:
+            st, stats = eng.train_epoch(eng.init_state(3), dense, sparse,
+                                        labels)
+            out.append((st, stats["loss"], eng.predict(st, dense[:B],
+                                                       sparse[:B])))
+        (a, la, pa), (b, lb, pb) = out
+        assert torch.equal(la, lb) and torch.equal(pa, pb)
+        assert torch.equal(a.table, b.table)
+        assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)

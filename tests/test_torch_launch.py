@@ -157,18 +157,34 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scheduled", "--int8-flush"], "--int8-flush"),
-    (["--comm", "hybrid"], "--comm hybrid"),
+    (["--scheduled", "--int8-flush"], "--int8-flush.*item 8"),
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
     (["--export-onnx", "m.onnx"], "--export-onnx"),
     (["--multihost"], "--multihost"),
     (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
-    (["--int8-flush"], "--int8-flush"),
+    (["--int8-flush"], "--int8-flush.*item 8"),
     (["--platform", "cpu"], "--platform"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         _port(argv)
+    assert "ROADMAP" in str(e.value)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--scheduled"], "--scheduled over 2 ranks.*item 8"),
+    (["--fae"], "--fae .* over 2 ranks.*item 8"),
+    (["--model", "fae_wdl_criteo"], "--fae .* over 2 ranks.*item 8"),
+    (["--assign-only"], "--assign-only over 2 ranks.*item 8"),
+    (["--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
+    (["--resume", "ck"], "--resume over 2 ranks.*item 9"),
+], ids=lambda v: v[-1] if isinstance(v, list) else None)
+def test_multi_rank_modes_not_ported_raise(argv, match, monkeypatch):
+    """Over S > 1 ranks (WORLD_SIZE of torch.distributed.run) the modes of
+    later items raise before any group is made or any work is done."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=match) as e:
+        _port(["--comm", "hybrid"] + argv)
     assert "ROADMAP" in str(e.value)
 
 

@@ -13,7 +13,8 @@ Prints one JSON object per line, in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
-kernel:hot_onehot_gather, launch:scheduled, hybrid, launch:hybrid,
+kernel:hot_onehot_gather, launch:scheduled, hybrid, hybrid:assigned,
+hybrid:fae, launch:hybrid,
 kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
@@ -52,8 +53,19 @@ the one-device engine over the same global batches from one logical
 state and against the same steps through the plain versions of K1 and
 K3; 64 steps are timed, rank 0 profiles a chunk of 8 and times K1's four
 and K3's two sites of the step at their shapes. That rate measures gloo
-on one card, not the exchange over several cards. launch:hybrid runs
-`torch.distributed.run` with 2 ranks on card 0 (gloo) and with 1 rank
+on one card, not the exchange over several cards. The same two rank
+processes then run hybrid:assigned (assign-only mode: rank 0's lookahead
+scheduler for two workers, its assignments broadcast by a
+BroadcastScheduler; 8 steps against the plain steps over the same global
+batch sets, each rank's ids its row of the assignment, then both timed
+in turns) and hybrid:fae (fae_wdl_criteo: the cold table row-sharded,
+the 337,625 x 128 hot block replicated and its gradient all-reduced; 8
+steps against the one-device FaeEngine and against the plain versions
+of K1, K3 and K4's add form, the hot block bit-identical on both ranks,
+16 timed steps with the hot all-reduce's host ms, rank 0's profile and
+the step's eight kernel sites timed). launch:hybrid runs
+`torch.distributed.run` with 2 ranks on card 0 (gloo), plainly, with
+`--model fae_wdl_criteo` and with `--assign-only`, and with 1 rank
 (NCCL), the latter's losses equal to the local launcher's.
 
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
@@ -3104,6 +3116,23 @@ HYBRID_SITES = (("embedding_gather", "owner_read"),
                 ("embedding_gather", "send_grads"),
                 ("hot_onehot_push", "owner_sum"),
                 ("embedding_gather", "update_rows"))
+# an FAE step over the ranks: the hybrid step's four K1 reads, K4's add
+# form reading the hot rows into place, and K3 a third time, summing the
+# hot gradients before their all-reduce
+HYBRID_FAE_STEP = {"embedding_gather": 4, "hot_onehot_push": 3,
+                   "hot_onehot_gather_add_": 1}
+HYBRID_FAE_SITES = (("embedding_gather", "owner_read"),
+                    ("embedding_gather", "by_position"),
+                    ("hot_onehot_gather_add_", "hot_read"),
+                    ("hot_onehot_push", "dup_sum"),
+                    ("embedding_gather", "send_grads"),
+                    ("hot_onehot_push", "owner_sum"),
+                    ("embedding_gather", "update_rows"),
+                    ("hot_onehot_push", "hot_sum"))
+# FAE: timed steps, rank 0's profiled and recorded steps; assign-only:
+# steps a turn and turns of assigned and plain chunks
+HYBRID_FAE_TIMED, HYBRID_FAE_PROFILED = 16, 4
+HYBRID_ASSIGNED_K, HYBRID_ASSIGNED_TURNS = 8, 3
 
 
 @contextlib.contextmanager
@@ -3120,14 +3149,22 @@ def _patched(repl: dict):
 
 
 def _hybrid_hooks(fns: dict) -> dict:
-    """{(module, name): fn} for the names through which the hybrid step
-    calls K1 (the engine and the exchange) and K3 (ops.embedding)."""
+    """{(module, name): fn} for the names through which the hybrid steps
+    call K1 (the engine and the exchange), K3 (ops.embedding, and the FAE
+    step's hot sum) and, given one, K4's add form (the FAE step's hot
+    read)."""
     from herald_tpu_torch.ops import embedding as emb_mod
     from herald_tpu_torch.parallel import exchange as ex_mod
     from herald_tpu_torch.train import engine as eng_mod
-    return {(ex_mod, "embedding_gather"): fns["embedding_gather"],
-            (eng_mod, "embedding_gather"): fns["embedding_gather"],
-            (emb_mod, "hot_onehot_push"): fns["hot_onehot_push"]}
+    from herald_tpu_torch.train import fae as fae_mod
+    hooks = {(ex_mod, "embedding_gather"): fns["embedding_gather"],
+             (eng_mod, "embedding_gather"): fns["embedding_gather"],
+             (emb_mod, "hot_onehot_push"): fns["hot_onehot_push"],
+             (fae_mod, "hot_onehot_push"): fns["hot_onehot_push"]}
+    if "hot_onehot_gather_add_" in fns:
+        hooks[(fae_mod, "hot_onehot_gather_add_")] = \
+            fns["hot_onehot_gather_add_"]
+    return hooks
 
 
 def _host_k3(ids, grads, num_rows):
@@ -3137,9 +3174,10 @@ def _host_k3(ids, grads, num_rows):
         grads.device)
 
 
-def _recording(calls: list) -> dict:
-    """Hooks that append (kernel, args) of every K1 and K3 call, the args
-    cloned but for the shard's table (read in place), then launch."""
+def _recording(calls: list, fae: bool = False) -> dict:
+    """Hooks that append (kernel, args) of every K1 and K3 call (and K4
+    add, with `fae`), the args cloned before the call but for the shard's
+    table (read in place), then launch."""
     def wrap(name, fn):
         def call(*args):
             calls.append((name, [a.clone() if isinstance(a, torch.Tensor)
@@ -3147,10 +3185,12 @@ def _recording(calls: list) -> dict:
                                  else a for a in args]))
             return fn(*args)
         return call
-    return _hybrid_hooks({"embedding_gather": wrap("embedding_gather",
-                                                   embedding_gather),
-                          "hot_onehot_push": wrap("hot_onehot_push",
-                                                  hot_onehot_push)})
+    fns = {"embedding_gather": wrap("embedding_gather", embedding_gather),
+           "hot_onehot_push": wrap("hot_onehot_push", hot_onehot_push)}
+    if fae:
+        fns["hot_onehot_gather_add_"] = wrap(
+            "hot_onehot_gather_add_", k4_ops.hot_onehot_gather_add_)
+    return _hybrid_hooks(fns)
 
 
 def _hybrid_site_timing(name: str, inputs: list) -> dict:
@@ -3166,6 +3206,19 @@ def _hybrid_site_timing(name: str, inputs: list) -> dict:
     f32, the dropped positions sent to one extra row."""
     k = len(inputs)
     worst = 0.0
+    if name == "hot_onehot_gather_add_":
+        # into a copy of each recorded acc, bit for bit over the buffer;
+        # timed as kernel:hot_onehot_gather times the add form
+        for acc, hot, ids in inputs:
+            got, want = acc.clone(), acc.clone()
+            k4_ops.hot_onehot_gather_add_(got, hot, ids)
+            k4_ops.hot_onehot_gather_add_ref(want, hot, ids)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError("hot_onehot_gather_add_ differs from "
+                                     "its plain version at a hybrid site")
+        t = _k4_timing(inputs[0][1], [a[2] for a in inputs],
+                       inputs[0][0].clone())["add"]
+        return {**t, "launches_timed": k, "max_abs_err": 0.0}
     if name == "embedding_gather":
         plain_fn, marker = embedding_gather_ref, K1
         tab, ids = inputs[0][0], inputs[0][1]
@@ -3267,6 +3320,287 @@ def _moved_ok(m: dict) -> bool:
         and m["move_err_ratio"] <= 1e-2
 
 
+def _hybrid_assigned_leg(eng: Engine, state: TrainState, data) -> tuple:
+    """Assign-only mode over the ranks, on the hybrid phase's engine and
+    state: rank 0 runs the launcher's lookahead scheduler for HYBRID_S
+    workers over the first 8 + K*T global batches (a cache of 10% of the
+    rows) and a BroadcastScheduler hands every rank each assignment. 8
+    assigned steps (launches counted) and 8 plain steps over the same
+    global batch sets, each from the same state (the rows those steps
+    touch, the tower and the step restored); this rank's ids in each
+    assigned step must be its row of the assignment, in order. Then T
+    turns of K assigned and K plain steps, timed. Returns (the state,
+    the leg's results)."""
+    import torch.distributed as dist
+    from herald_tpu_torch.sched.scheduler import LookaheadScheduler
+    from herald_tpu_torch.sched.service import BroadcastScheduler
+    comm, S = eng.comm, eng.num_shards
+    dense, sparse, labels = data
+    gb, K, T = S * BATCH, HYBRID_ASSIGNED_K, HYBRID_ASSIGNED_TURNS
+    n = HYBRID_STEPS + K * T
+    if len(sparse) < n * gb:
+        raise ValueError(f"the assigned leg needs {n} global batches")
+    sched = BroadcastScheduler(lambda: LookaheadScheduler(
+        sparse[:n * gb], nrank=S, batch_size=BATCH,
+        cache_size=eng.cfg.cache_rows(FULL_ROWS), epochs=1,
+        n_threads=eng.cfg.sched_threads), comm, BATCH)
+    touched = np.unique(sparse[:HYBRID_STEPS * gb])
+    local = torch.as_tensor(touched[touched % S == comm.rank] // S,
+                            device=comm.device)
+    start = (state.table[local].clone(),
+             {k: v.clone() for k, v in state.dense.items()},
+             state.step.clone())
+
+    def restore():
+        state.table[local] = start[0]
+        for k, v in start[1].items():
+            state.dense[k].copy_(v)
+        state.step.copy_(start[2])
+
+    def batches(lo, k):
+        z = slice(lo * gb, (lo + k) * gb)
+        return dense[z], sparse[z], labels[z]
+
+    restore()
+    state, st = eng.train_epoch(state, *batches(0, HYBRID_STEPS))
+    plain_l = st["loss"].cpu()
+    restore()
+    blocks, pops = [], []
+    rank_block = eng._rank_block
+
+    def recorded(x, dt, axis=0):
+        out = rank_block(x, dt, axis)
+        if dt == np.int32:
+            blocks.append(out)
+        return out
+
+    class Recorded:
+        def pop(self):
+            r = sched.pop()
+            if r is not None:
+                pops.append(r[0])
+            return r
+    eng._rank_block = recorded
+    for kern in KERNELS.values():
+        kern.launches = 0
+    try:
+        state, st = eng.train_epoch_assigned(state, Recorded(), dense, sparse,
+                                             labels, steps=HYBRID_STEPS)
+    finally:
+        del eng._rank_block
+    launches = _launch_counts()
+    asgn_l, overflow = st["loss"].cpu(), st["overflow"].cpu()
+    want = np.stack([sparse[p[comm.rank]] for p in pops]).astype(np.int32)
+    rank_rows_ok = len(blocks) == 1 and len(pops) == HYBRID_STEPS \
+        and np.array_equal(blocks[0], want) and all(
+            np.array_equal(np.sort(p.reshape(-1)),
+                           np.arange(t * gb, (t + 1) * gb))
+            for t, p in enumerate(pops))
+    # T turns of K assigned steps and K plain steps (batches past the
+    # assigned ones), both ranks from one barrier each
+    secs = {"assigned": 0.0, "plain": 0.0}
+    for t in range(T):
+        for kind in ("assigned", "plain"):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "assigned":
+                state, st = eng.train_epoch_assigned(
+                    state, sched, dense, sparse, labels, steps=K)
+            else:
+                state, st = eng.train_epoch(
+                    state, *batches(HYBRID_STEPS + t * K, K))
+            float(st["loss"][-1])
+            secs[kind] += time.perf_counter() - t0
+    perf, plan_us = sched.perf(), sched.iter_time_us()
+    sched.close()
+    steps = K * T
+    return state, {
+        "steps": HYBRID_STEPS, "losses": asgn_l, "plain_losses": plain_l,
+        "overflow": overflow, "launches": launches,
+        "rank_rows_are_assignment_rows": bool(rank_rows_ok),
+        "loss_max_rel_err": float(((asgn_l - plain_l).abs()
+                                   / plain_l.abs()).max()),
+        "timed_steps_each": steps,
+        "assigned_examples_per_s": steps * gb / secs["assigned"],
+        "plain_examples_per_s": steps * gb / secs["plain"],
+        "assigned_over_plain": secs["plain"] / secs["assigned"],
+        "assigned_step_ms": secs["assigned"] / steps * 1e3,
+        "plain_step_ms": secs["plain"] / steps * 1e3,
+        "plan_time_us": plan_us, "sched": perf}
+
+
+def _hybrid_fae_leg(rank: int, tmp: Path) -> dict:
+    """fae_wdl_criteo over the ranks at full width (batch 256 a rank, the
+    bf16 cold table row-sharded, a replicated 337,625 x 128 bf16 hot
+    block; SGD at lr 0.01, the hot-id LUT profiled from FAE_SAMPLES
+    samples of seed 0, as phase_fae): this rank's init_fae_state(0)
+    against the one-device engine's rows and hot block; 8 steps through
+    the kernels (launches counted); the same 8 from the same state
+    through the plain versions of K1, K3 and K4's add form; 16 timed
+    steps; a profiled chunk (rank 0); steps whose kernel calls rank 0
+    records and times at their eight sites; evaluate_fae on 8 global
+    batches of seed 1. Writes the hot block after the 8 steps and at the
+    end to DIR (bit-identical on every rank)."""
+    import torch.distributed as dist
+    from herald_tpu_torch.train.fae import FaeEngine, build_hot_lut
+    S, gb, P = HYBRID_S, HYBRID_S * BATCH, HYBRID_FAE_PROFILED
+
+    def config(**kw):
+        return HeraldConfig(model="fae_wdl_criteo", embedding_dim=EMB,
+                            table_dtype=torch.bfloat16, learning_rate=0.01,
+                            **kw)
+    eng = FaeEngine(config(batch_size=BATCH, comm_mode="hybrid"),
+                    table_rows=FULL_ROWS, device=DEVICE + ":0")
+    comm = eng.comm
+    torch.cuda.reset_peak_memory_stats()
+    one = FaeEngine(config(batch_size=gb), table_rows=FULL_ROWS,
+                    device=comm.device)
+    full = one.init_fae_state(0)
+    state = eng.init_fae_state(0)
+    n_mine = len(range(rank, FULL_ROWS, S))
+    init_equal = bool(torch.equal(
+        state.table[:n_mine], full.table[rank:FULL_ROWS:S])) and bool(
+        torch.equal(state.hot_table, full.hot_table)) and all(
+        torch.equal(state.dense[k], v) for k, v in full.dense.items())
+    del full, one
+    _free()
+    dense, sparse, labels = synthetic_ctr_data(
+        eng.model.spec, FAE_SAMPLES, seed=0, num_rows=FULL_ROWS)
+    lut, _ = build_hot_lut(sparse, FULL_ROWS, num_hot=eng.num_hot)
+
+    def steps(lo, k):
+        nonlocal state
+        out = []
+        for i in range(lo, lo + k):
+            z = slice(i * gb, (i + 1) * gb)
+            state, st = eng.train_step_fae(state, lut, dense[z], sparse[z],
+                                           labels[z])
+            out.append(torch.stack([st["loss"], st["overflow"].float()]))
+        return torch.stack(out).cpu()
+
+    ids8 = sparse[:HYBRID_STEPS * gb]
+    cold8 = ids8[lut[ids8] < 0]
+    touched = np.unique(cold8)
+    mine = touched[touched % S == rank]
+    local = torch.as_tensor(mine // S, device=comm.device)
+    start = (state.table[local].clone(),
+             {k: v.clone() for k, v in state.dense.items()},
+             state.hot_table.clone())
+    for kern in KERNELS.values():
+        kern.launches = 0
+    res8 = steps(0, HYBRID_STEPS)
+    launches = _launch_counts()
+    rows, hot = state.table[local].clone(), state.hot_table.clone()
+    dense_after = {k: v.clone() for k, v in state.dense.items()}
+    # the same steps from the same state through the plain versions
+    state.table[local] = start[0]
+    for k, v in start[1].items():
+        state.dense[k].copy_(v)
+    state.hot_table.copy_(start[2])
+    state.step.zero_()
+    with _patched(_hybrid_hooks({
+            "embedding_gather": embedding_gather_ref,
+            "hot_onehot_push": _host_k3,
+            "hot_onehot_gather_add_": k4_ops.hot_onehot_gather_add_ref})):
+        p8 = steps(0, HYBRID_STEPS)
+    p_rows, p_hot = state.table[local], state.hot_table
+    losses, p_losses = res8[:, 0], p8[:, 0]
+    plain = {
+        "cold_rows": _movement(start[0], rows, p_rows),
+        "hot_block": _movement(start[2], hot, p_hot),
+        "losses_identical": bool(torch.equal(losses, p_losses)),
+        "rows_identical": bool(torch.equal(rows, p_rows)),
+        "hot_identical": bool(torch.equal(hot, p_hot)),
+        "dense_identical": all(torch.equal(dense_after[k], state.dense[k])
+                               for k in state.dense),
+        "loss_max_rel_err": float(((losses - p_losses).abs()
+                                   / p_losses.abs()).max()),
+        "rows_within_one_ulp": bool(torch.allclose(
+            rows.float(), p_rows.float(), rtol=2 ** -7, atol=0)),
+        "hot_within_one_ulp": bool(torch.allclose(
+            hot.float(), p_hot.float(), rtol=2 ** -7, atol=0)),
+        "dense_max_err": max(float((dense_after[k] - state.dense[k]).abs()
+                                   .max()) for k in state.dense)}
+    plain["movement"] = _movement(torch.cat([start[0], start[2]]),
+                                  torch.cat([rows, hot]),
+                                  torch.cat([p_rows, p_hot]))
+    torch.save(hot.cpu(), tmp / f"fae_hot8.r{rank}.pt")
+    del p_rows, p_hot
+
+    # timed steps, both ranks from one barrier
+    lo = HYBRID_STEPS
+    dist.barrier()
+    torch.cuda.synchronize()
+    sec0 = dict(comm.seconds)
+    t0 = time.perf_counter()
+    steps(lo, HYBRID_FAE_TIMED)
+    timed_s = time.perf_counter() - t0
+    comm_s = {k: v - sec0.get(k, 0.0) for k, v in comm.seconds.items()}
+    lo += HYBRID_FAE_TIMED
+
+    # one profiled chunk on rank 0
+    sec0 = dict(comm.seconds)
+    profile = None
+    if rank == 0:
+        prof, host_ms, lost = _session(lambda _i: steps(lo, P), 1)
+        per, _ = _device_items(prof, P)
+        host_ms /= P
+        busy = None if lost else sum(per.values())
+        ar = (comm.seconds["all_reduce"] - sec0["all_reduce"]) * 1e3 / P
+        profile = {"steps": P, "device_busy_ms": busy,
+                   "host_ms_profiled": host_ms,
+                   "device_idle_share": None if busy is None
+                   else 1 - busy / host_ms,
+                   "embedding_gather_device_ms": _own_ms(per, K1),
+                   "hot_add_device_ms": _own_ms(per, HOT_ADD),
+                   "hot_onehot_push_device_ms": _k3_ms(per),
+                   "all_reduce_host_ms": ar,
+                   "all_reduce_share": ar / host_ms,
+                   "all_to_all_host_ms": (comm.seconds["all_to_all"]
+                                          - sec0["all_to_all"]) * 1e3 / P,
+                   "top_device_ms": _top(per), "lost_launches": len(lost)}
+    else:
+        steps(lo, P)
+    lo += P
+
+    # the kernel calls of P steps, recorded on rank 0, then timed
+    calls = []
+    with _patched(_recording(calls, fae=True) if rank == 0 else {}):
+        steps(lo, P)
+    lo += P
+    sites = None
+    if rank == 0:
+        per_step = len(HYBRID_FAE_SITES)
+        if len(calls) != per_step * P or any(
+                calls[i][0] != HYBRID_FAE_SITES[i % per_step][0]
+                for i in range(len(calls))):
+            raise AssertionError(f"the hybrid FAE step called "
+                                 f"{[c[0] for c in calls[:per_step]]}")
+        sites = {f"{kern}:{site}": _hybrid_site_timing(kern, [
+            calls[i][1] for i in range(j, len(calls), per_step)])
+            for j, (kern, site) in enumerate(HYBRID_FAE_SITES)}
+    del calls
+    dv, sv, yv = synthetic_ctr_data(eng.model.spec, 8 * gb, seed=1,
+                                    num_rows=FULL_ROWS)
+    ev = eng.evaluate_fae(state, lut, dv, sv, yv)
+    torch.save(state.hot_table.cpu(), tmp / f"fae_hot_end.r{rank}.pt")
+    dist.barrier()
+    return {"mine": mine, "rows": rows.cpu(), "losses": losses,
+            "overflow": res8[:, 1],
+            "dense": {k: v.cpu() for k, v in dense_after.items()},
+            "summary": {
+                "init_equal": init_equal, "launches": launches,
+                "plain_kernels": plain, "hot_share": float(
+                    (lut[sparse] >= 0).mean()),
+                "touched_cold_rows": int(local.numel()),
+                "timed_steps": HYBRID_FAE_TIMED, "timed_s": timed_s,
+                "comm_host_s": comm_s, "step_profile": profile,
+                "sites": sites, "evaluate": ev,
+                "hot_shape": list(state.hot_table.shape),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+
+
 def hybrid_rank(rank: int, tmp: Path) -> None:
     """One rank of the hybrid phase, in a process of its own on the card
     (`--hybrid-rank R --hybrid-dir DIR`): its own init_state(0), held
@@ -3275,8 +3609,9 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
     kernels (their
     launches counted), the same 8 from the same state with the plain
     versions of K1 and K3, 64 timed steps, one profiled chunk of 8 (rank
-    0), 8 steps whose K1 and K3 inputs rank 0 records and then times.
-    Writes rank<R>.pt to DIR."""
+    0), 8 steps whose K1 and K3 inputs rank 0 records and then times;
+    then the assign-only leg on the same engine and the FAE leg. Writes
+    rank<R>.pt to DIR."""
     import torch.distributed as dist
     from herald_tpu_torch.parallel.comm import setup
     setup(DEVICE + ":0", init_method=f"file://{tmp}/store", rank=rank,
@@ -3401,17 +3736,25 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
             calls[i][1] for i in range(j, len(calls), per_step)])
             for j, (kern, site) in enumerate(HYBRID_SITES)}
     dist.barrier()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    table_shape = list(state.table.shape)
+    # assign-only mode on the same engine, then the FAE engine
+    state, assigned = _hybrid_assigned_leg(eng, state, batches(0, n))
+    del state, eng
+    _free()
+    fae = _hybrid_fae_leg(rank, tmp)
     torch.save({"mine": mine, "rows": rows.cpu(), "losses": losses,
                 "overflow": overflow,
                 "dense": {k: v.cpu() for k, v in dense_after.items()},
+                "assigned": assigned, "fae": fae,
                 "summary": {
                     "rank": rank, "backend": comm.backend,
                     "world_size": comm.size, "init_equal": init_equal,
                     "launches": launches, "plain_kernels": plain,
                     "timed_steps": HYBRID_TIMED, "timed_s": timed_s,
                     "comm_host_s": comm_s, "step_profile": profile,
-                    "sites": sites, "table_shape": list(state.table.shape),
-                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}},
+                    "sites": sites, "table_shape": table_shape,
+                    "peak_mem_gb": peak_gb}},
                tmp / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -3433,7 +3776,10 @@ def phase_hybrid() -> dict:
     (summed over the elements). Each rank's own init_state(0) is the
     one-device engine's, and each step launches HYBRID_STEP. Then 64
     timed steps (global examples/s), rank 0's step profile and the six
-    kernel sites timed at their shapes."""
+    kernel sites timed at their shapes. The same ranks then run the
+    assign-only and FAE legs (`_hybrid_assigned_leg`, `_hybrid_fae_leg`),
+    held here by `_hybrid_assigned_gates` and `_hybrid_fae_gates`, each
+    emitted as a line of its own."""
     _free()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
@@ -3464,6 +3810,8 @@ def phase_hybrid() -> dict:
                     f"{(tmp / f'rank{r}.log').read_text()[-4000:]}")
         res = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                for r in range(HYBRID_S)]
+        fae_hot = [[torch.load(tmp / f"fae_hot{when}.r{r}.pt")
+                    for r in range(HYBRID_S)] for when in ("8", "_end")]
     summ = [r["summary"] for r in res]
     want_launches = _want(HYBRID_STEP, HYBRID_STEPS)
     for s in summ:
@@ -3522,6 +3870,8 @@ def phase_hybrid() -> dict:
         raise AssertionError(f"the hybrid steps differ from the one-device "
                              f"engine's: loss {loss_err}, rows {row_err}, "
                              f"dense {dense_err}, movement {moves}")
+    assigned = _hybrid_assigned_gates(res)
+    fae = _hybrid_fae_gates(res, fae_hot)
     timed = max(s["timed_s"] for s in summ)
     out = {"phase": "hybrid", "model": "wdl_criteo",
            "backend": summ[0]["backend"], "world_size": HYBRID_S,
@@ -3548,26 +3898,204 @@ def phase_hybrid() -> dict:
            "kernel_sites": summ[0]["sites"],
            "peak_mem_gb": [s["peak_mem_gb"] for s in summ]}
     emit(out)
-    return out
+    emit(assigned)
+    emit(fae)
+    return {**out, "assigned": assigned, "fae": fae}
+
+
+def _hybrid_assigned_gates(res) -> dict:
+    """assign-only over the ranks: HYBRID_STEP launches a step, rank r's
+    ids the assignment's row r, the losses of the plain steps over the
+    same global batch sets within rtol 1e-5 (tests/test_assigned.py's
+    invariant) and equal on every rank, no overflow."""
+    asg = [r["assigned"] for r in res]
+    want = _want(HYBRID_STEP, HYBRID_STEPS)
+    brief = ("losses", "plain_losses", "overflow")
+    for r, a in enumerate(asg):
+        if a["launches"] != want or not a["rank_rows_are_assignment_rows"] \
+                or a["loss_max_rel_err"] > 1e-5 or int(a["overflow"].sum()):
+            raise AssertionError(
+                f"rank {r}'s assigned steps: "
+                f"{ {k: v for k, v in a.items() if k not in brief} }; "
+                f"expected launches {want}")
+    if any(not torch.equal(a["losses"], asg[0]["losses"]) for a in asg):
+        raise AssertionError("the ranks' assigned losses differ")
+    a = asg[0]
+    return {"phase": "hybrid:assigned", "model": "wdl_criteo",
+            "world_size": HYBRID_S, "global_batch": HYBRID_S * BATCH,
+            "losses": a["losses"].tolist(),
+            "plain_losses": a["plain_losses"].tolist(),
+            **{k: v for k, v in a.items() if k not in brief},
+            "ranks_assigned_over_plain": [x["assigned_over_plain"]
+                                          for x in asg]}
+
+
+def _still_or_moved_ok(m: dict) -> bool:
+    """Rows that moved as the reference's did (`_moved_ok`), or that
+    moved in neither run: a rare cold id's update at lr 0.01 may stay
+    under half a bf16 ulp in both."""
+    return _moved_ok(m) or (m["moved"] == 0 and m["moved_got"] == 0)
+
+
+def _hybrid_fae_gates(res, fae_hot) -> dict:
+    """The FAE leg: each rank's init_fae_state(0) the one-device engine's
+    rows and hot block, HYBRID_FAE_STEP launches a step, the plain
+    versions' steps within train's gates (losses 1e-5 relative, cold rows
+    and hot block within one bf16 ulp, dense 1e-5, the movement of the
+    touched cold rows and the hot block together within 1%), the hot
+    block bit-identical on every rank after the 8 steps and at the end;
+    then the one-device FaeEngine (batch 512) over the same global
+    batches from one logical state, after the ranks exit: losses within
+    rtol 1e-5, overflow 0, every touched cold row and the hot block
+    within 2^-7 of the value plus 2^-13, dense within rtol 1e-4, atol
+    1e-6, and the movement of the touched rows (cold and hot together)
+    within 1% summed, the cold rows alone moving as the reference's or,
+    with it, not at all."""
+    from herald_tpu_torch.train.fae import FaeEngine, build_hot_lut
+    fres = [r["fae"] for r in res]
+    fsum = [f["summary"] for f in fres]
+    want = _want(HYBRID_FAE_STEP, HYBRID_STEPS)
+    for r, f in enumerate(fsum):
+        p = f["plain_kernels"]
+        if f["launches"] != want or not f["init_equal"]:
+            raise AssertionError(f"FAE rank {r} launched {f['launches']} "
+                                 f"(expected {want}), init equal: "
+                                 f"{f['init_equal']}")
+        if p["loss_max_rel_err"] > 1e-5 or not p["rows_within_one_ulp"] \
+                or not p["hot_within_one_ulp"] or p["dense_max_err"] > 1e-5 \
+                or not _moved_ok(p["movement"]) \
+                or not _still_or_moved_ok(p["cold_rows"]):
+            raise AssertionError(f"FAE rank {r}'s steps differ from the "
+                                 f"plain versions of K1, K3 and K4: {p}")
+    for when, blocks in zip(("after 8 steps", "at the end"), fae_hot):
+        if any(not torch.equal(b, blocks[0]) for b in blocks):
+            raise AssertionError(f"the ranks' hot blocks differ {when}")
+    if any(not torch.equal(f["losses"], fres[0]["losses"]) for f in fres) \
+            or any(int(f["overflow"].sum()) for f in fres):
+        raise AssertionError("the ranks' FAE losses differ or overflowed")
+
+    gb = HYBRID_S * BATCH
+    one = FaeEngine(HeraldConfig(model="fae_wdl_criteo", batch_size=gb,
+                                 embedding_dim=EMB,
+                                 table_dtype=torch.bfloat16,
+                                 learning_rate=0.01),
+                    table_rows=FULL_ROWS, device=DEVICE)
+    st = one.init_fae_state(0)
+    dense, sparse, labels = synthetic_ctr_data(
+        one.model.spec, FAE_SAMPLES, seed=0, num_rows=FULL_ROWS)
+    lut, _ = build_hot_lut(sparse, FULL_ROWS, num_hot=one.num_hot)
+    mine = [torch.as_tensor(f["mine"], device=DEVICE) for f in fres]
+    start = [st.table[m].clone() for m in mine]
+    hot0 = st.hot_table.clone()
+    want_l = []
+    for i in range(HYBRID_STEPS):
+        z = slice(i * gb, (i + 1) * gb)
+        st, stats = one.train_step_fae(st, lut, dense[z], sparse[z],
+                                       labels[z])
+        want_l.append(stats["loss"])
+    want_l = torch.stack(want_l).cpu()
+    got_l = fres[0]["losses"]
+    loss_err = float(((got_l - want_l).abs() / want_l.abs()).max())
+    ok, row_err = True, 0.0
+    got_rows, want_rows = [], []
+    for f, m in zip(fres, mine):
+        a, b = f["rows"].to(DEVICE), st.table[m]
+        row_err = max(row_err, float((a.float() - b.float()).abs().max()))
+        ok &= bool(torch.allclose(a.float(), b.float(), rtol=2 ** -7,
+                                  atol=2 ** -13))
+        got_rows.append(a)
+        want_rows.append(b)
+    hot = fae_hot[0][0].to(DEVICE)
+    hot_err = float((hot.float() - st.hot_table.float()).abs().max())
+    ok &= bool(torch.allclose(hot.float(), st.hot_table.float(),
+                              rtol=2 ** -7, atol=2 ** -13))
+    cold = _movement(torch.cat(start), torch.cat(got_rows),
+                     torch.cat(want_rows))
+    hot_m = _movement(hot0, hot, st.hot_table)
+    moved = _movement(torch.cat(start + [hot0]),
+                      torch.cat(got_rows + [hot]),
+                      torch.cat(want_rows + [st.hot_table]))
+    ok &= _moved_ok(moved) and _still_or_moved_ok(cold)
+    dense_err = 0.0
+    for k, v in fres[0]["dense"].items():
+        dense_err = max(dense_err, float((v - st.dense[k].cpu()).abs().max()))
+        ok &= bool(torch.allclose(v, st.dense[k].cpu(), rtol=1e-4,
+                                  atol=1e-6))
+    del st, one, start, hot0, hot, got_rows, want_rows
+    _free()
+    if loss_err > 1e-5 or not ok:
+        raise AssertionError(f"the hybrid FAE steps differ from the "
+                             f"one-device engine's: loss {loss_err}, rows "
+                             f"{row_err}, hot {hot_err}, dense {dense_err}, "
+                             f"movement {moved}, cold {cold}, hot {hot_m}")
+    f0 = fsum[0]
+    timed = max(f["timed_s"] for f in fsum)
+    step_ms = timed / HYBRID_FAE_TIMED * 1e3
+    ar_ms = f0["comm_host_s"].get("all_reduce", 0.0) / HYBRID_FAE_TIMED * 1e3
+    return {"phase": "hybrid:fae", "model": "fae_wdl_criteo",
+            "world_size": HYBRID_S, "batch_per_rank": BATCH,
+            "global_batch": gb, "hot_shape": f0["hot_shape"],
+            "hot_share": f0["hot_share"], "init_equal_one_device": True,
+            "hot_block_identical_on_ranks": True,
+            "losses": got_l.tolist(), "overflow": 0,
+            "one_device": {"steps": HYBRID_STEPS,
+                           "touched_cold_rows": sum(len(f["mine"])
+                                                    for f in fres),
+                           "loss_max_rel_err": loss_err,
+                           "cold_row_max_err": row_err,
+                           "hot_block_max_err": hot_err,
+                           "movement": moved, "cold_movement": cold,
+                           "hot_movement": hot_m,
+                           "dense_max_err": dense_err},
+            "plain_kernels": [f["plain_kernels"] for f in fsum],
+            "launches": f0["launches"],
+            "train_examples_per_s": HYBRID_FAE_TIMED * gb / timed,
+            "step_ms": step_ms,
+            "comm_host_s_timed": [f["comm_host_s"] for f in fsum],
+            "all_reduce_host_ms": ar_ms,
+            "all_reduce_share": ar_ms / step_ms,
+            "step_profile": f0["step_profile"],
+            "kernel_sites": f0["sites"], "evaluate": f0["evaluate"],
+            "peak_mem_gb": [f["peak_mem_gb"] for f in fsum]}
 
 
 def phase_launch_hybrid() -> dict:
     """`torch.distributed.run --standalone` in subprocesses, at full width:
-    2 ranks on card 0 (`--device cuda:0`, so gloo) for 16 steps; then 1
-    rank (its own card, so NCCL) and the local launcher over the same data
-    for 8 steps, whose per-step losses must be equal."""
+    2 ranks on card 0 (`--device cuda:0`, so gloo) for 16 steps, then
+    `--model fae_wdl_criteo` (one epoch: the FAE branch takes no
+    --max-steps) and `--assign-only` (16 steps) the same way; then 1 rank
+    (its own card, so NCCL) and the local launcher over the same data for
+    8 steps, whose per-step losses must be equal."""
     common = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
               "--bf16-table", "--rows", str(FULL_ROWS), "--samples", "16384",
               "--scan-steps", "8"]
     run = ["torch.distributed.run", "--standalone", "--nproc-per-node"]
+    two_ranks = run + ["2", "-m", *common, "--comm", "hybrid", "--device",
+                       "cuda:0"]
     t0 = time.perf_counter()
-    two = _report(_run(run + ["2", "-m", *common, "--comm", "hybrid",
-                              "--device", "cuda:0", "--max-steps", "16"]))
+    two = _report(_run(two_ranks + ["--max-steps", "16"]))
     two_s = time.perf_counter() - t0
     if (two["devices"], two["backend"], two["steps"]) != (2, "gloo", 16) \
             or not np.isfinite(two["train_loss_last"]) \
             or two["overflow_rows"] != 0 or not 0.0 <= two["val_auc"] <= 1.0:
         raise AssertionError(f"2-rank hybrid launch report: {two}")
+    modes, modes_s = {}, {}
+    epoch = (16384 - int(16384 * 0.1)) // (2 * BATCH)
+    for mode, argv, want in (
+            ("fae", ["--model", "fae_wdl_criteo"], ("fae", epoch)),
+            ("assigned", ["--assign-only", "--max-steps", "16"],
+             ("assigned", 16))):
+        t0 = time.perf_counter()
+        rep = modes[mode] = _report(_run(two_ranks + argv))
+        modes_s[mode] = time.perf_counter() - t0
+        if (rep["devices"], rep["backend"], rep["mode"], rep["steps"]) != \
+                (2, "gloo", *want) or not np.isfinite(rep["train_loss_last"]) \
+                or not 0.0 <= rep["val_auc"] <= 1.0 \
+                or rep.get("overflow_rows", 0) != 0:
+            raise AssertionError(f"2-rank {mode} launch report: {rep}")
+    if modes["fae"]["num_hot"] != 337_625 \
+            or modes["assigned"]["sched"]["miss_pull"] <= 0:
+        raise AssertionError(f"2-rank launch reports: {modes}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         tmp = Path(tmp)
@@ -3582,10 +4110,16 @@ def phase_launch_hybrid() -> dict:
             local["val_auc"]:
         raise AssertionError(f"1-rank hybrid launch {one} against the "
                              f"local launcher {local}")
+    keys = ("devices", "backend", "device", "steps", "train_loss_last",
+            "val_auc", "examples_per_sec")
     out = {"phase": "launch:hybrid", "two_ranks_command_s": two_s,
-           "two_ranks": {k: two[k] for k in (
-               "devices", "backend", "device", "steps", "train_loss_last",
-               "val_auc", "examples_per_sec")},
+           "two_ranks": {k: two[k] for k in keys},
+           "two_ranks_fae": {**{k: modes["fae"][k] for k in keys},
+                             "num_hot": modes["fae"]["num_hot"],
+                             "command_s": modes_s["fae"]},
+           "two_ranks_assigned": {**{k: modes["assigned"][k] for k in keys},
+                                  "sched": modes["assigned"]["sched"],
+                                  "command_s": modes_s["assigned"]},
            "one_rank": {k: one[k] for k in ("devices", "backend", "steps",
                                             "val_auc")},
            "one_rank_losses_equal_local": True}
@@ -3627,9 +4161,10 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
-    if "hybrid" in k:
-        out["hybrid"] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
-                         for site, v in k["hybrid"].items()}
+    for key in ("hybrid", "hybrid_fae"):
+        if key in k:
+            out[key] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
+                        for site, v in k[key].items()}
     return out
 
 
@@ -3736,10 +4271,14 @@ def main() -> None:
     phase_launch_scheduled()
     # the row-sharded exchange: two ranks sharing this card over gloo
     hybrid = phase_hybrid()
-    for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push")):
-        k["hybrid"] = {site.split(":")[1]: v for site, v in
-                       hybrid["kernel_sites"].items()
-                       if site.startswith(name + ":")}
+    for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push"),
+                    (k4_add, "hot_onehot_gather_add_")):
+        for key, sites in (("hybrid", hybrid["kernel_sites"]),
+                           ("hybrid_fae", hybrid["fae"]["kernel_sites"])):
+            mine = {site.split(":")[1]: v for site, v in sites.items()
+                    if site.startswith(name + ":")}
+            if mine:
+                k[key] = mine
     phase_launch_hybrid()
 
     # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
@@ -3770,6 +4309,8 @@ def main() -> None:
              "scheduled": sched["launches_tape"],
              "scheduled:pinned": pinned["launches"],
              "hybrid": hybrid["launches"],
+             "hybrid:assigned": hybrid["assigned"]["launches"],
+             "hybrid:fae": hybrid["fae"]["launches"],
              "serve:dfm": serve_dfm["launches"],
              "train:dfm": train_dfm["launches"],
              "scheduled:dfm": sched_dfm["launches_tape"]}

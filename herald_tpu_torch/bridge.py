@@ -5,11 +5,12 @@
 its `CachedTrainState` when the leaves carry the cache arrays, or its
 `FaeTrainState` when they carry a hot block and no cache;
 `state_to_numpy` goes the other way, to a state of host arrays in the
-same NamedTuple type. `shard_state` takes JAX's hybrid state (the
-physical, row-sharded table and its slots, the replicated tower) to one
-rank's state, its block of each table, and `join_states` takes the
-ranks' states back to the physical one (`ExchangeSpec.to_logical` then
-gives the logical table).
+same NamedTuple type. `shard_state` takes JAX's hybrid state, a
+`TrainState` or a `FaeTrainState` (the physical, row-sharded table and
+its slots; the replicated tower, and the FAE state's replicated hot block
+and hot slots) to one rank's state, its block of each table, and
+`join_states` takes the ranks' states back to the physical one
+(`ExchangeSpec.to_logical` then gives the logical table).
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -17,12 +18,18 @@ patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from herald_tpu_torch.train.engine import TrainState
+
+if TYPE_CHECKING:
+    from herald_tpu_torch.train.fae import FaeTrainState
+
+# the states of the row-sharded engines
+HybridState = Union[TrainState, "FaeTrainState"]
 
 
 def tensor_from_numpy(a: np.ndarray, dtype_name: Optional[str] = None,
@@ -100,12 +107,13 @@ def state_to_numpy(state):
     return type(state)(*(tree(f) for f in state))
 
 
-def shard_state(leaves, spec, rank: int, device) -> TrainState:
-    """JAX's hybrid TrainState of numpy arrays (table and slots
-    [S * rows_per_shard, W] in the physical layout of `spec`, an
-    `ExchangeSpec` of `parallel/exchange.py`) -> rank `rank`'s TrainState:
-    rows [rank * rows_per_shard, (rank + 1) * rows_per_shard) of the
-    table and of each slot, and the whole tower."""
+def shard_state(leaves, spec, rank: int, device) -> HybridState:
+    """JAX's hybrid TrainState or FaeTrainState of numpy arrays (table and
+    slots [S * rows_per_shard, W] in the physical layout of `spec`, an
+    `ExchangeSpec` of `parallel/exchange.py`) -> rank `rank`'s state of
+    the same kind: rows [rank * rows_per_shard, (rank + 1) *
+    rows_per_shard) of the table and of each slot, and the whole of every
+    replicated leaf (the tower; the hot block and its slots)."""
     rps = spec.rows_per_shard
     blocks = type(leaves)(**{
         **leaves._asdict(),
@@ -115,10 +123,12 @@ def shard_state(leaves, spec, rank: int, device) -> TrainState:
     return state_from_numpy(blocks, device)
 
 
-def join_states(rank_leaves):
+def join_states(rank_leaves) -> HybridState:
     """The ranks' states as host arrays (`state_to_numpy` of each, in rank
-    order) -> one state: the blocks of the table and of each slot one
-    after the other (the physical layout), and rank 0's tower."""
+    order; TrainState or FaeTrainState) -> one state of the same kind:
+    the blocks of the table and of each slot one after the other (the
+    physical layout), and rank 0's copy of every replicated leaf (the
+    tower; the hot block and its slots)."""
     first = rank_leaves[0]
     return first._replace(
         table=np.concatenate([r.table for r in rank_leaves]),

@@ -24,9 +24,8 @@ branches are ported:
   (`--device cuda:0` puts every local rank on card 0), NCCL when each rank
   has a card of its own. Every rank trains; rank 0 alone prints and
   writes the outputs, and the report names `devices` (S) and `backend`.
-  Over S > 1 ranks `--scheduled`, `--fae` and the `fae_*` models,
-  `--assign-only` (ROADMAP item 8), `--ckpt` and `--resume` (item 9) are
-  refused;
+  Over S > 1 ranks `--scheduled` (ROADMAP item 8), `--ckpt` and
+  `--resume` (item 9) are refused;
 - the scheduled branch (`cli.py:736-1069`): the lookahead planner (live,
   or a plan tape with `--plan-cache`) drives `CachedEngine` chunk by chunk,
   with `--pinned-rows` over frequency-remapped ids, `--device-data`,
@@ -40,14 +39,16 @@ branches are ported:
 - the FAE branch (`cli.py:665-708`; `--fae` or a `fae_*` model, with
   `--hot-rate`): `FaeEngine` step by step over the whole epochs, the
   hot-id LUT profiled from the training ids, `evaluate_fae` per epoch and
-  at the end. As in JAX it writes no checkpoint and ignores `--ckpt`,
-  `--resume`, `--max-steps` and `--crash-after`, and `--export-onnx`
-  exits before training;
+  at the end; over S ranks (`--comm hybrid`) global batches of
+  `--batch-size * S` rows. As in JAX it writes no checkpoint and ignores
+  `--ckpt`, `--resume`, `--max-steps` and `--crash-after` on one rank,
+  and `--export-onnx` exits before training;
 - assign-only mode (`--assign-only`, `cli.py:1070-1125`): the plain engine
   over the batches the lookahead scheduler (csrc/herald_sched.cc)
-  composes for one worker, with checkpoints, `--max-steps`, `--resume`
-  through a deterministic fast-forward of the scheduler, and its counters
-  under `sched` in the report.
+  composes for S workers (rank 0 plans, `sched/service.py` broadcasts
+  each assignment), with checkpoints, `--max-steps`, `--resume` through a
+  deterministic fast-forward of the scheduler, and its counters under
+  `sched` in the report.
 The other modes and options raise NotImplementedError naming their
 ROADMAP item; none is ignored.
 """
@@ -362,10 +363,6 @@ def _refuse_unported(args, cfg) -> None:
     for on, flag, item in (
             (args.scheduled, "--scheduled", "item 8 (the broadcast planner "
              "and the multi-rank cached engine)"),
-            (_uses_fae(args, cfg), "--fae (and the fae_* models)",
-             "item 8 (the multi-rank FAE engine)"),
-            (args.assign_only, "--assign-only", "item 8 (the multi-rank "
-             "scheduler)"),
             (args.ckpt, "--ckpt", "item 9 (multi-process checkpoints)"),
             (args.resume, "--resume", "item 9 (multi-process "
              "checkpoints)")):
@@ -754,22 +751,24 @@ def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
 
 
 def _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
-               epoch_records, timer, t_start) -> dict:
+               epoch_records, timer, t_start, lead) -> dict:
     """The FAE branch of the JAX launcher (`cli.py:665-708`): every step of
-    every epoch, one at a time; a per-epoch eval and a final one through
-    `evaluate_fae`. It returns its report before any checkpoint, as JAX's
-    does. Losses stay on the card until an epoch ends."""
+    every epoch, one global batch (`batch_size * S` rows) at a time; a
+    per-epoch eval and a final one through `evaluate_fae`. It returns its
+    report before any checkpoint, as JAX's does. Losses and overflow stay
+    on the card until an epoch ends."""
     from herald_tpu_torch.train.fae import FaeEngine, build_hot_lut
     eng = FaeEngine(cfg, table_rows=rows, hot_rate=args.hot_rate,
                     device=device)
     lut, _ = build_hot_lut(trn[1], rows, num_hot=eng.num_hot)
     state = eng.init_fae_state(cfg.seed)
-    prof = _start_trace(device) if args.log_dir else None
-    gb = cfg.batch_size
+    prof = _start_trace(device) if args.log_dir and lead else None
+    gb = cfg.batch_size * eng.num_shards
     steps_per_epoch = len(trn[1]) // gb
     losses = []
+    overflow_total = 0
     for ep in range(args.nepoch):
-        epoch = []
+        epoch, overflow = [], []
         for s in range(steps_per_epoch):
             lo = s * gb
             with timer:
@@ -777,18 +776,23 @@ def _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
                     state, lut, trn[0][lo:lo + gb], trn[1][lo:lo + gb],
                     trn[2][lo:lo + gb])
             epoch.append(stats["loss"])
+            overflow.append(stats["overflow"])
         if epoch:
             losses.extend(torch.stack(epoch).cpu().tolist())
+            overflow_total += int(torch.stack(overflow).sum())
         eval_epoch(eng, state, ep, losses[-steps_per_epoch:], lut=lut)
     train_time = time.perf_counter() - t_start
     if prof is not None:
         prof.stop()
         os.makedirs(args.log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.log_dir, "trace.json"))
+    _fail_on_overflow(overflow_total)
     res = eng.evaluate_fae(state, lut, *val)
     report = {
         "model": cfg.model, "mode": "fae", "comm": cfg.comm_mode,
-        "devices": 1, "device": str(eng.device), "steps": len(losses),
+        "devices": eng.num_shards,
+        **({"backend": eng.comm.backend} if eng.comm else {}),
+        "device": str(eng.device), "steps": len(losses),
         "train_loss_last": float(np.mean(losses[-20:])) if losses else None,
         "val_auc": res["auc"], "val_acc": res["acc"],
         "examples_per_sec": len(losses) * gb / max(train_time, 1e-9),
@@ -796,27 +800,37 @@ def _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
         "epochs": epoch_records,
         "timing": timer.report(),
     }
-    _dump_logs(args, report, losses)
+    if lead:
+        _dump_logs(args, report, losses)
     return report
 
 
 def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
                     maybe_ckpt, timer):
-    """Assign-only mode of the JAX launcher (`cli.py:1070-1125`) on one
-    device: the lookahead scheduler for one worker composes each batch,
-    the plain engine trains it. On `--resume` the scheduler pops the
-    saved number of batches first (it is deterministic). Returns (engine,
-    state, losses, overflow, stopped_early, report extras)."""
+    """Assign-only mode of the JAX launcher (`cli.py:1070-1125`): the
+    lookahead scheduler for S workers composes each global batch, the
+    plain engine trains it (rank r the samples of assignment row r). Over
+    S > 1 ranks rank 0 alone plans and every rank gets the assignments
+    through a `BroadcastScheduler`. On `--resume` (one rank) the scheduler
+    pops the saved number of batches first (it is deterministic).
+    Returns (engine, state, losses, overflow, stopped_early, report
+    extras)."""
     from herald_tpu_torch.sched.scheduler import LookaheadScheduler
+    from herald_tpu_torch.sched.service import BroadcastScheduler
     from herald_tpu_torch.train.checkpoint import load_checkpoint
     from herald_tpu_torch.train.engine import Engine
     eng = Engine(cfg, model=model, table_rows=rows, device=device)
-    gb = cfg.batch_size
+    S = eng.num_shards
+    gb = cfg.batch_size * S
     steps_per_epoch = len(trn[1]) // gb
-    sched = LookaheadScheduler(
-        trn[1], nrank=1, batch_size=gb, cache_size=cfg.cache_rows(rows),
-        epochs=args.nepoch, top_k=cfg.sched_top_k_tables or 0,
-        n_threads=cfg.sched_threads)
+
+    def make_sched():
+        return LookaheadScheduler(
+            trn[1], nrank=S, batch_size=cfg.batch_size,
+            cache_size=cfg.cache_rows(rows), epochs=args.nepoch,
+            top_k=cfg.sched_top_k_tables or 0, n_threads=cfg.sched_threads)
+    sched = BroadcastScheduler(make_sched, eng.comm, cfg.batch_size) \
+        if S > 1 else make_sched()
     try:
         done = 0
         if args.resume:
@@ -926,7 +940,7 @@ def run_training(args) -> dict:
     t_start = time.perf_counter()
     if _uses_fae(args, cfg):
         return _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
-                          epoch_records, timer, t_start)
+                          epoch_records, timer, t_start, lead)
     last_ckpt = [0]
     ckpt_extras = [None]   # the scheduled branch installs the serve view
 
@@ -958,10 +972,11 @@ def run_training(args) -> dict:
             _train_scheduled(args, cfg, rows, trn, device, eval_epoch,
                              maybe_ckpt, ckpt_extras, timer)
     elif args.assign_only:
-        prof = _start_trace(device) if args.log_dir else None
+        prof = _start_trace(device) if args.log_dir and lead else None
         eng, state, losses, overflow_total, stopped_early, extra = \
             _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
                             maybe_ckpt, timer)
+        gb = cfg.batch_size * eng.num_shards     # the global batch
     else:
         eng = Engine(cfg, model=model, table_rows=rows, device=device)
         prof = _start_trace(device) if args.log_dir and lead else None

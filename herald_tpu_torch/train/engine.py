@@ -381,10 +381,11 @@ class Engine:
         and slots with the table optimizer, write them back. In place.
         Slots of negative ids (the dedup's spare slots, the FAE step's -1
         at hot positions) are masked and dropped. With a `route` (S > 1)
-        the sums go to their owners first (`scatter_grads`), and the rows
-        updated are the owner's (engine.py:315-355)."""
-        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0]).to(
-            table.dtype)
+        the sums go to their owners first in the grads' dtype
+        (`scatter_grads`; the FAE step's f32, as JAX's wire carries them)
+        and are cast there, and the rows updated are the owner's
+        (engine.py:315-355)."""
+        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
         if route is None:
             rows_idx, row_grads, row_mask = uniq, g_uniq, uniq >= 0
             keep = row_mask & (uniq < table.shape[0])
@@ -392,6 +393,7 @@ class Engine:
             rows_idx, row_grads, _, row_mask = scatter_grads(
                 self.exchange, route, g_uniq, self.comm)
             keep = row_mask
+        row_grads = row_grads.to(table.dtype)
         safe_idx = torch.where(row_mask, rows_idx, 0)
         rows = embedding_gather(table, safe_idx)
         row_slots = {k: embedding_gather(v, safe_idx)
@@ -605,7 +607,11 @@ class Engine:
         without the hot-row cache. Up to `steps` assignments are popped;
         each step trains on the samples it lists, in its order. Returns
         (state, None) when the scheduler's stream has ended. On one device
-        a step's sample set is the plain step's, in another order."""
+        a step's sample set is the plain step's, in another order. Over S
+        ranks (the scheduler planned for S workers, e.g. through
+        `sched.service.BroadcastScheduler`) the assignment [S, B] flattens
+        row by row into the global batch, so rank r trains row r in its
+        order, as JAX's dp split of the flattened assignment gives."""
         idx_rows = []
         for _ in range(steps):
             r = scheduler.pop()

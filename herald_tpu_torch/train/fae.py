@@ -1,12 +1,12 @@
 """FAE baseline: hot/cold split embeddings (port of
-`herald_tpu/train/fae.py`, one device).
+`herald_tpu/train/fae.py`).
 
 The most frequent ids ("hot", 1% of the rows by default) live in a dense
 block `hot_table` [H, W] trained beside the tower; the other ("cold") ids
 go through the plain engine's table. `build_hot_lut` profiles the training
 ids once and maps each hot id to its row of the block.
 
-A step on the card:
+A step on one device:
 - the cold read: one K1 launch by position into f32 (`Engine._read`); the
   cold ids are -1 at hot positions, which K1 reads as zero rows;
 - the hot read: one launch of K4's add form (`hot_onehot_gather_add_`)
@@ -32,9 +32,31 @@ A step on the card:
 
 A step's four inputs go to the card packed in one copy from pinned
 memory, and the step waits for the card nowhere; on a card it replays as
-a CUDA graph (`train/graphs.py`). Over one rank `comm_mode="hybrid"` runs
-it as it is; its row-sharded form over several ranks is ROADMAP queue 1,
-item 8, and the engine refuses it.
+a CUDA graph (`train/graphs.py`).
+
+Over S ranks (`comm_mode="hybrid"`, `fae.py:97-151`) the cold table is
+row-sharded as the plain hybrid engine's is and the hot block and its
+slots are replicated; every entry point takes the global batch
+(`batch_size * S` rows), split on the host, and rank r runs block r:
+- the cold read goes through the exchange (`Engine._sparse_read`): the -1
+  at hot positions is one entry of the dedup, masked as JAX's
+  `valid = uniq >= 0` masks it, so it is routed nowhere, counts no
+  overflow and reads a zero row; K4's add form then reads the hot rows
+  into those rows as on one device;
+- the loss is scaled by 1/S, and the dense grads, the loss and the
+  overflow are summed in one all-reduce (`Engine._reduce`);
+- the cold update sums the f32 emb gradient per unique id (K3; the hot
+  positions again point past every slot), sends the f32 sums to their
+  owners (`scatter_grads`, JAX's f32 wire) and casts there;
+- the hot update: K3 sums this rank's hot gradient into [H, W] f32, one
+  all-reduce sums it over the ranks (JAX's `psum` of `g_hot`), and every
+  rank moves all H rows alike, so the hot block and its slots stay
+  bit-identical on every rank;
+- a dense-sync relaxation syncs the dense state after every step, as
+  JAX's FAE step does; the steps run uncaptured.
+`evaluate_fae` reads through the eval exchange and raises on its
+overflow, as `Engine.evaluate` does, where JAX's FAE eval reads through
+the training exchange and drops its overflow (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -46,7 +68,6 @@ import torch
 
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.models.base import ModelDef
-from herald_tpu_torch.ops.embedding import unique_static
 from herald_tpu_torch.ops.kernels import (hot_onehot_gather_add_,
                                           hot_onehot_push)
 from herald_tpu_torch.train.engine import Engine
@@ -90,17 +111,14 @@ class FaeEngine(Engine):
                  cuda_graphs: bool = True):
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)
-        if self.num_shards > 1:
-            raise NotImplementedError(
-                "the FAE engine over several ranks is not ported to "
-                "herald_tpu_torch yet (ROADMAP queue 1, item 8)")
         # of the logical rows, not the padded ones
         self.num_hot = num_hot or max(1, int(self.num_rows * hot_rate))
 
     def init_fae_state(self, seed: Optional[int] = None) -> FaeTrainState:
-        """The base state from `seed`, then the hot block ~ 0.01 * N(0, 1)
+        """The base state from `seed` (over S ranks, this rank's strided
+        rows of one logical table), then the hot block ~ 0.01 * N(0, 1)
         in f32 from seed + 7, cast to the table dtype, and its zero f32
-        slots."""
+        slots: the one-device engine's block on every rank."""
         base = super().init_state(seed)
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed + 7)
@@ -113,14 +131,18 @@ class FaeEngine(Engine):
         return FaeTrainState(*base, hot_table=hot, hot_slots=hot_slots)
 
     # ------------------------------------------------------------------
-    def _fae_read(self, state: FaeTrainState, ids, hot_idx):
-        """ids (cold, -1 where hot), hot_idx (hot row, -1 where cold)
-        [B, F] -> f32 [B, F, W]: one K1 read by position, then one K4 add
-        of the hot rows in place."""
-        emb = self._read(state.table, ids)
+    def _hot_add(self, emb, state: FaeTrainState, hot_idx):
+        """One K4 add of the hot rows (hot_idx, -1 where cold) into the
+        f32 emb [B, F, W] in place; returns emb."""
         hot_onehot_gather_add_(emb.view(-1, self.width), state.hot_table,
                                hot_idx.reshape(-1))
         return emb
+
+    def _fae_read(self, state: FaeTrainState, ids, hot_idx):
+        """ids (cold, -1 where hot), hot_idx (hot row, -1 where cold)
+        [B, F] -> f32 [B, F, W] on one device: one K1 read by position,
+        then one K4 add of the hot rows in place."""
+        return self._hot_add(self._read(state.table, ids), state, hot_idx)
 
     def _apply_hot_grads(self, hot_table, hot_slots, step, g_hot):
         """The embedding optimizer over every row of the hot block, in f32
@@ -131,38 +153,54 @@ class FaeEngine(Engine):
         return hot_table.copy_(rows), slots
 
     def _fae_step_body(self, state: FaeTrainState, a):
-        """One step on the inputs `a` ("d", "cold", "hot", "y"): (state,
-        loss)."""
+        """One step on this rank's inputs `a` ("d", "cold", "hot", "y"):
+        (state, result), the result as `Engine._reduce` gives it: the loss
+        on one device, [loss, overflow] summed over the group over S
+        ranks."""
         step = state.step.add_(1)
         ids, hot_idx = a["cold"], a["hot"]
         flat = ids.reshape(-1)
         U = flat.numel()
-        uniq, inv = unique_static(flat, U)
+        emb, uniq, inv, route = self._sparse_read(state.table, ids,
+                                                  self.exchange)
+        self._hot_add(emb, state, hot_idx)
+        # the hot positions' gradients go past every slot: K3 drops them
         inv = torch.where(flat >= 0, inv, U)
-        emb = self._fae_read(state, ids, hot_idx)
-        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb,
-                                                      a["d"], a["y"])
+        loss, dgrads, emb_grad = self._loss_and_grads(
+            state.dense, emb, a["d"], a["y"],
+            scale=None if route is None else 1.0 / self.num_shards)
+        dgrads, res = self._reduce(dgrads, loss, route)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)
         table, table_slots = self._apply_sparse_grads(
-            state.table, state.table_slots, step, uniq, inv, emb_grad)
+            state.table, state.table_slots, step, uniq, inv, emb_grad, route)
         g_hot = hot_onehot_push(hot_idx.reshape(-1),
                                 emb_grad.reshape(-1, self.width),
                                 self.num_hot)
+        if route is not None:
+            self.comm.all_reduce_(g_hot)
         hot_table, hot_slots = self._apply_hot_grads(
             state.hot_table, state.hot_slots, step, g_hot)
         new_state = FaeTrainState(
             table=table, table_slots=table_slots, dense=dense,
             dense_slots=dense_slots, step=step, hot_table=hot_table,
             hot_slots=hot_slots)
-        return new_state, loss
+        return new_state, res
 
     def _fae_eval_body(self, state: FaeTrainState, a):
-        logits = self.model.apply(state.dense,
-                                  self._fae_read(state, a["cold"], a["hot"]),
-                                  a["d"])
-        return state, torch.sigmoid(logits)
+        """Probabilities [B] of this rank's inputs. Over S ranks the cold
+        ids go through the eval exchange, whose overflow adds to
+        `_eval_overflow`."""
+        if self.num_shards == 1:
+            emb = self._fae_read(state, a["cold"], a["hot"])
+        else:
+            emb, _, _, route = self._sparse_read(state.table, a["cold"],
+                                                 self.eval_exchange)
+            self._hot_add(emb, state, a["hot"])
+            self._eval_overflow += route.overflow
+        return state, torch.sigmoid(self.model.apply(state.dense, emb,
+                                                     a["d"]))
 
     # ------------------------------------------------------------------
     def split_batch(self, lut: np.ndarray, sparse_ids: np.ndarray):
@@ -173,25 +211,37 @@ class FaeEngine(Engine):
 
     def train_step_fae(self, state: FaeTrainState, lut, dense_x, sparse_ids,
                        labels):
-        """One step on one batch: (state, {"loss", "overflow"}). The batch
-        is split on the host and its four arrays go to the card in one
-        copy; the state handed in is consumed."""
+        """One step on one global batch (`batch_size * S` rows): (state,
+        {"loss", "overflow"}). The batch is split on the host, and this
+        rank's block of its four arrays goes to the card in one copy; the
+        state handed in is consumed. A dense-sync relaxation averages the
+        dense state after the step, as JAX's FAE step does."""
+        self._warn_per_step_dsync()
         cold, hot_idx = self.split_batch(lut, np.asarray(sparse_ids))
-        state, loss = self._run("fae", self._fae_step_body, state,
-                                self._host_feed({
-                                    "d": np.asarray(dense_x, np.float32),
-                                    "cold": cold, "hot": hot_idx,
-                                    "y": np.asarray(labels, np.float32)}))
-        return state, {"loss": loss, "overflow": self._zero}
+        state, res = self._run("fae", self._fae_step_body, state,
+                               self._batch_feed({
+                                   "d": (dense_x, np.float32),
+                                   "cold": (cold, np.int32),
+                                   "hot": (hot_idx, np.int32),
+                                   "y": (labels, np.float32)}))
+        if self._dsync_on:
+            self._sync_dense(state)
+        if self.num_shards == 1:
+            return state, {"loss": res, "overflow": self._zero}
+        return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
 
     @torch.inference_mode()
     def evaluate_fae(self, state: FaeTrainState, lut, dense_x, sparse_ids,
                      labels, batch: Optional[int] = None
                      ) -> Dict[str, float]:
         """AUC and accuracy over the whole batches only: a tail shorter
-        than `batch` is not scored, as in JAX (`fae.py:230`). The batches
-        go to the card in one copy and come back in one."""
-        batch = batch or self.cfg.batch_size
+        than `batch` (default: the global batch) is not scored, as in JAX
+        (`fae.py:230`). The batches go to the card in one copy and come
+        back in one. Over S ranks each rank scores its block of every
+        batch, the probabilities are gathered in sample order, and the
+        eval exchange's overflow raises."""
+        S = self.num_shards
+        batch = batch or self.cfg.batch_size * S
         nb = len(sparse_ids) // batch
         y_true = np.asarray(labels).reshape(-1)[: nb * batch]
         if nb == 0:
@@ -201,14 +251,21 @@ class FaeEngine(Engine):
         sparse = np.asarray(sparse_ids)[:n]
         dense = np.asarray(dense_x, np.float32)[:n]
         cold, hot_idx = self.split_batch(lut, sparse)
-        buf, layout = self._to_device({
-            "d": dense.reshape(nb, batch, *dense.shape[1:]),
-            "cold": cold.reshape(nb, batch, -1),
-            "hot": hot_idx.reshape(nb, batch, -1)}, nb)
-        p = torch.empty((nb, batch), dtype=torch.float32, device=self.device)
+        arrays = {"d": dense.reshape(nb, batch, *dense.shape[1:]),
+                  "cold": cold.reshape(nb, batch, -1),
+                  "hot": hot_idx.reshape(nb, batch, -1)}
+        if S > 1:           # this rank's block of each batch
+            arrays = {k: self._rank_block(v, v.dtype, axis=1)
+                      for k, v in arrays.items()}
+        buf, layout = self._to_device(arrays, nb)
+        p = torch.empty((nb, batch // S), dtype=torch.float32,
+                        device=self.device)
         for i in range(nb):
             self._run("fae_eval", self._fae_eval_body, state,
                       (buf[i], layout), out=p[i])
+        if S > 1:           # [S, nb, b] -> the batches' sample order
+            self._check_eval_overflow()
+            p = self.comm.all_gather(p).permute(1, 0, 2)
         y_score = p.reshape(-1).cpu().numpy()
         return {"auc": M.auc_score(y_true, y_score),
                 "acc": M.accuracy(y_true, y_score)}

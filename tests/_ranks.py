@@ -1,11 +1,13 @@
 """Run a function on S CPU ranks of a gloo group, each a spawned process,
 for the port's multi-rank tests. The group meets through a `file://`
 store under the test's directory (no port is opened), and the whole run
-has a timeout: a rank that hangs fails the test that spawned it."""
+has a timeout: a rank that hangs fails the test that spawned it.
+`launch_rank` runs the port's launcher on one rank from a saved state."""
 
 import time
 
 import pytest
+import torch
 import torch.multiprocessing as mp
 
 
@@ -26,3 +28,26 @@ def run_ranks(fn, S: int, tmp_path, *args, timeout: float = 150.0) -> None:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
+
+
+def launch_rank(rank, S, init, out, argv) -> None:
+    """One rank of `herald_tpu_torch.launch --comm hybrid --device cpu
+    ARGV`, started from the state in out/init.r<rank>.pt (a TrainState's
+    or a FaeTrainState's fields, as `bridge.shard_state` gives them) in
+    place of the engine's own init; the report goes to
+    out/report.r<rank>.pt. Imports no JAX."""
+    torch.set_num_threads(1)
+    from herald_tpu_torch.launch import cli
+    from herald_tpu_torch.parallel import comm
+    from herald_tpu_torch.train.engine import Engine, TrainState
+    from herald_tpu_torch.train.fae import FaeEngine, FaeTrainState
+    comm.setup("cpu", init_method=init, rank=rank, world_size=S)
+    saved = torch.load(out / f"init.r{rank}.pt", weights_only=False)
+    if "hot_table" in saved:
+        FaeEngine.init_fae_state = \
+            lambda self, seed=None: FaeTrainState(**saved)
+    else:
+        Engine.init_state = lambda self, seed=None: TrainState(**saved)
+    report = cli.run_training(cli.build_parser().parse_args(
+        argv + ["--device", "cpu", "--comm", "hybrid"]))
+    torch.save(report, out / f"report.r{rank}.pt")

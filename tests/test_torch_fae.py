@@ -43,8 +43,7 @@ The launcher is held to `herald_tpu.launch --fae` from one JAX state (the
 test patches the port's `init_fae_state` to return it) with
 `tests/test_torch_launch.py`'s tolerances: losses 1e-5, AUC 1e-4.
 `tests/test_fae.py::test_fae_trains[hybrid]` (the row-sharded exchange)
-has no counterpart yet: the FAE engine over several ranks is ROADMAP
-queue 1, item 8.
+runs over 2 and 4 gloo ranks in `tests/test_torch_fae_hybrid.py`.
 """
 
 import jax
@@ -106,7 +105,8 @@ def test_hot_lut_picks_most_frequent():
 
 def test_fae_trains():
     """`test_fae.py::test_fae_trains[local]`: 4 epochs of 64 steps from
-    the port's own init; the hybrid case waits for ROADMAP item 8."""
+    the port's own init; the hybrid case is
+    `tests/test_torch_fae_hybrid.py::test_fae_trains_hybrid_matches_jax`."""
     cfg = HeraldConfig(model="wdl_criteo", batch_size=32, embedding_dim=8,
                        learning_rate=0.5)
     rows = 2000

@@ -44,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from _ranks import run_ranks
+from _ranks import launch_rank, run_ranks
 from herald_tpu_torch import HeraldConfig
 from herald_tpu_torch.bridge import join_states, shard_state, state_to_numpy
 from herald_tpu_torch.data import synthetic_ctr_data
@@ -484,19 +484,6 @@ def test_dsync_local_sgd_every4_diverges_and_converges(hybrid4):
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
-def _launch_rank(rank, S, init, out):
-    torch.set_num_threads(1)
-    from herald_tpu_torch.launch import cli
-    C.setup("cpu", init_method=init, rank=rank, world_size=S)
-    state = TrainState(**torch.load(out / f"init.r{rank}.pt",
-                                    weights_only=False))
-    # the run starts from JAX's initial state, as herald_tpu.launch's does
-    Engine.init_state = lambda self, seed=None: state
-    report = cli.run_training(cli.build_parser().parse_args(
-        LAUNCH + ["--device", "cpu", "--comm", "hybrid"]))
-    torch.save(report, out / f"report.r{rank}.pt")
-
-
 def test_launcher_hybrid_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("HERALD_COMPILE_CACHE", "")
     from herald_tpu import HeraldConfig as JaxConfig
@@ -511,7 +498,7 @@ def test_launcher_hybrid_matches_jax(tmp_path, monkeypatch):
     for r in range(2):
         torch.save(shard_state(leaves, jeng.exchange, r, "cpu")._asdict(),
                    tmp_path / f"init.r{r}.pt")
-    run_ranks(_launch_rank, 2, tmp_path, tmp_path)
+    run_ranks(launch_rank, 2, tmp_path, tmp_path, LAUNCH)
     jx = jax_run(jax_parser().parse_args(
         LAUNCH + ["--no-prefetch", "--config", str(tmp_path / "cfg.json")]))
     assert jx["devices"] == 2

@@ -21,16 +21,20 @@ planner counters are host integers and equal.
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from _ranks import launch_rank, run_ranks
 from herald_tpu import HeraldConfig as JaxConfig
 from herald_tpu.launch.cli import build_parser as jax_parser
 from herald_tpu.launch.cli import run_training as jax_run
 from herald_tpu.train.checkpoint import save_checkpoint as jax_save
 from herald_tpu.train.engine import Engine as JaxEngine
+from herald_tpu.train.fae import FaeEngine as JaxFaeEngine
 from herald_tpu.utils.profiler import StepTimer as JaxStepTimer
+from herald_tpu_torch.bridge import shard_state
 from herald_tpu_torch.launch import cli
 from herald_tpu_torch.train.checkpoint import load_checkpoint
 from herald_tpu_torch.utils.profiler import StepTimer
@@ -173,9 +177,6 @@ def test_flags_not_ported_raise(argv, match):
 
 @pytest.mark.parametrize("argv,match", [
     (["--scheduled"], "--scheduled over 2 ranks.*item 8"),
-    (["--fae"], "--fae .* over 2 ranks.*item 8"),
-    (["--model", "fae_wdl_criteo"], "--fae .* over 2 ranks.*item 8"),
-    (["--assign-only"], "--assign-only over 2 ranks.*item 8"),
     (["--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
     (["--resume", "ck"], "--resume over 2 ranks.*item 9"),
 ], ids=lambda v: v[-1] if isinstance(v, list) else None)
@@ -186,6 +187,57 @@ def test_multi_rank_modes_not_ported_raise(argv, match, monkeypatch):
     with pytest.raises(NotImplementedError, match=match) as e:
         _port(["--comm", "hybrid"] + argv)
     assert "ROADMAP" in str(e.value)
+
+
+@pytest.mark.parametrize("argv", [["--fae"], ["--model", "fae_wdl_criteo"],
+                                  ["--assign-only", "--lr", "0.5"]],
+                         ids=lambda v: v[-1] if len(v) < 3 else v[0])
+def test_multi_rank_modes_match_jax(argv, tmp_path, monkeypatch):
+    """`--fae`, a fae_* model and `--assign-only` over 2 gloo ranks of
+    the port (`_ranks.launch_rank`) against herald_tpu.launch on a
+    2-device mesh, from JAX's initial state: the same global batches,
+    and the same assignments for S = 2 workers in assign-only mode
+    (the port's rank 0 plans and broadcasts them)."""
+    jcfg = JaxConfig(model="wdl_criteo", batch_size=16, embedding_dim=8,
+                     comm_mode="hybrid", mesh_shape=(2,), seed=5)
+    (tmp_path / "cfg.json").write_text(jcfg.to_json())
+    fae = "--assign-only" not in argv
+    cls, name = (JaxFaeEngine, "init_fae_state") if fae else \
+        (JaxEngine, "init_state")
+    orig, captured = getattr(cls, name), {}
+
+    def init(self, seed=None):
+        st = orig(self, seed)
+        captured["spec"] = self.exchange
+        captured["state"] = jax.tree.map(np.asarray, st)
+        return st
+    monkeypatch.setattr(cls, name, init)
+    jx = _jax(argv + ["--config", str(tmp_path / "cfg.json")])
+    for r in range(2):
+        torch.save(shard_state(captured["state"], captured["spec"], r,
+                               "cpu")._asdict(), tmp_path / f"init.r{r}.pt")
+    run_ranks(launch_rank, 2, tmp_path, tmp_path, COMMON + argv)
+    reports = [torch.load(tmp_path / f"report.r{r}.pt", weights_only=False)
+               for r in range(2)]
+    for port in reports:
+        assert set(port) == set(jx) | {"device", "backend"}
+        assert (port["devices"], port["backend"]) == (2, "gloo")
+        assert port["mode"] == jx["mode"] == ("fae" if fae else "assigned")
+        assert port["steps"] == jx["steps"] == 1280 // 32
+        assert abs(port["train_loss_last"] - jx["train_loss_last"]) <= 1e-5
+        assert abs(port["val_auc"] - jx["val_auc"]) <= 1e-4
+        assert len(port["epochs"]) == len(jx["epochs"]) == 1
+        for a, b in zip(port["epochs"], jx["epochs"]):
+            assert abs(a["train_loss"] - b["train_loss"]) <= 1e-5
+            assert abs(a["val_auc"] - b["val_auc"]) <= 1e-4
+        if fae:
+            assert port["num_hot"] == jx["num_hot"] == 30
+        else:
+            assert port["overflow_rows"] == jx["overflow_rows"] == 0
+            assert {k: v for k, v in port["sched"].items()
+                    if k != "plan_time_us"} == {
+                k: v for k, v in jx["sched"].items() if k != "plan_time_us"}
+    assert reports[0]["val_auc"] == reports[1]["val_auc"]
 
 
 def test_serve_view_flag_raises_as_in_jax():

@@ -123,6 +123,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import importlib.util
 import json
 import re
@@ -236,11 +237,12 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 # kernels each profiler session launches before the measured calls: a
 # spin of one cycle each (`torch.cuda._sleep`). From some point in a long
 # process on, a session loses the device records of its first launches
-# (mostly 6 to 11, at times some tens), however long the session and
-# whether or not it first idles. These launches take that loss; their
-# own kernel is left out of the session's items, and a session that lost
-# more is retaken
-PAD_LAUNCHES, PAD_KERNEL = 32, "spin_kernel"
+# (mostly 6 to 11, at times some tens: past 32 in sessions of a run of
+# the whole script on an H100), however long the session and whether or
+# not it first idles. These launches take that loss; their own kernel is
+# left out of the session's items, and a session that lost more is
+# retaken where its calls can run again
+PAD_LAUNCHES, PAD_KERNEL = 256, "spin_kernel"
 # the sessions taken; how many lost records of pad launches alone; and
 # each that lost a measured launch's record, with the positions it lost
 PROFILER = {"sessions": 0, "lost_in_pad": 0, "short": []}
@@ -1687,19 +1689,27 @@ def _differ(a, b) -> list:
                                                   _bits(lb[p]))]
 
 
-def _profile_chunks(run, n: int, steps_per_chunk: int) -> dict:
+def _profile_chunks(run, n: int, steps_per_chunk: int,
+                    tries: int = 3) -> dict:
     """Device busy, host time and the top device items per step over n
-    chunks run(0..n-1), one profiler session (the chunks consume state, so
-    it is not retried: a session without device events, or one that lost
-    the record of a measured launch, gives "not measured", None)."""
+    chunks run(0..n-1), one profiler session, taken again over the same
+    chunks, up to `tries` in all, while it saw no device activity or lost
+    the record of a measured launch. A retake runs the chunks' programs
+    again on the state they left (the same shapes and launches; nothing
+    after a profile compares the state's values with a reference). Where
+    none passed, busy is "not measured", None."""
     torch.cuda.synchronize()
     steps = n * steps_per_chunk
-    prof, host, lost = _session(run, n)
+    for n_try in range(1, tries + 1):
+        prof, host, lost = _session(run, n)
+        per, _ = _device_items(prof, steps)
+        if per and not lost:
+            break
     host /= steps_per_chunk
-    per, _ = _device_items(prof, steps)
     busy = sum(per.values()) if per and not lost else None
     return {"steps": steps, "device_busy_ms": busy,
             "host_ms_profiled": host, "launches_lost": len(lost),
+            "sessions": n_try,
             "device_idle_share": None if busy is None else 1 - busy / host,
             "hot_onehot_push_device_ms": _k3_ms(per) if busy else None,
             "pinned_read_kernel_ms": {k: v for k, v in per.items()
@@ -3133,6 +3143,21 @@ HYBRID_FAE_SITES = (("embedding_gather", "owner_read"),
 # steps a turn and turns of assigned and plain chunks
 HYBRID_FAE_TIMED, HYBRID_FAE_PROFILED = 16, 4
 HYBRID_ASSIGNED_K, HYBRID_ASSIGNED_TURNS = 8, 3
+# the cached step over the ranks: its kernel calls in the order it makes
+# them, the flush's and the pull's only in a step that flushes or pulls
+# (on any worker); its timed and profiled steps
+HYBRID_SCHED_SITES = {
+    "flush": (("embedding_gather", "flush_cache_rows"),
+              ("embedding_gather", "flush_send"),
+              ("hot_onehot_push", "flush_owner_sum"),
+              ("embedding_gather", "flush_owner_rows")),
+    "pull": (("embedding_gather", "pull_owner_read"),
+             ("embedding_gather", "pull_by_position")),
+    "step": (("embedding_gather", "cache_slots"),
+             ("hot_onehot_gather_add_", "hot_read"),
+             ("hot_onehot_push", "g_uniq"),
+             ("hot_onehot_push", "hot_delta"))}
+HYBRID_SCHED_TIMED, HYBRID_SCHED_PROFILED = 32, 4
 
 
 @contextlib.contextmanager
@@ -3150,20 +3175,24 @@ def _patched(repl: dict):
 
 def _hybrid_hooks(fns: dict) -> dict:
     """{(module, name): fn} for the names through which the hybrid steps
-    call K1 (the engine and the exchange), K3 (ops.embedding, and the FAE
-    step's hot sum) and, given one, K4's add form (the FAE step's hot
-    read)."""
+    call K1 (the engine, the exchange and the cached step), K3
+    (ops.embedding, the FAE step's hot sum, the cached step's sums) and,
+    given one, K4's add form (the FAE and cached steps' hot reads)."""
     from herald_tpu_torch.ops import embedding as emb_mod
     from herald_tpu_torch.parallel import exchange as ex_mod
+    from herald_tpu_torch.train import cached as cached_mod
     from herald_tpu_torch.train import engine as eng_mod
     from herald_tpu_torch.train import fae as fae_mod
     hooks = {(ex_mod, "embedding_gather"): fns["embedding_gather"],
              (eng_mod, "embedding_gather"): fns["embedding_gather"],
+             (cached_mod, "embedding_gather"): fns["embedding_gather"],
              (emb_mod, "hot_onehot_push"): fns["hot_onehot_push"],
-             (fae_mod, "hot_onehot_push"): fns["hot_onehot_push"]}
+             (fae_mod, "hot_onehot_push"): fns["hot_onehot_push"],
+             (cached_mod, "hot_onehot_push"): fns["hot_onehot_push"]}
     if "hot_onehot_gather_add_" in fns:
-        hooks[(fae_mod, "hot_onehot_gather_add_")] = \
-            fns["hot_onehot_gather_add_"]
+        for mod in (fae_mod, cached_mod):
+            hooks[(mod, "hot_onehot_gather_add_")] = \
+                fns["hot_onehot_gather_add_"]
     return hooks
 
 
@@ -3601,6 +3630,257 @@ def _hybrid_fae_leg(rank: int, tmp: Path) -> dict:
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
 
 
+class _Hashed:
+    """A planner whose every popped chunk leaves a sha256 of its arrays in
+    `digests` (the ranks compare them: the same programs on every rank)."""
+
+    def __init__(self, planner):
+        self.planner, self.digests = planner, []
+
+    def pop_chunk(self, steps):
+        out = self.planner.pop_chunk(steps)
+        h = hashlib.sha256(str(out[0]).encode())
+        for a in out[1:]:
+            h.update(np.ascontiguousarray(a).tobytes())
+        self.digests.append(h.hexdigest())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.planner, name)
+
+
+def _sched_sites(variants) -> list:
+    """(kernel, site) of every kernel call of steps in these variants."""
+    out = []
+    for v in variants:
+        out += (list(HYBRID_SCHED_SITES["flush"]) if v[0] else []) \
+            + (list(HYBRID_SCHED_SITES["pull"]) if v[2] else []) \
+            + list(HYBRID_SCHED_SITES["step"])
+    return out
+
+
+def _hybrid_scheduled_leg(rank: int, tmp: Path) -> dict:
+    """wdl_criteo through CachedEngine over the ranks at full width (batch
+    256 a rank, the bf16 table row-sharded, the default 10% cache of
+    3,376,257 x 256 f32 rows a rank, a 4,096-row pinned tier over
+    frequency-remapped ids, SGD at lr 0.01, staleness bound 0), rank 0
+    planning for both workers through a BroadcastPlanner over exactly the
+    leg's global batches (seed 0): the hot block against this rank's
+    strided rows of [0, 4096); 8 gated steps in one chunk (launches
+    counted, each step's phases kept); the same chunk from the same state
+    (the cache and table rows it writes, the hot block, the tower, the
+    step restored) through the plain versions of K1, K3 and K4's add form;
+    HYBRID_SCHED_TIMED timed steps in chunks of 8; a profiled chunk (rank
+    0); 8 steps whose kernel calls rank 0 records and times at their
+    sites; the stream drained, sync_cache (the rows it flushes into this
+    rank's block, before and after) and evaluate on 8 global batches of
+    seed 1. Every chunk's arrays are hashed; the hot block and the tower
+    go to DIR after the gated steps and at the end."""
+    import torch.distributed as dist
+    from herald_tpu_torch.sched.service import BroadcastPlanner
+    S, gb, K, P = HYBRID_S, HYBRID_S * BATCH, HYBRID_STEPS, \
+        HYBRID_SCHED_PROFILED
+    n_steps = 2 * K + HYBRID_SCHED_TIMED + P
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, table_dtype=torch.bfloat16,
+                       learning_rate=0.01, comm_mode="hybrid",
+                       use_cache=True, use_scheduler=True,
+                       cache_limit_ratio=0.1, pinned_rows=PINNED)
+    eng = CachedEngine(cfg, table_rows=FULL_ROWS, device=DEVICE + ":0")
+    comm, C, W = eng.comm, eng.cache_rows, eng.width
+    torch.cuda.reset_peak_memory_stats()
+    dense, sparse, labels = synthetic_ctr_data(
+        eng.model.spec, n_steps * gb, seed=0, num_rows=FULL_ROWS)
+    sparse, _ = frequency_remap(sparse, FULL_ROWS)
+    planner = _Hashed(BroadcastPlanner(
+        lambda: eng.make_planner(sparse, epochs=1), comm,
+        num_samples=len(sparse), nrank=S, batch_size=BATCH,
+        unique_cap=eng.U_cap, flush_cap=eng.F_cap, cache_rows=C, epochs=1,
+        prefetch_cap=eng.P_cap, num_tables=eng.model.spec.num_sparse))
+    state = eng.init_cached_state(0)
+    init_hot_ok = bool(torch.equal(state.table[:PINNED // S],
+                                   state.hot_table[rank::S]))
+    raw = (dense, sparse, labels)
+
+    # --- 8 gated steps, then the same chunk through the plain versions
+    out = planner.pop_chunk(K)
+    staged = eng._stage_chunk(*out, *raw, index_feed=False)
+    variants = staged.steps
+
+    def mine(x):
+        w = x.shape[1] // S
+        return np.asarray(x[:K, rank * w:(rank + 1) * w])
+    _, _, slots, _, fids, fslots, pfids, pfslots, uniq, _ = out
+    sl, uq, ps, pi, fs = (mine(x) for x in (slots, uniq, pfslots, pfids,
+                                            fslots))
+    slots_w = np.unique(np.concatenate([
+        sl[(uq >= 0) & (sl < C)], ps[(pi >= 0) & (ps < C)],
+        fs[(fs >= 0) & (fs < C)]]))
+    flushed = np.unique(np.asarray(fids[:K])[np.asarray(fids[:K]) >= 0])
+    rows_w = flushed[flushed % S == rank] // S
+    cs = torch.as_tensor(slots_w, device=comm.device)
+    tr = torch.as_tensor(rows_w, device=comm.device)
+
+    def snap():
+        return (state.cache[cs].clone(), state.table[tr].clone(),
+                state.hot_table.clone(),
+                {k: v.clone() for k, v in state.dense.items()})
+    start, step0 = snap(), state.step.clone()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, st = eng.train_epoch_staged(state, staged)
+    launches = _launch_counts()
+    losses, overflow = st["loss"].cpu(), st["overflow"].cpu()
+    got = snap()
+    torch.save({"hot": got[2].cpu(), "dense": {k: v.cpu() for k, v in
+                                               got[3].items()}},
+               tmp / f"sched8.r{rank}.pt")
+    state.cache[cs] = start[0]
+    state.table[tr] = start[1]
+    state.hot_table.copy_(start[2])
+    for k, v in start[3].items():
+        state.dense[k].copy_(v)
+    state.step.copy_(step0)
+    with _patched(_hybrid_hooks({
+            "embedding_gather": embedding_gather_ref,
+            "hot_onehot_push": _host_k3,
+            "hot_onehot_gather_add_": k4_ops.hot_onehot_gather_add_ref})):
+        state, pst = eng.train_epoch_staged(state, staged)
+    plain = snap()
+    p_losses = pst["loss"].cpu()
+    dscale = float(plain[0][:, W:].abs().max()) if len(slots_w) else 0.0
+    check = {
+        "losses_identical": bool(torch.equal(losses, p_losses)),
+        "loss_max_rel_err": float(((losses - p_losses).abs()
+                                   / p_losses.abs()).max()),
+        "flushed_table_rows": int(rows_w.size),
+        "written_cache_rows": int(slots_w.size),
+        "rows_within_one_ulp": bool(torch.allclose(
+            got[1].float(), plain[1].float(), rtol=2 ** -7, atol=0)),
+        "hot_within_one_ulp": bool(torch.allclose(
+            got[2].float(), plain[2].float(), rtol=2 ** -7, atol=0)),
+        "value_plane_within_one_ulp": bool(torch.allclose(
+            got[0][:, :W], plain[0][:, :W], rtol=2 ** -7, atol=0)),
+        "delta_plane_max_err": float((got[0][:, W:] - plain[0][:, W:])
+                                     .abs().max()) if len(slots_w) else 0.0,
+        "delta_plane_scale": dscale,
+        "dense_max_err": max(float((got[3][k] - plain[3][k]).abs().max())
+                             for k in got[3]),
+        "movement": _movement(torch.cat([start[1], start[2]]),
+                              torch.cat([got[1], got[2]]),
+                              torch.cat([plain[1], plain[2]]))}
+    del start, got, plain, staged
+    overflow_all = [overflow]
+
+    # --- timed steps, both ranks from one barrier
+    dist.barrier()
+    torch.cuda.synchronize()
+    sec0 = dict(comm.seconds)
+    t0 = time.perf_counter()
+    for _ in range(HYBRID_SCHED_TIMED // K):
+        state, st = eng.train_epoch_cached(state, planner, *raw, steps=K)
+        overflow_all.append(st["overflow"])
+    float(st["loss"][-1])
+    timed_s = time.perf_counter() - t0
+    comm_s = {k: v - sec0.get(k, 0.0) for k, v in comm.seconds.items()}
+
+    # --- one profiled chunk on rank 0
+    holder = [state]
+
+    def chunk(_i):
+        holder[0], st = eng.train_epoch_cached(holder[0], planner, *raw,
+                                               steps=P)
+        overflow_all.append(st["overflow"])
+    sec0 = dict(comm.seconds)
+    profile = None
+    if rank == 0:
+        prof, host_ms, lost = _session(chunk, 1)
+        per, _ = _device_items(prof, P)
+        host_ms /= P
+        busy = None if lost else sum(per.values())
+        coll = {k: (v - sec0.get(k, 0.0)) * 1e3 / P
+                for k, v in comm.seconds.items()}
+        profile = {"steps": P, "device_busy_ms": busy,
+                   "host_ms_profiled": host_ms,
+                   "device_idle_share": None if busy is None
+                   else 1 - busy / host_ms,
+                   "embedding_gather_device_ms": _own_ms(per, K1),
+                   "hot_add_device_ms": _own_ms(per, HOT_ADD),
+                   "hot_onehot_push_device_ms": _k3_ms(per),
+                   "collective_host_ms": coll,
+                   "collective_share": sum(coll.values()) / host_ms,
+                   "top_device_ms": _top(per), "lost_launches": len(lost)}
+    else:
+        chunk(0)
+        torch.cuda.synchronize()
+    state = holder[0]
+
+    # --- the kernel calls of 8 steps, recorded on rank 0, then timed
+    out = planner.pop_chunk(K)
+    staged = eng._stage_chunk(*out, *raw, index_feed=False)
+    calls = []
+    with _patched(_recording(calls, fae=True) if rank == 0 else {}):
+        state, st = eng.train_epoch_staged(state, staged)
+    overflow_all.append(st["overflow"])
+    sites = None
+    if rank == 0:
+        want = _sched_sites(staged.steps)
+        if [c[0] for c in calls] != [k for k, _ in want]:
+            raise AssertionError(f"the cached hybrid step called "
+                                 f"{[c[0] for c in calls[:16]]}, expected "
+                                 f"{[k for k, _ in want[:16]]}")
+        by_site = {}
+        for (kern, site), (_, args) in zip(want, calls):
+            by_site.setdefault(f"{kern}:{site}", []).append(args)
+        sites = {name: _hybrid_site_timing(name.split(":")[0], inputs)
+                 for name, inputs in by_site.items()}
+    del calls, staged
+
+    # --- the end of the stream: sync_cache, evaluate
+    drained = planner.pop_chunk(1)[0] == 0
+    perf, plan_us = planner.perf(), planner.iter_time_us()
+    dumps = [planner.dirty_rows(w) for w in range(S)]
+    ids = np.unique(np.concatenate([d[0] for d in dumps]))
+    synced = torch.as_tensor(ids[ids % S == rank] // S, device=comm.device)
+    before = state.table[synced].clone()
+    state = eng.sync_cache(state, planner)
+    sync_moved = int((state.table[synced] != before).any(dim=1).sum())
+    hot_written = bool(torch.equal(state.table[:PINNED // S],
+                                   state.hot_table[rank::S]))
+    dv, sv, yv = synthetic_ctr_data(eng.model.spec, 8 * gb, seed=1,
+                                    num_rows=FULL_ROWS)
+    ev = eng.evaluate(state, dv, sv, yv)
+    planner.close()
+    torch.save({"hot": state.hot_table.cpu(),
+                "dense": {k: v.cpu() for k, v in state.dense.items()}},
+               tmp / f"sched_end.r{rank}.pt")
+    dist.barrier()
+    return {"summary": {
+        "digests": planner.digests, "variants": variants,
+        "launches": launches, "expected_launches": _want_sched(variants),
+        "losses": losses.tolist(), "plain_kernels": check,
+        "overflow": int(sum(int(o.sum()) for o in overflow_all)),
+        "init_hot_is_table_rows": init_hot_ok, "drained": drained,
+        "timed_steps": HYBRID_SCHED_TIMED, "timed_s": timed_s,
+        "comm_host_s": comm_s, "step_profile": profile, "sites": sites,
+        "cache": {**perf, "plan_time_us": plan_us},
+        "sync_rows": int(synced.numel()), "sync_rows_moved": sync_moved,
+        "hot_written_back": hot_written, "evaluate": ev,
+        "cache_rows": C, "U_cap": eng.U_cap, "F_cap": eng.F_cap,
+        "flush_capacity": eng.flush_exchange.capacity,
+        "pull_capacity": eng.exchange.capacity,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+
+
+def _want_sched(variants) -> dict:
+    """The launches of cached steps in these variants: each kernel's count
+    of `_sched_sites`, and none of the others."""
+    want = {name: 0 for name in KERNELS}
+    for kern, _ in _sched_sites(variants):
+        want[kern] += 1
+    return want
+
+
 def hybrid_rank(rank: int, tmp: Path) -> None:
     """One rank of the hybrid phase, in a process of its own on the card
     (`--hybrid-rank R --hybrid-dir DIR`): its own init_state(0), held
@@ -3610,8 +3890,8 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
     launches counted), the same 8 from the same state with the plain
     versions of K1 and K3, 64 timed steps, one profiled chunk of 8 (rank
     0), 8 steps whose K1 and K3 inputs rank 0 records and then times;
-    then the assign-only leg on the same engine and the FAE leg. Writes
-    rank<R>.pt to DIR."""
+    then the assign-only leg on the same engine, the FAE leg and the
+    scheduled leg. Writes rank<R>.pt to DIR."""
     import torch.distributed as dist
     from herald_tpu_torch.parallel.comm import setup
     setup(DEVICE + ":0", init_method=f"file://{tmp}/store", rank=rank,
@@ -3743,10 +4023,12 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
     del state, eng
     _free()
     fae = _hybrid_fae_leg(rank, tmp)
+    _free()
+    sched = _hybrid_scheduled_leg(rank, tmp)
     torch.save({"mine": mine, "rows": rows.cpu(), "losses": losses,
                 "overflow": overflow,
                 "dense": {k: v.cpu() for k, v in dense_after.items()},
-                "assigned": assigned, "fae": fae,
+                "assigned": assigned, "fae": fae, "scheduled": sched,
                 "summary": {
                     "rank": rank, "backend": comm.backend,
                     "world_size": comm.size, "init_equal": init_equal,
@@ -3777,9 +4059,10 @@ def phase_hybrid() -> dict:
     one-device engine's, and each step launches HYBRID_STEP. Then 64
     timed steps (global examples/s), rank 0's step profile and the six
     kernel sites timed at their shapes. The same ranks then run the
-    assign-only and FAE legs (`_hybrid_assigned_leg`, `_hybrid_fae_leg`),
-    held here by `_hybrid_assigned_gates` and `_hybrid_fae_gates`, each
-    emitted as a line of its own."""
+    assign-only, FAE and scheduled legs (`_hybrid_assigned_leg`,
+    `_hybrid_fae_leg`, `_hybrid_scheduled_leg`), held here by
+    `_hybrid_assigned_gates`, `_hybrid_fae_gates` and
+    `_hybrid_scheduled_gates`, each emitted as a line of its own."""
     _free()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
@@ -3812,6 +4095,10 @@ def phase_hybrid() -> dict:
                for r in range(HYBRID_S)]
         fae_hot = [[torch.load(tmp / f"fae_hot{when}.r{r}.pt")
                     for r in range(HYBRID_S)] for when in ("8", "_end")]
+        sched_saved = {when: [torch.load(tmp / f"sched{f}.r{r}.pt")
+                              for r in range(HYBRID_S)]
+                       for when, f in (("after the gated steps", "8"),
+                                       ("at the end", "_end"))}
     summ = [r["summary"] for r in res]
     want_launches = _want(HYBRID_STEP, HYBRID_STEPS)
     for s in summ:
@@ -3872,6 +4159,7 @@ def phase_hybrid() -> dict:
                              f"dense {dense_err}, movement {moves}")
     assigned = _hybrid_assigned_gates(res)
     fae = _hybrid_fae_gates(res, fae_hot)
+    scheduled = _hybrid_scheduled_gates(res, sched_saved)
     timed = max(s["timed_s"] for s in summ)
     out = {"phase": "hybrid", "model": "wdl_criteo",
            "backend": summ[0]["backend"], "world_size": HYBRID_S,
@@ -3900,7 +4188,8 @@ def phase_hybrid() -> dict:
     emit(out)
     emit(assigned)
     emit(fae)
-    return {**out, "assigned": assigned, "fae": fae}
+    emit(scheduled)
+    return {**out, "assigned": assigned, "fae": fae, "scheduled": scheduled}
 
 
 def _hybrid_assigned_gates(res) -> dict:
@@ -4059,11 +4348,90 @@ def _hybrid_fae_gates(res, fae_hot) -> dict:
             "peak_mem_gb": [f["peak_mem_gb"] for f in fsum]}
 
 
+def _hybrid_scheduled_gates(res, saved) -> dict:
+    """The scheduled leg: every chunk's arrays the same on both ranks; a
+    flush and a pull in at least one gated step; the gated steps'
+    launches those of their phases; overflow 0 and no deferred flush;
+    the hot block and the tower bit-identical on both ranks after the
+    gated steps and at the end; the plain versions' run of the gated chunk
+    within train's gates (losses 1e-5 relative, the flushed table rows,
+    the hot block and the cache's value plane within one bf16 ulp, the
+    delta plane within 1e-5 of its largest value, dense 1e-5, the
+    movement of the flushed rows and the hot block within 1%); the stream
+    drained and sync_cache moving some of the rows it flushed and writing
+    the hot block back; a finite evaluation."""
+    sums = [r["scheduled"]["summary"] for r in res]
+    s0 = sums[0]
+    if any(s["digests"] != s0["digests"] for s in sums):
+        raise AssertionError("the ranks popped different chunks")
+    flushes = sum(v[0] for v in s0["variants"])
+    pulls = sum(v[2] for v in s0["variants"])
+    if not flushes or not pulls:
+        raise AssertionError(f"the gated steps flushed in {flushes} and "
+                             f"pulled in {pulls} steps")
+    for r, s in enumerate(sums):
+        p = s["plain_kernels"]
+        if s["launches"] != s["expected_launches"] or s["overflow"] \
+                or s["cache"]["deferred_flush"] or not s["drained"] \
+                or not s["init_hot_is_table_rows"] \
+                or not s["hot_written_back"] or not s["sync_rows_moved"] \
+                or not (np.isfinite(s["evaluate"]["auc"])
+                        and np.isfinite(s["evaluate"]["acc"])):
+            brief = {k: v for k, v in s.items()
+                     if k not in ("digests", "sites", "step_profile")}
+            raise AssertionError(f"scheduled rank {r}: {brief}")
+        if p["loss_max_rel_err"] > 1e-5 or not p["rows_within_one_ulp"] \
+                or not p["hot_within_one_ulp"] \
+                or not p["value_plane_within_one_ulp"] \
+                or p["delta_plane_max_err"] > 1e-5 * p["delta_plane_scale"] \
+                or p["dense_max_err"] > 1e-5 or not _moved_ok(p["movement"]):
+            raise AssertionError(f"scheduled rank {r}'s steps differ from "
+                                 f"the plain versions of K1, K3 and K4: {p}")
+    for when, blocks in saved.items():
+        a = blocks[0]
+        for b in blocks[1:]:
+            if not torch.equal(a["hot"], b["hot"]) or any(
+                    not torch.equal(a["dense"][k], b["dense"][k])
+                    for k in a["dense"]):
+                raise AssertionError(f"the ranks' hot blocks or towers "
+                                     f"differ {when}")
+    if any(s["losses"] != s0["losses"] for s in sums):
+        raise AssertionError("the ranks' scheduled losses differ")
+    gb = HYBRID_S * BATCH
+    step_ms = max(s["timed_s"] for s in sums) / HYBRID_SCHED_TIMED * 1e3
+    coll = {k: v / HYBRID_SCHED_TIMED * 1e3
+            for k, v in s0["comm_host_s"].items()}
+    return {"phase": "hybrid:scheduled", "model": "wdl_criteo",
+            "world_size": HYBRID_S, "batch_per_rank": BATCH,
+            "global_batch": gb, "pinned_rows": PINNED,
+            **{k: s0[k] for k in ("cache_rows", "U_cap", "F_cap",
+                                  "flush_capacity", "pull_capacity")},
+            "programs_identical_on_ranks": True,
+            "hot_block_and_tower_identical_on_ranks": True,
+            "gated_steps": HYBRID_STEPS, "steps_with_flush": int(flushes),
+            "steps_with_pull": int(pulls), "losses": s0["losses"],
+            "overflow": 0, "plain_kernels": [s["plain_kernels"]
+                                             for s in sums],
+            "launches": s0["launches"],
+            "train_examples_per_s": gb / step_ms * 1e3, "step_ms": step_ms,
+            "collective_host_ms_a_step": coll,
+            "collective_share": sum(coll.values()) / step_ms,
+            "comm_host_s_timed": [s["comm_host_s"] for s in sums],
+            "step_profile": s0["step_profile"],
+            "kernel_sites": s0["sites"], "cache": s0["cache"],
+            "sync_rows": [s["sync_rows"] for s in sums],
+            "sync_rows_moved": [s["sync_rows_moved"] for s in sums],
+            "evaluate": s0["evaluate"],
+            "peak_mem_gb": [s["peak_mem_gb"] for s in sums]}
+
+
 def phase_launch_hybrid() -> dict:
     """`torch.distributed.run --standalone` in subprocesses, at full width:
     2 ranks on card 0 (`--device cuda:0`, so gloo) for 16 steps, then
     `--model fae_wdl_criteo` (one epoch: the FAE branch takes no
-    --max-steps) and `--assign-only` (16 steps) the same way; then 1 rank
+    --max-steps), `--assign-only` (16 steps), and `--scheduled` and
+    `--scheduled --int8-flush` (one epoch each, so that the cache syncs
+    and the last eval is exact) the same way; then 1 rank
     (its own card, so NCCL) and the local launcher over the same data for
     8 steps, whose per-step losses must be equal."""
     common = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
@@ -4084,7 +4452,10 @@ def phase_launch_hybrid() -> dict:
     for mode, argv, want in (
             ("fae", ["--model", "fae_wdl_criteo"], ("fae", epoch)),
             ("assigned", ["--assign-only", "--max-steps", "16"],
-             ("assigned", 16))):
+             ("assigned", 16)),
+            ("scheduled", ["--scheduled"], ("scheduled", epoch)),
+            ("scheduled_int8", ["--scheduled", "--int8-flush"],
+             ("scheduled", epoch))):
         t0 = time.perf_counter()
         rep = modes[mode] = _report(_run(two_ranks + argv))
         modes_s[mode] = time.perf_counter() - t0
@@ -4094,7 +4465,10 @@ def phase_launch_hybrid() -> dict:
                 or rep.get("overflow_rows", 0) != 0:
             raise AssertionError(f"2-rank {mode} launch report: {rep}")
     if modes["fae"]["num_hot"] != 337_625 \
-            or modes["assigned"]["sched"]["miss_pull"] <= 0:
+            or modes["assigned"]["sched"]["miss_pull"] <= 0 \
+            or any(modes[m]["cache"]["update_push"] <= 0
+                   or modes[m]["cache"]["deferred_flush"]
+                   for m in ("scheduled", "scheduled_int8")):
         raise AssertionError(f"2-rank launch reports: {modes}")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
@@ -4120,6 +4494,12 @@ def phase_launch_hybrid() -> dict:
            "two_ranks_assigned": {**{k: modes["assigned"][k] for k in keys},
                                   "sched": modes["assigned"]["sched"],
                                   "command_s": modes_s["assigned"]},
+           **{f"two_ranks_{m}": {**{k: modes[m][k] for k in keys},
+                                 "cache": modes[m]["cache"],
+                                 "examples_per_sec_steady":
+                                     modes[m]["examples_per_sec_steady"],
+                                 "command_s": modes_s[m]}
+              for m in ("scheduled", "scheduled_int8")},
            "one_rank": {k: one[k] for k in ("devices", "backend", "steps",
                                             "val_auc")},
            "one_rank_losses_equal_local": True}
@@ -4161,7 +4541,7 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
-    for key in ("hybrid", "hybrid_fae"):
+    for key in ("hybrid", "hybrid_fae", "hybrid_scheduled"):
         if key in k:
             out[key] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
                         for site, v in k[key].items()}
@@ -4230,6 +4610,7 @@ def main() -> None:
         phase_launch_hybrid()
     if args.phase:
         emit({"phase": "profiler", **PROFILER})
+        print(smi, flush=True)
         return
     eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
     state = eng.init_state(0)
@@ -4274,7 +4655,9 @@ def main() -> None:
     for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push"),
                     (k4_add, "hot_onehot_gather_add_")):
         for key, sites in (("hybrid", hybrid["kernel_sites"]),
-                           ("hybrid_fae", hybrid["fae"]["kernel_sites"])):
+                           ("hybrid_fae", hybrid["fae"]["kernel_sites"]),
+                           ("hybrid_scheduled",
+                            hybrid["scheduled"]["kernel_sites"])):
             mine = {site.split(":")[1]: v for site, v in sites.items()
                     if site.startswith(name + ":")}
             if mine:
@@ -4311,6 +4694,7 @@ def main() -> None:
              "hybrid": hybrid["launches"],
              "hybrid:assigned": hybrid["assigned"]["launches"],
              "hybrid:fae": hybrid["fae"]["launches"],
+             "hybrid:scheduled": hybrid["scheduled"]["launches"],
              "serve:dfm": serve_dfm["launches"],
              "train:dfm": train_dfm["launches"],
              "scheduled:dfm": sched_dfm["launches_tape"]}

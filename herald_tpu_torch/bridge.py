@@ -6,11 +6,12 @@ its `CachedTrainState` when the leaves carry the cache arrays, or its
 `FaeTrainState` when they carry a hot block and no cache;
 `state_to_numpy` goes the other way, to a state of host arrays in the
 same NamedTuple type. `shard_state` takes JAX's hybrid state, a
-`TrainState` or a `FaeTrainState` (the physical, row-sharded table and
-its slots; the replicated tower, and the FAE state's replicated hot block
-and hot slots) to one rank's state, its block of each table, and
-`join_states` takes the ranks' states back to the physical one
-(`ExchangeSpec.to_logical` then gives the logical table).
+`TrainState`, `FaeTrainState` or `CachedTrainState` (the physical,
+row-sharded table and its slots; the replicated tower and hot block; the
+cached state's row-sharded cache and hot slots) to one rank's state, its
+block of each sharded leaf, and `join_states` takes the ranks' states
+back to the global one (`ExchangeSpec.to_logical` then gives the logical
+table).
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -26,10 +27,11 @@ import torch
 from herald_tpu_torch.train.engine import TrainState
 
 if TYPE_CHECKING:
+    from herald_tpu_torch.train.cached import CachedTrainState
     from herald_tpu_torch.train.fae import FaeTrainState
 
 # the states of the row-sharded engines
-HybridState = Union[TrainState, "FaeTrainState"]
+HybridState = Union[TrainState, "FaeTrainState", "CachedTrainState"]
 
 
 def tensor_from_numpy(a: np.ndarray, dtype_name: Optional[str] = None,
@@ -107,31 +109,44 @@ def state_to_numpy(state):
     return type(state)(*(tree(f) for f in state))
 
 
+def _sharded_fields(state) -> tuple:
+    """The row-sharded fields of a hybrid state: the table and its slots,
+    and a cached state's cache and hot slots."""
+    return ("table", "table_slots") + (
+        ("cache", "hot_slots") if hasattr(state, "cache") else ())
+
+
 def shard_state(leaves, spec, rank: int, device) -> HybridState:
-    """JAX's hybrid TrainState or FaeTrainState of numpy arrays (table and
-    slots [S * rows_per_shard, W] in the physical layout of `spec`, an
-    `ExchangeSpec` of `parallel/exchange.py`) -> rank `rank`'s state of
-    the same kind: rows [rank * rows_per_shard, (rank + 1) *
-    rows_per_shard) of the table and of each slot, and the whole of every
-    replicated leaf (the tower; the hot block and its slots)."""
-    rps = spec.rows_per_shard
-    blocks = type(leaves)(**{
-        **leaves._asdict(),
-        "table": leaves.table[rank * rps:(rank + 1) * rps],
-        "table_slots": {k: v[rank * rps:(rank + 1) * rps]
-                        for k, v in leaves.table_slots.items()}})
-    return state_from_numpy(blocks, device)
+    """JAX's hybrid TrainState, FaeTrainState or CachedTrainState of numpy
+    arrays (table and slots [S * rows_per_shard, W] in the physical layout
+    of `spec`, an `ExchangeSpec` of `parallel/exchange.py`; a cached
+    state's cache [S * C, 2W] and hot slots [P, W], 1 row a rank with no
+    pinned tier) -> rank `rank`'s state of the same kind: block `rank` of
+    S equal blocks of rows of each sharded leaf, and the whole of every
+    replicated leaf (the tower; the hot block, and the FAE state's hot
+    slots)."""
+    def block(x):
+        if isinstance(x, dict):
+            return {k: block(v) for k, v in x.items()}
+        n = len(x) // spec.num_shards
+        return x[rank * n:(rank + 1) * n]
+    d = leaves._asdict()
+    for f in _sharded_fields(leaves):
+        d[f] = block(d[f])
+    return state_from_numpy(type(leaves)(**d), device)
 
 
 def join_states(rank_leaves) -> HybridState:
     """The ranks' states as host arrays (`state_to_numpy` of each, in rank
-    order; TrainState or FaeTrainState) -> one state of the same kind:
-    the blocks of the table and of each slot one after the other (the
-    physical layout), and rank 0's copy of every replicated leaf (the
-    tower; the hot block and its slots)."""
+    order; TrainState, FaeTrainState or CachedTrainState) -> one state of
+    the same kind: each rank's block of every sharded leaf one after the
+    other (the table, its slots, and a cached state's cache and hot
+    slots), and rank 0's copy of every replicated leaf (the tower; the
+    hot block, and the FAE state's hot slots)."""
+    def cat(xs):
+        if isinstance(xs[0], dict):
+            return {k: cat([x[k] for x in xs]) for k in xs[0]}
+        return np.concatenate(xs)
     first = rank_leaves[0]
-    return first._replace(
-        table=np.concatenate([r.table for r in rank_leaves]),
-        table_slots={k: np.concatenate([r.table_slots[k]
-                                        for r in rank_leaves])
-                     for k in first.table_slots})
+    return first._replace(**{f: cat([getattr(r, f) for r in rank_leaves])
+                             for f in _sharded_fields(first)})

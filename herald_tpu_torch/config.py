@@ -23,19 +23,23 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
-_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 
 
-def dtype_from_name(name: str) -> torch.dtype:
-    if name not in _DTYPES:
-        raise ValueError(f"unsupported dtype {name!r}; known: {sorted(_DTYPES)}")
-    return _DTYPES[name]
+# the flush wire's dtypes (`flush_wire_dtype`): the value dtypes and int8
+_WIRE_DTYPES = {**_DTYPES, "int8": torch.int8}
 
 
-def dtype_name(dtype: torch.dtype) -> str:
-    if dtype not in _DTYPE_NAMES:
+def dtype_from_name(name: str, known=_DTYPES) -> torch.dtype:
+    if name not in known:
+        raise ValueError(f"unsupported dtype {name!r}; known: {sorted(known)}")
+    return known[name]
+
+
+def dtype_name(dtype: torch.dtype, known=_DTYPES) -> str:
+    names = {v: k for k, v in known.items()}
+    if dtype not in names:
         raise ValueError(f"unsupported dtype {dtype!r}")
-    return _DTYPE_NAMES[dtype]
+    return names[dtype]
 
 
 @dataclasses.dataclass
@@ -154,7 +158,8 @@ class HeraldConfig:
         del d["device"]
         d["dtype"] = dtype_name(self.dtype)
         d["table_dtype"] = dtype_name(self.table_dtype)
-        d["flush_wire_dtype"] = (dtype_name(self.flush_wire_dtype)
+        d["flush_wire_dtype"] = (dtype_name(self.flush_wire_dtype,
+                                            _WIRE_DTYPES)
                                  if self.flush_wire_dtype is not None
                                  else None)
         return json.dumps(d, indent=2)
@@ -165,5 +170,6 @@ class HeraldConfig:
         d["dtype"] = dtype_from_name(d["dtype"])
         d["table_dtype"] = dtype_from_name(d["table_dtype"])
         if d.get("flush_wire_dtype"):
-            d["flush_wire_dtype"] = dtype_from_name(d["flush_wire_dtype"])
+            d["flush_wire_dtype"] = dtype_from_name(d["flush_wire_dtype"],
+                                                    _WIRE_DTYPES)
         return cls(**d)

@@ -24,18 +24,23 @@ branches are ported:
   (`--device cuda:0` puts every local rank on card 0), NCCL when each rank
   has a card of its own. Every rank trains; rank 0 alone prints and
   writes the outputs, and the report names `devices` (S) and `backend`.
-  Over S > 1 ranks `--scheduled` (ROADMAP item 8), `--ckpt` and
-  `--resume` (item 9) are refused;
+  Over S > 1 ranks `--ckpt` and `--resume` (ROADMAP item 9) are refused;
 - the scheduled branch (`cli.py:736-1069`): the lookahead planner (live,
   or a plan tape with `--plan-cache`) drives `CachedEngine` chunk by chunk,
   with `--pinned-rows` over frequency-remapped ids, `--device-data`,
   `--autosize` (and `--autosize-flush-budget`, with a wide engine for the
   cold steps), `--ckpt-serve-view`, `--resume` through `fast_forward`, an
   approximate per-epoch eval, the exact final eval after `sync_cache`, and
-  the steady-state clock. The async `_Prestager` is not ported: every
-  `--prestage` value runs the per-chunk path, and the report says so.
-  Unlike `cli.py:993`, a `--max-steps` stop on an epoch boundary keeps
-  that epoch's (approximate) eval;
+  the steady-state clock. Over S ranks (`--comm hybrid`) rank 0 alone
+  plans for S workers and a `sched/service.py` `BroadcastPlanner` hands
+  every rank each chunk, `--autosize` probes on rank 0 and broadcasts its
+  sizes, the flush deltas cross the wire in `--bf16-flush` or
+  `--int8-flush` form (accepted and unused on one rank, as in JAX), and
+  `--plan-cache` and `--ckpt-serve-view` are refused with JAX's messages.
+  The async `_Prestager` is not ported: every `--prestage` value runs the
+  per-chunk path, and the report says so. Unlike `cli.py:993`, a
+  `--max-steps` stop on an epoch boundary keeps that epoch's
+  (approximate) eval;
 - the FAE branch (`cli.py:665-708`; `--fae` or a `fae_*` model, with
   `--hot-rate`): `FaeEngine` step by step over the whole epochs, the
   hot-id LUT profiled from the training ids, `evaluate_fae` per epoch and
@@ -318,15 +323,10 @@ def build_parser() -> argparse.ArgumentParser:
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
-    ("multihost", "--multihost", "items 8-9 (multi-rank engines and "
-     "checkpoints)"),
+    ("multihost", "--multihost", "item 9 (multi-process checkpoints; "
+     "the multi-rank engines run under torch.distributed.run)"),
     ("preprocess_raw", "--preprocess-raw", "item 10 (launcher and input "
      "feed: data/preprocess.py)"),
-    # the flush wire exists only across devices (JAX: num_shards > 1), in
-    # the multi-rank cached engine; a flush_wire_dtype in a config is
-    # accepted and, as in JAX, unused
-    ("int8_flush", "--int8-flush", "item 8 (the multi-rank cached "
-     "engine's int8 flush wire)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
      "--device"),
 )
@@ -361,8 +361,6 @@ def _refuse_unported(args, cfg) -> None:
     # the modes of herald_tpu.launch that run over several ranks in JAX
     # and not yet in the port, each with its ROADMAP item (queue 1)
     for on, flag, item in (
-            (args.scheduled, "--scheduled", "item 8 (the broadcast planner "
-             "and the multi-rank cached engine)"),
             (args.ckpt, "--ckpt", "item 9 (multi-process checkpoints)"),
             (args.resume, "--resume", "item 9 (multi-process "
              "checkpoints)")):
@@ -370,6 +368,15 @@ def _refuse_unported(args, cfg) -> None:
             raise NotImplementedError(
                 f"{flag} over {S} ranks is not ported to herald_tpu_torch "
                 f"yet (ROADMAP queue 1, {item})")
+    # herald_tpu.launch's own one-process rules (cli.py:813-818, 850-854)
+    if args.scheduled and args.plan_cache:
+        raise ValueError(
+            "--plan-cache is single-process only: multi-process "
+            "jobs fan live programs out through BroadcastPlanner "
+            "(one planner per job); drop the flag")
+    if args.ckpt_serve_view:
+        raise ValueError("--ckpt-serve-view is single-process only "
+                         "(the overlay reads global arrays)")
 
 
 def resolve_config(args) -> "HeraldConfig":
@@ -552,46 +559,24 @@ def _fail_on_overflow(total: int) -> None:
             f"run; results up to now trained on zero-filled rows")
 
 
-def _autosize(cfg, rows, trn, args, device):
+def _autosize(cfg, rows, trn, args, device, comm):
     """`--autosize`: size the program widths, capacities and pull target
     from a host-only probe plan, as the JAX launcher does
-    (`cli.py:739-808`). Returns the wide engine for the cold steps and
-    their count."""
+    (`cli.py:739-808`). The probe plans for all S workers once: over S
+    ranks rank 0 alone runs it and broadcasts the seven sizes. Returns
+    the wide engine for the cold steps and their count."""
     from herald_tpu_torch.config import HeraldConfig
-    from herald_tpu_torch.sched.sizing import (TrafficProfile,
-                                               hoist_target_candidates,
-                                               profile_planned_traffic,
-                                               sweep_flush_budget,
-                                               sweep_hoist_sizing)
     from herald_tpu_torch.train.cached import CachedEngine
-    probe_eng = CachedEngine(cfg, table_rows=rows, device=device)
-    # with per-epoch reshuffling later epochs batch differently: probe
-    # several permutations so the caps cover them
-    probe_epochs = min(args.nepoch, 3) if cfg.sched_shuffle_seed else 1
-    probe = probe_eng.make_planner(trn[1], epochs=probe_epochs,
-                                   n_threads=cfg.sched_threads)
-    steps_prof, _ = profile_planned_traffic(probe, trn[1], 1)
-    probe.close()
-    W = min(args.autosize_warmup, len(steps_prof) // 2)
-    steady = TrafficProfile.from_steps(steps_prof[W:])
-    full = TrafficProfile.from_steps(steps_prof)
-    target, steady_h = sweep_hoist_sizing(
-        cfg, rows, trn[1], 1, W, hoist_target_candidates(steady, 1, 1),
-        epochs=probe_epochs, n_threads=cfg.sched_threads)
-    budget = 0
-    if args.autosize_flush_budget:
-        hoist_cfg = HeraldConfig(**{**cfg.__dict__,
-                                    "sched_pull_target": int(target)})
-        budget, steady_h = sweep_flush_budget(
-            hoist_cfg, rows, trn[1], 1, W, steady_h, epochs=probe_epochs,
-            n_threads=cfg.sched_threads)
-        budget = budget or 0
-    cfg.sched_unique_slots = int(full.unique_slots())
-    cfg.sched_flush_slots = int(full.flush_slots())
-    cfg.sched_pull_target = int(target)
-    cfg.a2a_pull_capacity = int(steady_h.pull_capacity())
-    cfg.a2a_flush_capacity = int(steady_h.flush_capacity())
-    cfg.sched_flush_budget = int(budget) or None
+    S = comm.size if comm else 1
+    sizes = (_probe_sizes(cfg, rows, trn, args, device, S)
+             if comm is None or comm.rank == 0 else None)
+    if S > 1:
+        from herald_tpu_torch.sched.service import broadcast_arrays
+        sizes = broadcast_arrays(comm, [sizes], [(7,)], [np.int64])[0]
+    (cfg.sched_unique_slots, cfg.sched_flush_slots, cfg.sched_pull_target,
+     cfg.a2a_pull_capacity, cfg.a2a_flush_capacity, W,
+     budget) = (int(v) for v in sizes)
+    cfg.sched_flush_budget = budget or None
     # the cold steps run on the wide-capacity engine (empty caches pull
     # everything); the same program widths, so the planner's padded
     # buffers fit both engines
@@ -600,11 +585,53 @@ def _autosize(cfg, rows, trn, args, device):
     return CachedEngine(cold_cfg, table_rows=rows, device=device), W
 
 
-def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
-                     ckpt_extras, timer):
-    """The scheduled branch of the JAX launcher (`cli.py:736-1069`) on one
-    device. Returns (engine, state, losses, overflow, stopped_early,
-    report extras)."""
+def _probe_sizes(cfg, rows, trn, args, device, S: int) -> np.ndarray:
+    """The seven `--autosize` sizes of a probe plan for S workers: unique
+    and flush slots, pull target, pull and flush capacities, warm-up
+    steps, flush budget (0: none). Makes no collective call: its probe
+    engines run no dense sync."""
+    from herald_tpu_torch.config import HeraldConfig
+    from herald_tpu_torch.sched.sizing import (TrafficProfile,
+                                               hoist_target_candidates,
+                                               profile_planned_traffic,
+                                               sweep_flush_budget,
+                                               sweep_hoist_sizing)
+    from herald_tpu_torch.train.cached import CachedEngine
+    cfg = HeraldConfig(**{**cfg.__dict__, "dense_sync_every": 1,
+                          "dense_sync_group": 0})
+    probe_eng = CachedEngine(cfg, table_rows=rows, device=device)
+    # with per-epoch reshuffling later epochs batch differently: probe
+    # several permutations so the caps cover them
+    probe_epochs = min(args.nepoch, 3) if cfg.sched_shuffle_seed else 1
+    probe = probe_eng.make_planner(trn[1], epochs=probe_epochs,
+                                   n_threads=cfg.sched_threads)
+    steps_prof, _ = profile_planned_traffic(probe, trn[1], S)
+    probe.close()
+    W = min(args.autosize_warmup, len(steps_prof) // 2)
+    steady = TrafficProfile.from_steps(steps_prof[W:])
+    full = TrafficProfile.from_steps(steps_prof)
+    target, steady_h = sweep_hoist_sizing(
+        cfg, rows, trn[1], S, W, hoist_target_candidates(steady, S, S),
+        epochs=probe_epochs, n_threads=cfg.sched_threads)
+    budget = 0
+    if args.autosize_flush_budget:
+        hoist_cfg = HeraldConfig(**{**cfg.__dict__,
+                                    "sched_pull_target": int(target)})
+        budget, steady_h = sweep_flush_budget(
+            hoist_cfg, rows, trn[1], S, W, steady_h, epochs=probe_epochs,
+            n_threads=cfg.sched_threads)
+        budget = budget or 0
+    return np.array([full.unique_slots(), full.flush_slots(), target,
+                     steady_h.pull_capacity(), steady_h.flush_capacity(), W,
+                     budget], np.int64)
+
+
+def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
+                     maybe_ckpt, ckpt_extras, timer):
+    """The scheduled branch of the JAX launcher (`cli.py:736-1069`), on one
+    device or over the S ranks of `comm`. Returns (engine, state, losses,
+    overflow, stopped_early, report extras)."""
+    from herald_tpu_torch.sched.service import BroadcastPlanner
     from herald_tpu_torch.train.cached import CachedEngine
     from herald_tpu_torch.train.checkpoint import (load_cached_checkpoint,
                                                    load_extra)
@@ -617,9 +644,20 @@ def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
                     "pinned host memory"}), flush=True)
     eng_cold, warm_steps = None, 0
     if args.autosize:
-        eng_cold, warm_steps = _autosize(cfg, rows, trn, args, device)
+        eng_cold, warm_steps = _autosize(cfg, rows, trn, args, device, comm)
     eng = CachedEngine(cfg, table_rows=rows, device=device)
-    if args.plan_cache:
+    S = eng.num_shards
+    if S > 1:
+        # one planner for the job, on rank 0; every rank gets its chunks
+        planner = BroadcastPlanner(
+            lambda: eng.make_planner(trn[1], epochs=args.nepoch,
+                                     n_threads=cfg.sched_threads),
+            comm, num_samples=len(trn[1]), nrank=S,
+            batch_size=cfg.batch_size, unique_cap=eng.U_cap,
+            flush_cap=eng.F_cap, cache_rows=eng.cache_rows,
+            epochs=args.nepoch, prefetch_cap=eng.P_cap,
+            num_tables=eng.model.spec.num_sparse)
+    elif args.plan_cache:
         from herald_tpu_torch.sched.replay import plan_cache
         planner = plan_cache(eng, trn[1], args.plan_cache,
                              epochs=args.nepoch, n_threads=cfg.sched_threads)
@@ -728,7 +766,7 @@ def _train_scheduled(args, cfg, rows, trn, device, eval_epoch, maybe_ckpt,
         eng._unsynced = False
         if final_eval_losses is not None:
             eval_epoch(eng, state, done // spe - 1, final_eval_losses)
-    gb = cfg.batch_size
+    gb = cfg.batch_size * S
     extra = {
         "cache": cache_report(planner, done, eng.ids_per_worker),
         # train-loop-only throughput, evals and start-up excluded
@@ -966,11 +1004,11 @@ def run_training(args) -> dict:
     gb = cfg.batch_size
     prof = None
     if args.scheduled:
-        if args.log_dir:
-            prof = _start_trace(device)
+        prof = _start_trace(device) if args.log_dir and lead else None
         eng, state, losses, overflow_total, stopped_early, extra = \
-            _train_scheduled(args, cfg, rows, trn, device, eval_epoch,
-                             maybe_ckpt, ckpt_extras, timer)
+            _train_scheduled(args, cfg, rows, trn, device, comm,
+                             eval_epoch, maybe_ckpt, ckpt_extras, timer)
+        gb = cfg.batch_size * eng.num_shards     # the global batch
     elif args.assign_only:
         prof = _start_trace(device) if args.log_dir and lead else None
         eng, state, losses, overflow_total, stopped_early, extra = \
@@ -1066,6 +1104,11 @@ def main(argv=None):
     import torch.distributed as dist
     if not (dist.is_initialized() and dist.get_rank() > 0):
         print(json.dumps(report, indent=2, default=float))
+    if dist.is_initialized():
+        # leave the group together, before the interpreter's exit tears
+        # gloo's connections down under a rank still in it
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

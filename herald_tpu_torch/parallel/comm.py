@@ -17,13 +17,16 @@ rank and no group is made.
   other.
 - `all_to_all` moves [S, ...] blocks with equal splits as bytes (uint8
   views: gloo refuses int16 and bf16 needs no arithmetic), `all_reduce_`
-  sums one flat buffer in place, `all_gather` stacks a tensor of every
-  rank, `broadcast_` copies rank 0's tensors to every rank, `subgroups`
-  makes dense-sync groups on every rank in one order. At S = 1 each
-  returns its input. The split sizes are fixed, so no collective waits on
-  the host to size itself. gloo takes CUDA tensors for every one of these
-  (and copies them through host memory itself); this module stages
-  nothing.
+  sums one flat buffer in place, `reduce_scatter` sums [S*b, ...] over the
+  group and keeps this rank's block b (JAX's tiled `psum_scatter` over
+  axis 0), `all_gather` stacks a tensor of every rank, `broadcast_` copies
+  rank 0's tensors to every rank, `subgroups` makes dense-sync groups on
+  every rank in one order. At S = 1 each returns its input. The split
+  sizes are fixed, so no collective waits on the host to size itself.
+  gloo takes CUDA tensors for every one of these (and copies them through
+  host memory itself; `reduce_scatter_tensor` too, on an H100 with torch
+  2.11: `chip_smoke.py`'s hybrid:scheduled leg calls it there), so every
+  backend runs the same calls and this module stages nothing.
 - Each collective adds its host seconds to `seconds`, for the profiles of
   `chip_smoke.py`; under gloo a call returns when its bytes have moved.
 """
@@ -108,6 +111,18 @@ class Comm:
             self._timed("all_reduce", t0)
         return flat
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """[S*b, ...] -> [b, ...]: block `rank` of the sum of every rank's
+        x."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.group)
+        self._timed("reduce_scatter", t0)
+        return out
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[S, *x.shape]: every rank's x, in rank order."""
         if self.size == 1:
@@ -124,6 +139,7 @@ class Comm:
         dtype (the tensors packed into one flat buffer)."""
         if self.size == 1:
             return
+        t0 = time.perf_counter()
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
@@ -132,6 +148,7 @@ class Comm:
             dist.broadcast(flat, 0, group=self.group)
             for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
                 t.copy_(v.view(t.shape))
+        self._timed("broadcast", t0)
 
     def subgroups(self, size: int):
         """The group of `size` consecutive ranks this rank belongs to.

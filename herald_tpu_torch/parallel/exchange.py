@@ -183,11 +183,12 @@ def owner_rows(spec: ExchangeSpec, table_shard: torch.Tensor, route: Route,
 
 
 def gather_rows(spec: ExchangeSpec, table_shard: torch.Tensor, route: Route,
-                comm=None) -> torch.Tensor:
+                comm=None, out_dtype=None) -> torch.Tensor:
     """[U, D] rows aligned with the routed unique ids (zero rows for the
-    dropped ones): `owner_rows`, then a K1 read of its buffer at `pos`."""
+    dropped ones): `owner_rows`, then a K1 read of its buffer at `pos`,
+    widened to `out_dtype` when given."""
     return embedding_gather(owner_rows(spec, table_shard, route, comm),
-                            route.pos)
+                            route.pos, out_dtype)
 
 
 def rowquant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Cached training engine: hot-row cache + planned flush/refresh (port of
-`herald_tpu/train/cached.py`, one device).
+`herald_tpu/train/cached.py`).
 
 State adds two arrays to the base engine:
 
@@ -46,11 +46,42 @@ and writes its program has work for: its variant (`StagedChunk.steps`)
 picks the graph. A phase without work is a no-op in JAX too, which runs
 it on its sentinels when `sched_noflush_variant` / `sched_nopull_variant`
 is off; `noflush_chunks` / `nopull_chunks` count chunks with JAX's
-per-chunk meaning of those flags. Not ported: the packed wire and the
-chunk memo (`sched_packed_wire`, `sched_chunk_memo`, fixes for the TPU's
-remote transport; both flags are accepted, `memo_hits` stays 0),
-`example_step_args` (HLO inspection), and multi-rank planning (ROADMAP
-queue 1, item 8).
+per-chunk meaning of those flags.
+
+Over S ranks (`comm_mode="hybrid"`, JAX's `num_shards > 1` branches) the
+table is row-sharded as the plain hybrid engine's is (`train/engine.py`),
+one planner plans for S workers (`make_planner`, on rank 0 through
+`sched.service.BroadcastPlanner`), and rank r runs worker r's columns of
+each broadcast chunk with a [C, 2W] cache of its own:
+- the flush routes the flushed ids to their owners (`route_ids` over the
+  F_cap-wide `flush_exchange`), sends the deltas there in the wire dtype
+  (`scatter_grads`: f32, bf16 or int8 with per-row scales; the int8 wire
+  leaves the exact residual `delta - q*scale` in the delta plane), and
+  the owner reads its rows through K1, applies the embedding optimizer
+  and writes them back with `engine.write_rows` (its targets exist only
+  after the exchange, so no host list serves it);
+- the pull routes the pull and prefetch ids through the engine's exchange
+  (`gather_rows`: the owner's K1 read, the return all-to-all, a K1 read
+  of the returned buffer by position, widened to f32);
+- the loss is scaled by 1/S, and the dense grads, the loss and the
+  overflow of both exchanges are summed in one all-reduce
+  (`Engine._reduce`, with its dense-sync relaxation);
+- the pinned tier holds the logical rows [0, P) (P rounded up to a
+  multiple of S) on every rank; K3 sums the hot delta [P, W], a
+  reduce-scatter gives rank r its block [r*P/S, (r+1)*P/S), the optimizer
+  moves that block with the rank's slots, and an all-gather brings the
+  new rows back, so the block stays identical on every rank.
+Both exchanges are collectives, so whether a step flushes or pulls is
+decided from every worker's columns of the chunk, the same on every rank;
+the cache writes stay per rank. The steps run uncaptured.
+
+Not ported: the packed wire and the chunk memo (`sched_packed_wire`,
+`sched_chunk_memo`, fixes for the TPU's remote transport; both flags are
+accepted, `memo_hits` stays 0), `example_step_args` (HLO inspection), and
+residency tracking and `serve_overlay` over S ranks, which raise: they
+read every worker's cache, which JAX's launcher allows in one process
+only (herald_tpu/launch/cli.py:850-854), and every multi-rank run of the
+port is multi-process.
 """
 
 from __future__ import annotations
@@ -66,9 +97,11 @@ from herald_tpu_torch.models.base import ModelDef
 from herald_tpu_torch.ops.kernels import (embedding_gather,
                                           hot_onehot_gather_add_,
                                           hot_onehot_push)
+from herald_tpu_torch.parallel.exchange import (gather_rows, make_exchange,
+                                                route_ids, rowquant_int8,
+                                                scatter_grads)
 from herald_tpu_torch.sched.planner import CachePlanner
-from herald_tpu_torch.parallel.exchange import make_exchange
-from herald_tpu_torch.train.engine import Engine, TrainState
+from herald_tpu_torch.train.engine import Engine, TrainState, write_rows
 from herald_tpu_torch.train.graphs import Layout, unpack
 
 
@@ -91,11 +124,14 @@ class StagedChunk(NamedTuple):
     pull-free), for its counters. `steps[k]` is step k's variant, which of
     its writes and phases have work: (flush -> table "ft", flush -> cache
     "fc", pull, prefetch insert "pf", update "up"); the flush phase runs
-    when "ft" or "fc" does. `packed` is a uint8 [K, nbytes] device tensor,
-    step k's inputs in row k as `layout` places them (`train/graphs.py`):
-    "d"/"y" (direct feed) or "idx" (index feed), "slots", "inv",
-    "pull_ids", "fids", "fslots", "uniq" with a pinned tier, and each
-    write's "<w>_tgt" (int64) and "<w>_pos" (int32) of a fixed length."""
+    when "ft" or "fc" does. Over S ranks the flush and the pull flags say
+    whether any worker flushes or pulls in the step (the exchanges are
+    collectives), and the table's write has no host list. `packed` is a
+    uint8 [K, nbytes] device tensor, step k's inputs in row k as `layout`
+    places them (`train/graphs.py`): "d"/"y" (direct feed) or "idx"
+    (index feed), "slots", "inv", "pull_ids", "fids", "fslots", "uniq"
+    with a pinned tier, and each write's "<w>_tgt" (int64) and "<w>_pos"
+    (int32) of a fixed length."""
     K: int
     variant: int
     index_feed: bool
@@ -139,13 +175,13 @@ class CachedEngine(Engine):
         cfg.use_cache = True
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)
-        if self.num_shards > 1:
-            raise NotImplementedError(
-                "the cached engine over several ranks is not ported to "
-                "herald_tpu_torch yet (ROADMAP queue 1, item 8: the "
-                "broadcast planner and the multi-rank cached engine)")
+        S = self.num_shards
         self.cache_rows = cfg.cache_rows(self.num_rows)
         self.pinned_rows = int(cfg.pinned_rows or 0)
+        if self.pinned_rows and S > 1:
+            # the hot tier reduce-scatters its grads into S blocks: round
+            # up (the extra rows only widen the replicated tier)
+            self.pinned_rows = -(-self.pinned_rows // S) * S
         assert self.pinned_rows <= self.num_rows
         # program arrays travel as int32; larger tables would wrap ids
         assert self.num_rows < 2**31, \
@@ -163,10 +199,11 @@ class CachedEngine(Engine):
                       if (cfg.sched_pull_target and cfg.sched_hoist_window
                           and int(cfg.sched_prefetch_slots or 128))
                       else 0)
-        # the flush wire's capacity feeds the planner's per-owner budget
-        # (owner_cap); on one device there is no wire to size
+        # the flush wire: F_cap id slots per (source, owner) pair, or the
+        # tighter a2a_flush_capacity, which the planner takes as its
+        # per-owner budget (owner_cap) and defers planned flushes past
         self.flush_exchange = make_exchange(
-            self.num_rows, 1, self.F_cap,
+            self.num_rows, S, self.F_cap,
             capacity=min(cfg.a2a_flush_capacity or self.F_cap, self.F_cap))
 
     # ------------------------------------------------------------------
@@ -174,8 +211,9 @@ class CachedEngine(Engine):
                      n_threads: int = 8,
                      assign_mode: str = "affinity") -> CachePlanner:
         return CachePlanner(
-            sparse_ids, nrank=1, batch_size=self.cfg.batch_size,
-            cache_rows=self.cache_rows, num_shards=1,
+            sparse_ids, nrank=self.num_shards,
+            batch_size=self.cfg.batch_size,
+            cache_rows=self.cache_rows, num_shards=self.num_shards,
             rows_per_shard=self.exchange.rows_per_shard, epochs=epochs,
             flush_cap=self.F_cap,
             owner_cap=min(self.cfg.sched_flush_budget
@@ -194,19 +232,27 @@ class CachedEngine(Engine):
 
     def init_cached_state(self, seed: Optional[int] = None
                           ) -> CachedTrainState:
+        """The base state (over S ranks, this rank's strided rows of one
+        logical table), an empty cache, and the pinned tier: the hot block
+        is the table's logical rows [0, P), so the two agree at step 0, with
+        zero f32 slots, [P, W] on one device and this rank's block [P/S, W]
+        over S ranks (1 row with no tier). Over S ranks each rank owns the
+        rows r = rank (mod S) of [0, P) at its local slots [0, P/S), and an
+        all-gather interleaves them."""
         base = super().init_state(seed)
-        cache = torch.zeros((self.cache_rows, 2 * self.width),
-                            dtype=torch.float32, device=self.device)
-        # pinned tier: the hot block starts as the table's rows [0, P), so
-        # the two agree at step 0; its optimizer slots are f32
-        prows = max(self.pinned_rows, 1)
-        if self.pinned_rows:
-            hot = base.table[: self.pinned_rows].clone()
+        S, W, P = self.num_shards, self.width, self.pinned_rows
+        cache = torch.zeros((self.cache_rows, 2 * W), dtype=torch.float32,
+                            device=self.device)
+        if P and S == 1:
+            hot = base.table[:P].clone()
+        elif P:
+            owned = self.comm.all_gather(base.table[:P // S])  # [S, P/S, W]
+            hot = owned.transpose(0, 1).reshape(P, W).contiguous()
         else:
-            hot = torch.zeros((1, self.width), dtype=self.cfg.table_dtype,
+            hot = torch.zeros((1, W), dtype=self.cfg.table_dtype,
                               device=self.device)
-        hot_slots = {k: torch.zeros((prows, self.width), dtype=torch.float32,
-                                    device=self.device)
+        hot_slots = {k: torch.zeros((P // S if P else 1, W),
+                                    dtype=torch.float32, device=self.device)
                      for k in self.embed_opt.slot_names}
         return CachedTrainState(*base, cache=cache, hot_table=hot,
                                 hot_slots=hot_slots)
@@ -222,36 +268,64 @@ class CachedEngine(Engine):
 
     def _flush_phase(self, table, table_slots, cache, step, elr, a,
                      to_table: bool, to_cache: bool):
+        """The flush, in place; returns this rank's overflow of the flush
+        exchange over S ranks, None on one device. Over S ranks every rank
+        runs it when any worker flushes (`to_table`)."""
         W = self.width
         fids = a["fids"]
         # full [F, 2W] rows: the value half is written back unchanged with
         # the delta half zeroed (slot C, padding, reads a zero row)
         frows = embedding_gather(cache, a["fslots"])
         deltas = frows[:, W:]
-        row_mask = fids >= 0
-        # ids -1 read zero rows; they are masked and never written
-        rows = embedding_gather(table, fids)
-        row_slots = {k: embedding_gather(v, fids)
+        overflow = None
+        if self.num_shards == 1:
+            # ids -1 read zero rows; they are masked and never written
+            rows_idx, row_grads, row_mask = fids, deltas, fids >= 0
+        else:
+            # the owner's distinct local rows and their summed deltas; the
+            # spare slots read the rows_per_shard sentinel, a zero row
+            route = route_ids(self.flush_exchange, fids, fids >= 0,
+                              self.comm)
+            rows_idx, row_grads, _, row_mask = scatter_grads(
+                self.flush_exchange, route, deltas, self.comm,
+                wire_dtype=self.cfg.flush_wire_dtype)
+            overflow = route.overflow
+        rows = embedding_gather(table, rows_idx)
+        row_slots = {k: embedding_gather(v, rows_idx)
                      for k, v in table_slots.items()}
         new_rows, new_slots = self.embed_opt.apply_rows(
-            rows, deltas.to(rows.dtype), row_slots, step, lr=elr,
+            rows, row_grads.to(rows.dtype), row_slots, step, lr=elr,
             mask=row_mask)
-        if to_table:
+        if self.num_shards > 1:
+            write_rows(table, rows_idx, new_rows, row_mask)
+            for k in table_slots:
+                write_rows(table_slots[k], rows_idx, new_slots[k], row_mask)
+        elif to_table:
             self._write(table, a, "ft", new_rows)
             for k in table_slots:
                 self._write(table_slots[k], a, "ft", new_slots[k])
         if to_cache:
-            zeroed = torch.cat([frows[:, :W], torch.zeros_like(deltas)],
-                               dim=1)
-            self._write(cache, a, "fc", zeroed)
+            residual = torch.zeros_like(deltas)
+            if self.num_shards > 1 and self.cfg.flush_wire_dtype == \
+                    torch.int8:
+                # error feedback: what the int8 wire did not carry stays
+                # in the delta plane for the row's next flush
+                q, sc = rowquant_int8(deltas)
+                residual = deltas - q.to(deltas.dtype) * sc[:, None].to(
+                    deltas.dtype)
+            self._write(cache, a, "fc", torch.cat([frows[:, :W], residual],
+                                                  dim=1))
+        return overflow
 
     def _cached_step_body(self, state: CachedTrainState, a, variant,
                           device_data=None):
         """One step of a staged chunk on its inputs `a` (one row of the
-        chunk), in `variant` (`StagedChunk.steps`): (state, loss). The
-        table, its slots, the cache, the hot block, the dense params and
-        the step are updated in place (JAX donates them); the slots of
-        the dense params and of the hot block are new tensors."""
+        chunk), in `variant` (`StagedChunk.steps`): (state, result), the
+        result as `Engine._reduce` gives it (the loss on one device, [loss,
+        overflow] summed over the group over S ranks). The table, its
+        slots, the cache, the hot block, the dense params and the step are
+        updated in place (JAX donates them); the slots of the dense params
+        and of the hot block are new tensors."""
         to_table, to_cache, do_pull, insert, update = variant
         W, U = self.width, self.U_cap
         if "idx" in a:
@@ -264,15 +338,27 @@ class CachedEngine(Engine):
         inv = a["inv"]
         step = state.step.add_(1)
         elr = self._elr_fn(step)
+        S = self.num_shards
         table, table_slots, cache = state.table, state.table_slots, \
             state.cache
+        # this rank's dropped ids over S ranks (None on one device)
+        overflow = None if S == 1 else self._zero
         if to_table or to_cache:
-            self._flush_phase(table, table_slots, cache, step, elr, a,
-                              to_table, to_cache)
+            flushed = self._flush_phase(table, table_slots, cache, step, elr,
+                                        a, to_table, to_cache)
+            if flushed is not None:
+                overflow = overflow + flushed
         if do_pull:
             pull_ids = a["pull_ids"]
             # f32 rows, widened by K1 as it reads them
-            pulled = embedding_gather(table, pull_ids, torch.float32)
+            if S == 1:
+                pulled = embedding_gather(table, pull_ids, torch.float32)
+            else:
+                route = route_ids(self.exchange, pull_ids, pull_ids >= 0,
+                                  self.comm)
+                pulled = gather_rows(self.exchange, table, route, self.comm,
+                                     torch.float32)
+                overflow = overflow + route.overflow
             if insert:
                 # prefetched rows: both planes (their slots are virgin, so
                 # the delta plane is already 0)
@@ -296,7 +382,9 @@ class CachedEngine(Engine):
             # value half, or the pull's torch.where)
             hot_onehot_gather_add_(emb_uniq, state.hot_table, a["uniq"])
         emb = emb_uniq.index_select(0, inv).reshape(B, -1, W)
-        loss, dgrads, emb_grad = self._loss_and_grads(state.dense, emb, d, y)
+        loss, dgrads, emb_grad = self._loss_and_grads(
+            state.dense, emb, d, y, scale=None if S == 1 else 1.0 / S)
+        dgrads, res = self._reduce(dgrads, loss, overflow)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)
@@ -313,18 +401,38 @@ class CachedEngine(Engine):
         if self.pinned_rows:
             # exact synchronous SGD on the hot block: uniq holds each id
             # once, so the segment sum is a plain scatter of g_uniq
-            hot_delta = hot_onehot_push(a["uniq"], g_uniq, self.pinned_rows)
-            hot_new, hot_slots = self.embed_opt.apply_rows(
-                state.hot_table.to(torch.float32), hot_delta,
-                state.hot_slots, step, lr=elr)
-            hot_table = state.hot_table.copy_(hot_new)
+            hot_table, hot_slots = self._hot_update(state, step, elr,
+                                                    a["uniq"], g_uniq)
         else:
             hot_table, hot_slots = state.hot_table, state.hot_slots
         new_state = CachedTrainState(
             table=table, table_slots=table_slots, dense=dense,
             dense_slots=dense_slots, step=step, cache=cache,
             hot_table=hot_table, hot_slots=hot_slots)
-        return new_state, loss
+        return new_state, res
+
+    def _hot_update(self, state: CachedTrainState, step, elr, uniq, g_uniq):
+        """The pinned tier's update, the hot block in place: (hot block, new
+        slots). K3 sums the delta of the P rows; over S ranks a
+        reduce-scatter gives this rank the sum of its block of P/S rows,
+        the optimizer moves the block with its slots, and an all-gather of
+        the new rows in the table dtype fills the whole block (JAX's
+        `psum_scatter` and `all_gather`, `cached.py:520-540`)."""
+        P, S = self.pinned_rows, self.num_shards
+        hot_delta = hot_onehot_push(uniq, g_uniq, P)
+        hot = state.hot_table
+        if S == 1:
+            new, hot_slots = self.embed_opt.apply_rows(
+                hot.to(torch.float32), hot_delta, state.hot_slots, step,
+                lr=elr)
+            return hot.copy_(new), hot_slots
+        blk = P // S
+        new, hot_slots = self.embed_opt.apply_rows(
+            hot[self.rank * blk:(self.rank + 1) * blk].to(torch.float32),
+            self.comm.reduce_scatter(hot_delta), state.hot_slots, step,
+            lr=elr)
+        return hot.copy_(self.comm.all_gather(new.to(hot.dtype)).reshape(
+            P, self.width)), hot_slots
 
     # ------------------------------------------------------------------
     # staging
@@ -335,26 +443,34 @@ class CachedEngine(Engine):
         """Stage one popped chunk (the first K rows of each array) for
         `train_epoch_staged`. The sparse rows never ship: the planner's
         uniq/inv replace them. Returns a StagedChunk whose variant follows
-        JAX's per-chunk rule, a pure function of the planner stream."""
+        JAX's per-chunk rule, a pure function of the planner stream. Over
+        S ranks the arrays hold every worker's columns ([K, S*X]): the
+        phases are decided from all of them, and this rank stages its own
+        block of each (worker `rank`'s program)."""
         cfg = self.cfg
-        C = self.cache_rows
-        slots, uniq, inv = slots[:K], uniq[:K], inv[:K]
+        C, S = self.cache_rows, self.num_shards
         pulls = np.asarray(pulls[:K]).view(np.uint8).astype(bool)
-        fids, fslots = fids[:K], fslots[:K]
-        pfids, pfslots = pfids[:K], pfslots[:K]
-        has_flush = (fids >= 0).any(axis=1)
-        has_pull = pulls.any(axis=1) | (pfids >= 0).any(axis=1)
+        has_flush = (fids[:K] >= 0).any(axis=1)
+        has_pull = pulls.any(axis=1) | (pfids[:K] >= 0).any(axis=1)
         noflush = bool(cfg.sched_noflush_variant and not has_flush.any())
         nopull = bool(noflush and cfg.sched_nopull_variant
                       and not has_pull.any())
 
+        def mine(x):        # this rank's column block of [K, S*X]
+            x = np.asarray(x[:K])
+            w = x.shape[1] // S
+            return x[:, self.rank * w:(self.rank + 1) * w]
+        assign, slots, pulls, uniq, inv = (mine(x) for x in (
+            assign, slots, pulls, uniq, inv))
+        fids, fslots, pfids, pfslots = (mine(x) for x in (
+            fids, fslots, pfids, pfslots))
+
         host = {}
         if index_feed:
-            host["idx"] = np.asarray(assign[:K], np.int32)
+            host["idx"] = np.asarray(assign, np.int32)
         else:
-            idx = assign[:K]
-            host["d"] = np.asarray(raw_dense[idx], np.float32)
-            host["y"] = np.asarray(raw_labels[idx], np.float32)
+            host["d"] = np.asarray(raw_dense[assign], np.float32)
+            host["y"] = np.asarray(raw_labels[assign], np.float32)
         host["slots"] = np.asarray(slots, np.int32)
         host["inv"] = np.asarray(inv, np.int32)
         pull_ids = np.where(pulls & (uniq >= 0), uniq, -1)
@@ -364,13 +480,16 @@ class CachedEngine(Engine):
         host["fslots"] = np.asarray(fslots, np.int32)
         if self.pinned_rows:
             host["uniq"] = np.asarray(uniq, np.int32)
-        kept = self._write_arrays(host, {
-            "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
+        masks = {
             "fc": ((fslots >= 0) & (fslots < C), fslots),
             "pf": ((pfids >= 0) & (pfslots >= 0) & (pfslots < C), pfslots),
-            "up": ((uniq >= 0) & (slots >= 0) & (slots < C), slots)})
+            "up": ((uniq >= 0) & (slots >= 0) & (slots < C), slots)}
+        if S == 1:
+            masks["ft"] = ((fids >= 0) & (fids < self.padded_rows), fids)
+        kept = self._write_arrays(host, masks)
         packed, layout = self._to_device(host, K)
-        steps = tuple((bool(kept["ft"][k]), bool(kept["fc"][k]),
+        flush = kept["ft"] if S == 1 else has_flush
+        steps = tuple((bool(flush[k]), bool(kept["fc"][k]),
                        bool(has_pull[k]), bool(kept["pf"][k]),
                        bool(kept["up"][k])) for k in range(K))
         return StagedChunk(K=int(K), variant=2 if nopull else 1 if noflush
@@ -426,43 +545,41 @@ class CachedEngine(Engine):
         if staged.index_feed:
             assert device_data is not None, \
                 "an index-feed chunk needs stage_dataset data"
+        S = self.num_shards
         # an index-feed step reads the dataset by address
         reads = tuple(device_data) if staged.index_feed else ()
-        losses = torch.empty(staged.K, dtype=torch.float32,
-                             device=self.device)
+        res = torch.zeros((2, staged.K), dtype=torch.float32,
+                          device=self.device)     # loss; overflow
+        # the dense-sync relaxation's cadence, as `train_epoch`'s
+        step0 = int(state.step) if self._dsync_on and self.dsync_k > 1 \
+            else 0
         for k in range(staged.K):
             variant = staged.steps[k]
             state, _ = self._run(
                 ("cached", staged.index_feed, variant),
                 lambda st, a, v=variant: self._cached_step_body(
                     st, a, v, device_data),
-                state, (staged.packed[k], staged.layout), out=losses[k],
-                reads=reads)
-        return state, {"loss": losses,
-                       "overflow": torch.zeros(staged.K, dtype=torch.int32,
-                                               device=self.device)}
+                state, (staged.packed[k], staged.layout),
+                out=res[:, k] if S > 1 else res[0, k], reads=reads)
+            if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
+                self._sync_dense(state)
+        if self._dsync_on:
+            self._sync_dense(state)
+        return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
 
     def train_step_cached(self, state, planner: CachePlanner, raw_dense,
                           raw_sparse, raw_labels):
         """Pop one program and run it: (state, {"loss", "overflow"}), or
-        (state, None) at the end of the stream."""
-        prog = planner.pop()
-        if prog is None:
+        (state, None) at the end of the stream. Over S ranks a dense-sync
+        relaxation averages the dense state after the step, as JAX's
+        single step does."""
+        self._warn_per_step_dsync()
+        out = planner.pop_chunk(1)
+        if out[0] == 0:
             return state, None
         self._unsynced = True
-        P = max(self.P_cap, 1)
-        pf_i = (prog.prefetch_ids if prog.prefetch_ids is not None
-                else np.full(P, -1, np.int32))
-        pf_s = (prog.prefetch_slots if prog.prefetch_slots is not None
-                else np.full(P, self.cache_rows, np.int32))
-        one = lambda x: np.asarray(x).reshape(1, -1)
-        staged = self._stage_chunk(
-            1, one(prog.assign), one(prog.slots),
-            one(prog.pulls).astype(np.uint8), one(prog.flush_ids),
-            one(prog.flush_slots), one(pf_i), one(pf_s), one(prog.uniq),
-            one(prog.inv), raw_dense, raw_sparse, raw_labels,
-            index_feed=False)
-        state, stats = self._run_chunk(state, staged)
+        state, stats = self._run_chunk(state, self._stage_chunk(
+            *out, raw_dense, raw_sparse, raw_labels, index_feed=False))
         return state, {"loss": stats["loss"][0],
                        "overflow": stats["overflow"][0]}
 
@@ -530,42 +647,53 @@ class CachedEngine(Engine):
 
     def _flush_only(self, state: CachedTrainState, fids: np.ndarray,
                     fslots: np.ndarray) -> CachedTrainState:
-        """The flush phase alone, at step + 1, on host arrays [Wf]."""
+        """The flush phase alone, at step + 1, on this rank's host arrays
+        [Wf]; over S ranks every rank runs it (its exchange is a
+        collective) and its overflow is dropped, as in JAX."""
         fids = np.asarray(fids, np.int64)[None]
         fslots = np.asarray(fslots, np.int64)[None]
         host = {"fids": fids.astype(np.int32),
                 "fslots": fslots.astype(np.int32)}
-        kept = self._write_arrays(host, {
-            "ft": ((fids >= 0) & (fids < self.padded_rows), fids),
-            "fc": ((fslots >= 0) & (fslots < self.cache_rows), fslots)})
+        masks = {"fc": ((fslots >= 0) & (fslots < self.cache_rows), fslots)}
+        if self.num_shards == 1:
+            masks["ft"] = ((fids >= 0) & (fids < self.padded_rows), fids)
+        kept = self._write_arrays(host, masks)
         buf, layout = self._to_device(host, 1)
         step = state.step + 1
         self._flush_phase(state.table, state.table_slots, state.cache, step,
                           self._elr_fn(step), unpack(buf[0], layout),
-                          bool(kept["ft"][0]), bool(kept["fc"][0]))
+                          self.num_shards > 1 or bool(kept["ft"][0]),
+                          bool(kept["fc"][0]))
         return state
 
     @torch.no_grad()
     def sync_cache(self, state, planner: CachePlanner):
         """Flush all residual dirty deltas to the owner table (end-of-run
         sync before eval/checkpoint), and write the pinned hot block back
-        into the table's rows [0, P). In place."""
-        C = self.cache_rows
+        into the table's rows [0, P). In place. Over S ranks every rank
+        reads every worker's dump (`BroadcastPlanner.dirty_rows`), flushes
+        its own in the same number of F_cap-wide flush steps as every other
+        rank, and writes its own rows of [0, P) back."""
+        S, C = self.num_shards, self.cache_rows
         # dump first: it raises if the program stream was not drained,
         # before any state changes
-        ids_z, slots_z = planner.dirty_rows(0)
+        dumps = [planner.dirty_rows(z) for z in range(S)]
         if self.pinned_rows:
-            state.table[: self.pinned_rows].copy_(
-                state.hot_table.to(state.table.dtype))
+            # this rank's rows r = rank (mod S) of [0, P), local slots
+            # [0, P/S)
+            state.table[: self.pinned_rows // S].copy_(
+                state.hot_table[self.rank::S].to(state.table.dtype))
         self._unsynced = False
-        max_n = len(ids_z)
+        ids_z, slots_z = dumps[self.rank]
+        max_n = max(len(i) for i, _ in dumps)
         if max_n == 0:
             return state
         # final-sync width: the per-step flush is F_cap wide, but the end
-        # dump can hold the whole resident dirty set; JAX flushes it in a
-        # few wide calls of <= 128K rows, and so does the port
+        # dump can hold the whole resident dirty set; on one device JAX
+        # flushes it in a few wide calls of <= 128K rows, and so does the
+        # port. Over S ranks the flush exchange is sized for F_cap
         Wf = self.F_cap
-        if max_n > 4 * self.F_cap:
+        if S == 1 and max_n > 4 * self.F_cap:
             Wf = 1 << min(int(np.ceil(np.log2(max_n))), 17)
         for off in range(0, max_n, Wf):
             fids = np.full(Wf, -1, np.int64)
@@ -582,12 +710,21 @@ class CachedEngine(Engine):
     # the synced values of every dirty row with the flush math, without
     # touching the training state (JAX: cached.py:1142-1268)
     # ------------------------------------------------------------------
+    def _one_process(self, what: str) -> None:
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                f"{what} reads every worker's cache, which JAX's launcher "
+                f"allows in one process only (--ckpt-serve-view, "
+                f"herald_tpu/launch/cli.py:850-854); over "
+                f"{self.num_shards} ranks the port runs one process a rank")
+
     def enable_residency_tracking(self, mirror: Optional[np.ndarray] = None
                                   ) -> None:
         """Start mirroring cache residency on the host. Must be enabled
         before the first dispatched chunk (or pass the `mirror` saved by a
         checkpoint when resuming). train_epoch_cached tracks at pop time
-        (pop == dispatch there)."""
+        (pop == dispatch there). One rank only."""
+        self._one_process("residency tracking")
         if mirror is not None:
             mirror = np.asarray(mirror, np.int64)
             assert mirror.shape == (1, self.cache_rows), mirror.shape
@@ -620,6 +757,7 @@ class CachedEngine(Engine):
         to f32, where the flush itself casts the delta to the table
         dtype, as in JAX."""
         from herald_tpu_torch.bridge import tensor_to_numpy
+        self._one_process("serve_overlay")
         assert self._slot2id is not None, \
             "call enable_residency_tracking() before training"
         W = self.width

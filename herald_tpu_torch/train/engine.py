@@ -260,21 +260,22 @@ class Engine:
         for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
             t.copy_(v.view(t.shape))
 
-    def _reduce(self, dgrads, loss, route):
+    def _reduce(self, dgrads, loss, overflow):
         """(dense grads, the step's result). Over S ranks the result is f32
-        [loss, overflow], summed over the group with the grads in one
-        all-reduce of one flat buffer; on one device (`route` None) the
-        grads are as they are and the result is the loss alone (no
-        overflow, and no kernel to make one). Under a dense-sync subgroup
+        [loss, overflow] (`overflow`: the step's dropped ids on this rank),
+        summed over the group with the grads in one all-reduce of one flat
+        buffer; on one device (`overflow` None) the grads are as they are
+        and the result is the loss alone (no overflow, and no kernel to
+        make one). Under a dense-sync subgroup
         the grads go over it instead and are scaled by S/g (the loss was
         scaled by 1/S, so the group's sum is g/S of its mean), and the loss
         and overflow take a second call."""
-        if route is None:
+        if overflow is None:
             return dgrads, loss
         names = list(dgrads)
         parts = [dgrads[k].reshape(-1) for k in names]
         stats = torch.stack([loss.to(torch.float32),
-                             route.overflow.to(torch.float32)])
+                             overflow.to(torch.float32)])
         if self._dsync_group is None:
             flat = self.comm.all_reduce_(torch.cat(parts + [stats]))
             stats = flat[-2:]
@@ -444,7 +445,8 @@ class Engine:
         loss, dgrads, emb_grad = self._loss_and_grads(
             state.dense, emb, a["d"], a["y"],
             scale=None if route is None else 1.0 / self.num_shards)
-        dgrads, res = self._reduce(dgrads, loss, route)
+        dgrads, res = self._reduce(dgrads, loss,
+                                   None if route is None else route.overflow)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)

@@ -169,7 +169,8 @@ class FaeEngine(Engine):
         loss, dgrads, emb_grad = self._loss_and_grads(
             state.dense, emb, a["d"], a["y"],
             scale=None if route is None else 1.0 / self.num_shards)
-        dgrads, res = self._reduce(dgrads, loss, route)
+        dgrads, res = self._reduce(dgrads, loss,
+                                   None if route is None else route.overflow)
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)

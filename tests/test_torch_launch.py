@@ -161,12 +161,10 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scheduled", "--int8-flush"], "--int8-flush.*item 8"),
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
     (["--export-onnx", "m.onnx"], "--export-onnx"),
     (["--multihost"], "--multihost"),
     (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
-    (["--int8-flush"], "--int8-flush.*item 8"),
     (["--platform", "cpu"], "--platform"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
@@ -176,9 +174,9 @@ def test_flags_not_ported_raise(argv, match):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--scheduled"], "--scheduled over 2 ranks.*item 8"),
     (["--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
     (["--resume", "ck"], "--resume over 2 ranks.*item 9"),
+    (["--scheduled", "--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
 ], ids=lambda v: v[-1] if isinstance(v, list) else None)
 def test_multi_rank_modes_not_ported_raise(argv, match, monkeypatch):
     """Over S > 1 ranks (WORLD_SIZE of torch.distributed.run) the modes of
@@ -187,6 +185,19 @@ def test_multi_rank_modes_not_ported_raise(argv, match, monkeypatch):
     with pytest.raises(NotImplementedError, match=match) as e:
         _port(["--comm", "hybrid"] + argv)
     assert "ROADMAP" in str(e.value)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--plan-cache", "tape"], "--plan-cache is single-process only"),
+    (["--ckpt-serve-view"], "--ckpt-serve-view is single-process only"),
+], ids=lambda v: v[0])
+def test_multi_rank_scheduled_one_process_options_raise(argv, match,
+                                                        monkeypatch):
+    """herald_tpu.launch's one-process options of the scheduled branch
+    raise over S > 1 ranks with its messages, before any group is made."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=match):
+        _port(["--comm", "hybrid", "--scheduled"] + argv)
 
 
 @pytest.mark.parametrize("argv", [["--fae"], ["--model", "fae_wdl_criteo"],

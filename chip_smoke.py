@@ -9,12 +9,13 @@ through the scheduled, cached engine, and print what it measured.
     python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
     python3 chip_smoke.py --phase assigned|hybrid
 
-Prints one JSON object per line, in this order: device, build,
+Prints one JSON object per line (a phase's with "elapsed_s", the
+seconds since the script started), in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
-kernel:hot_onehot_gather, launch:scheduled, hybrid, hybrid:assigned,
-hybrid:fae, launch:hybrid,
+kernel:hot_onehot_gather, launch:scheduled, hybrid, hybrid:checkpoint,
+hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid,
 kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
@@ -54,8 +55,14 @@ state and against the same steps through the plain versions of K1 and
 K3; 64 steps are timed, rank 0 profiles a chunk of 8 and times K1's four
 and K3's two sites of the step at their shapes. That rate measures gloo
 on one card, not the exchange over several cards. The same two rank
-processes then run hybrid:assigned (assign-only mode: rank 0's lookahead
-scheduler for two workers, its assignments broadcast by a
+processes then run hybrid:checkpoint (each saves its 4.32 GB block of
+the plain state into its own shard file under the build directory, rank
+0 the tower and the manifest, and restores it into fresh tensors; the
+restore equal to what was saved, 4 steps from each bit-identical in
+losses and the table's row fingerprints, their launches counted and
+rank 0's profiled; each rank's bytes, save and load seconds and GB/s
+printed, the files deleted), hybrid:assigned (assign-only mode: rank
+0's lookahead scheduler for two workers, its assignments broadcast by a
 BroadcastScheduler; 8 steps against the plain steps over the same global
 batch sets, each rank's ids its row of the assignment, then both timed
 in turns) and hybrid:fae (fae_wdl_criteo: the cold table row-sharded,
@@ -63,10 +70,17 @@ the 337,625 x 128 hot block replicated and its gradient all-reduced; 8
 steps against the one-device FaeEngine and against the plain versions
 of K1, K3 and K4's add form, the hot block bit-identical on both ranks,
 16 timed steps with the hot all-reduce's host ms, rank 0's profile and
-the step's eight kernel sites timed). launch:hybrid runs
-`torch.distributed.run` with 2 ranks on card 0 (gloo), plainly, with
-`--model fae_wdl_criteo` and with `--assign-only`, and with 1 rank
-(NCCL), the latter's losses equal to the local launcher's.
+the step's eight kernel sites timed) and hybrid:scheduled (the cached
+engine over the ranks). launch:hybrid runs `torch.distributed.run` with
+2 ranks on card 0 (gloo), plainly, with `--model fae_wdl_criteo`, with
+`--assign-only` and with `--scheduled`, and with 1 rank (NCCL), the
+latter's losses equal to the local launcher's; then, at 65,536 rows,
+the plain, assign-only and scheduled branches with 2 ranks stopped at
+step 8 with --ckpt and resumed with --resume, bit for bit the
+uninterrupted runs, 1 rank resuming the 2-rank plain checkpoint, and
+the supervisor (`herald_tpu_torch.launch.supervise`) recovering a
+1-rank scheduled run that crashes at step 6 to the uninterrupted run's
+report.
 
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
@@ -127,6 +141,7 @@ import hashlib
 import importlib.util
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -206,7 +221,13 @@ FULL_ROWS = DATASETS["criteo"].num_embed_rows      # 33,762,577
 BATCH, EMB = 256, 128
 
 
+# a phase line's "elapsed_s": seconds since the script started
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -3158,6 +3179,8 @@ HYBRID_SCHED_SITES = {
              ("hot_onehot_push", "g_uniq"),
              ("hot_onehot_push", "hot_delta"))}
 HYBRID_SCHED_TIMED, HYBRID_SCHED_PROFILED = 32, 4
+# hybrid:checkpoint: steps trained from the saved and the restored state
+HYBRID_CKPT_STEPS = 4
 
 
 @contextlib.contextmanager
@@ -3881,6 +3904,76 @@ def _want_sched(variants) -> dict:
     return want
 
 
+def _hybrid_checkpoint_leg(eng: Engine, state: TrainState, data,
+                           tmp: Path) -> tuple:
+    """hybrid:checkpoint on this rank: the plain state saved over the
+    ranks (this rank's 16,881,296 x 128 bf16 block into its own shard
+    file, rank 0 the tower and the manifest), restored into fresh
+    tensors at S = 2, then HYBRID_CKPT_STEPS steps from the saved and
+    from the restored state (rank 0 profiles the latter, its launches
+    counted). Writes under the phase's directory in the build directory
+    and deletes it. Returns (the state, the leg's results)."""
+    comm = eng.comm
+    ck = tmp / "ckpt"
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    comm.barrier()
+    t0 = time.perf_counter()
+    save_checkpoint(state, str(ck), comm=comm)
+    save_s = time.perf_counter() - t0
+    vdir = ck / f"v{int(state.step)}"
+    mine = [f"shards.p{comm.rank}.npz", f"blocks.p{comm.rank}.json"] + (
+        ["replicated.npz", "manifest.json"] if comm.rank == 0 else [])
+    written = sum((vdir / f).stat().st_size for f in mine)
+    comm.barrier()
+    t0 = time.perf_counter()
+    back = load_checkpoint(str(ck), comm.device, padded_rows=eng.padded_rows,
+                           comm=comm)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    restored_equal = bool(torch.equal(back.table, state.table)) \
+        and int(back.step) == int(state.step) \
+        and all(torch.equal(back.dense[k], v) for k, v in state.dense.items())
+    state, st = eng.train_epoch(state, *data)
+    saved = (st["loss"].cpu(), _row_sums(state.table).cpu(),
+             {k: v.clone() for k, v in state.dense.items()})
+    run = {}
+
+    def resumed(_i):
+        run["state"], run["stats"] = eng.train_epoch(back, *data)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    profile = None
+    comm.barrier()
+    if comm.rank == 0:
+        prof, host_ms, lost = _session(resumed, 1)
+        per, _ = _device_items(prof, HYBRID_CKPT_STEPS)
+        busy = None if lost else sum(per.values())
+        profile = {"steps": HYBRID_CKPT_STEPS, "device_busy_ms": busy,
+                   "host_ms_profiled": host_ms / HYBRID_CKPT_STEPS,
+                   "top_device_ms": _top(per), "lost_launches": len(lost)}
+    else:
+        resumed(0)
+        torch.cuda.synchronize()
+    launches = _launch_counts()
+    back = run.pop("state")
+    identical = bool(torch.equal(run["stats"]["loss"].cpu(), saved[0])) \
+        and bool(torch.equal(_row_sums(back.table).cpu(), saved[1])) \
+        and all(torch.equal(back.dense[k], v) for k, v in saved[2].items())
+    del back, run
+    _free()
+    comm.barrier()
+    if comm.rank == 0:
+        shutil.rmtree(ck)
+    return state, {"rank": comm.rank, "free_gb_before": free_gb,
+                   "bytes_written": written, "save_s": save_s,
+                   "load_s": load_s, "save_gb_s": written / save_s / 1e9,
+                   "load_gb_s": written / load_s / 1e9,
+                   "restored_equal": restored_equal,
+                   "steps_identical": identical,
+                   "losses": saved[0].tolist(), "launches": launches,
+                   "step_profile": profile}
+
+
 def hybrid_rank(rank: int, tmp: Path) -> None:
     """One rank of the hybrid phase, in a process of its own on the card
     (`--hybrid-rank R --hybrid-dir DIR`): its own init_state(0), held
@@ -3890,8 +3983,8 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
     launches counted), the same 8 from the same state with the plain
     versions of K1 and K3, 64 timed steps, one profiled chunk of 8 (rank
     0), 8 steps whose K1 and K3 inputs rank 0 records and then times;
-    then the assign-only leg on the same engine, the FAE leg and the
-    scheduled leg. Writes rank<R>.pt to DIR."""
+    then the checkpoint leg and the assign-only leg on the same engine,
+    the FAE leg and the scheduled leg. Writes rank<R>.pt to DIR."""
     import torch.distributed as dist
     from herald_tpu_torch.parallel.comm import setup
     setup(DEVICE + ":0", init_method=f"file://{tmp}/store", rank=rank,
@@ -4018,6 +4111,11 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
     dist.barrier()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     table_shape = list(state.table.shape)
+    # the plain state saved and restored, over the ranks (the profiled
+    # chunk's first batches)
+    state, ckpt = _hybrid_checkpoint_leg(
+        eng, state, batches(HYBRID_STEPS + HYBRID_TIMED, HYBRID_CKPT_STEPS),
+        tmp)
     # assign-only mode on the same engine, then the FAE engine
     state, assigned = _hybrid_assigned_leg(eng, state, batches(0, n))
     del state, eng
@@ -4029,7 +4127,7 @@ def hybrid_rank(rank: int, tmp: Path) -> None:
                 "overflow": overflow,
                 "dense": {k: v.cpu() for k, v in dense_after.items()},
                 "assigned": assigned, "fae": fae, "scheduled": sched,
-                "summary": {
+                "checkpoint": ckpt, "summary": {
                     "rank": rank, "backend": comm.backend,
                     "world_size": comm.size, "init_equal": init_equal,
                     "launches": launches, "plain_kernels": plain,
@@ -4059,8 +4157,9 @@ def phase_hybrid() -> dict:
     one-device engine's, and each step launches HYBRID_STEP. Then 64
     timed steps (global examples/s), rank 0's step profile and the six
     kernel sites timed at their shapes. The same ranks then run the
-    assign-only, FAE and scheduled legs (`_hybrid_assigned_leg`,
-    `_hybrid_fae_leg`, `_hybrid_scheduled_leg`), held here by
+    checkpoint, assign-only, FAE and scheduled legs
+    (`_hybrid_checkpoint_leg`, `_hybrid_assigned_leg`, `_hybrid_fae_leg`,
+    `_hybrid_scheduled_leg`), held here by `_hybrid_checkpoint_gates`,
     `_hybrid_assigned_gates`, `_hybrid_fae_gates` and
     `_hybrid_scheduled_gates`, each emitted as a line of its own."""
     _free()
@@ -4157,6 +4256,7 @@ def phase_hybrid() -> dict:
         raise AssertionError(f"the hybrid steps differ from the one-device "
                              f"engine's: loss {loss_err}, rows {row_err}, "
                              f"dense {dense_err}, movement {moves}")
+    checkpoint = _hybrid_checkpoint_gates(res, summ[0]["step_profile"])
     assigned = _hybrid_assigned_gates(res)
     fae = _hybrid_fae_gates(res, fae_hot)
     scheduled = _hybrid_scheduled_gates(res, sched_saved)
@@ -4186,10 +4286,49 @@ def phase_hybrid() -> dict:
            "kernel_sites": summ[0]["sites"],
            "peak_mem_gb": [s["peak_mem_gb"] for s in summ]}
     emit(out)
+    emit(checkpoint)
     emit(assigned)
     emit(fae)
     emit(scheduled)
-    return {**out, "assigned": assigned, "fae": fae, "scheduled": scheduled}
+    return {**out, "checkpoint": checkpoint, "assigned": assigned, "fae": fae,
+            "scheduled": scheduled}
+
+
+def _hybrid_checkpoint_gates(res, hybrid_profile) -> dict:
+    """hybrid:checkpoint over the ranks: every rank's restore equal to
+    what it saved (table, tower, step), the steps from the saved and from
+    the restored state bit-identical (losses, the table's row
+    fingerprints, the tower) and equal on every rank, HYBRID_STEP
+    launches a restored step. Prints each rank's bytes written, save and
+    load seconds and GB/s, and rank 0's busy a restored step beside the
+    hybrid leg's."""
+    ck = [r["checkpoint"] for r in res]
+    want = _want(HYBRID_STEP, HYBRID_CKPT_STEPS)
+    for c in ck:
+        if not (c["restored_equal"] and c["steps_identical"]):
+            raise AssertionError(f"rank {c['rank']}'s restored state or "
+                                 f"its steps differ from the saved one's: "
+                                 f"{c}")
+        if c["launches"] != want:
+            raise AssertionError(f"rank {c['rank']}'s restored steps "
+                                 f"launched {c['launches']}; expected "
+                                 f"{want}")
+    if any(c["losses"] != ck[0]["losses"] for c in ck):
+        raise AssertionError("the ranks' losses after the restore differ")
+    prof = ck[0]["step_profile"]
+    busy, busy0 = prof["device_busy_ms"], hybrid_profile["device_busy_ms"]
+    return {"phase": "hybrid:checkpoint", "model": "wdl_criteo",
+            "world_size": HYBRID_S,
+            "table_shape_per_rank": res[0]["summary"]["table_shape"],
+            "rows_cut": None, "steps_after_restore": HYBRID_CKPT_STEPS,
+            "restored_equal": True, "steps_bit_identical": True,
+            "launches": ck[0]["launches"],
+            "per_rank": [{k: c[k] for k in (
+                "rank", "bytes_written", "save_s", "load_s", "save_gb_s",
+                "load_gb_s", "free_gb_before")} for c in ck],
+            "losses": ck[0]["losses"], "step_profile": prof,
+            "busy_over_hybrid_step": None if busy is None or busy0 is None
+            else busy / busy0}
 
 
 def _hybrid_assigned_gates(res) -> dict:
@@ -4433,7 +4572,8 @@ def phase_launch_hybrid() -> dict:
     `--scheduled --int8-flush` (one epoch each, so that the cache syncs
     and the last eval is exact) the same way; then 1 rank
     (its own card, so NCCL) and the local launcher over the same data for
-    8 steps, whose per-step losses must be equal."""
+    8 steps, whose per-step losses must be equal; then the stop/resume
+    pairs, the resize and the supervisor of `_resume_pairs`."""
     common = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
               "--bf16-table", "--rows", str(FULL_ROWS), "--samples", "16384",
               "--scan-steps", "8"]
@@ -4484,6 +4624,7 @@ def phase_launch_hybrid() -> dict:
             local["val_auc"]:
         raise AssertionError(f"1-rank hybrid launch {one} against the "
                              f"local launcher {local}")
+    pairs = _resume_pairs(run)
     keys = ("devices", "backend", "device", "steps", "train_loss_last",
             "val_auc", "examples_per_sec")
     out = {"phase": "launch:hybrid", "two_ranks_command_s": two_s,
@@ -4502,8 +4643,150 @@ def phase_launch_hybrid() -> dict:
               for m in ("scheduled", "scheduled_int8")},
            "one_rank": {k: one[k] for k in ("devices", "backend", "steps",
                                             "val_auc")},
-           "one_rank_losses_equal_local": True}
+           "one_rank_losses_equal_local": True, **pairs}
     emit(out)
+    return out
+
+
+RESUME_ROWS, RESUME_STOP = 65_536, 8
+
+
+def _timed_run(argv):
+    """(report, command seconds) of a launch."""
+    t0 = time.perf_counter()
+    rep = _report(_run(argv))
+    return rep, time.perf_counter() - t0
+
+
+def _on_threads(jobs: dict) -> dict:
+    """Each job (a function) on a thread of its own, all at once: their
+    results, or the first job's error."""
+    results, errors = {}, []
+
+    def go(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as e:        # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=go, args=job) for job in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _resume_pairs(run) -> dict:
+    """launch:hybrid's checkpoints, at RESUME_ROWS rows (batch 256 a rank,
+    bf16): for the plain, assign-only and scheduled branches with 2 ranks
+    on card 0, an epoch of 28 steps against the same run stopped by
+    --max-steps RESUME_STOP with --ckpt and resumed with --resume: the
+    steps add up, and val_auc, the last epoch's val_auc and the last 20
+    steps' mean loss (all 20 the resumed run's) are the uninterrupted
+    run's. 1 rank (NCCL) resumes the 2-rank plain checkpoint (a resize)
+    and trains to a finite loss; and the supervisor runs a 1-rank
+    scheduled child that crashes at step 6 (checkpoints every 4) to the
+    uninterrupted run's report (tests/test_supervise.py's gates). Every
+    launch that needs no other's checkpoint starts at once, each on a
+    thread of its own: the process start-ups, not the steps, take the
+    time."""
+    small = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
+             "--bf16-table", "--rows", str(RESUME_ROWS), "--samples",
+             "16384", "--scan-steps", "4"]
+    two = run + ["2", "-m", *small, "--comm", "hybrid", "--device",
+                 "cuda:0"]
+    # a cache of a quarter of the rows: 10% would hold fewer than one
+    # batch's 6,656 ids
+    sched = ["--scheduled", "--cache-limit-ratio", "0.25"]
+    modes = {"plain": [], "assigned": ["--assign-only"], "scheduled": sched}
+    child = [*small[1:], *sched, "--scan-steps", "2"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        stopped = threading.Event()     # the plain 2-rank checkpoint exists
+
+        def ck(mode):
+            return str(tmp / f"ck-{mode}")
+
+        def stop_and_resume(mode):
+            try:
+                stop = _timed_run(two + modes[mode] + [
+                    "--max-steps", str(RESUME_STOP), "--ckpt", ck(mode)])
+            finally:
+                if mode == "plain":
+                    stopped.set()
+            return stop, _timed_run(two + modes[mode] + ["--resume",
+                                                         ck(mode)])
+
+        def resize():
+            # one rank on its own card resumes the 2-rank checkpoint at
+            # step 8, at its own batches of 256
+            stopped.wait()
+            return _timed_run(run + ["1", "-m", *small, "--comm", "hybrid",
+                                     "--max-steps", "16", "--resume",
+                                     ck("plain")])
+
+        def supervised():
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "herald_tpu_torch.launch.supervise",
+                 "--ckpt-dir", str(tmp / "sup"), "--ckpt-every", "4",
+                 "--backoff", "0.1", "--", *child, "--crash-after", "6"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            return proc, time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = _on_threads({
+            **{f"{m}-whole": (lambda m=m: _timed_run(two + modes[m]))
+               for m in modes},
+            **{m: (lambda m=m: stop_and_resume(m)) for m in modes},
+            "resize": resize, "supervise": supervised,
+            "supervise-whole": lambda: _timed_run(
+                ["herald_tpu_torch.launch", *child])})
+        wall = time.perf_counter() - t0
+    out = {"resume_rows": RESUME_ROWS}
+    for mode in modes:
+        (w, w_s), ((s, s_s), (r, r_s)) = got[f"{mode}-whole"], got[mode]
+        if s["steps"] != RESUME_STOP or r["steps"] != 20 \
+                or s["steps"] + r["steps"] != w["steps"] \
+                or w["val_auc"] is None or r["devices"] != 2 \
+                or (r["val_auc"], r["train_loss_last"],
+                    r["epochs"][-1]["val_auc"]) != \
+                (w["val_auc"], w["train_loss_last"],
+                 w["epochs"][-1]["val_auc"]):
+            raise AssertionError(f"{mode}: the resumed run {r} and {s} "
+                                 f"differ from the uninterrupted {w}")
+        out[f"resume_{mode}"] = {
+            "steps": [w["steps"], s["steps"], r["steps"]],
+            "val_auc": w["val_auc"], "train_loss_last": w["train_loss_last"],
+            "resumed_equal": True, "command_s": [w_s, s_s, r_s]}
+    o, o_s = got["resize"]
+    if (o["devices"], o["backend"], o["steps"]) != \
+            (1, "nccl", 16 - RESUME_STOP) \
+            or not np.isfinite(o["train_loss_last"]):
+        raise AssertionError(f"the 1-rank resume of the 2-rank "
+                             f"checkpoint: {o}")
+    out["resume_plain"]["resize_to_one_rank"] = {
+        "steps": o["steps"], "backend": o["backend"],
+        "train_loss_last": o["train_loss_last"], "val_auc": o["val_auc"],
+        "command_s": o_s}
+    (proc, sup_s), (ref, ref_s) = got["supervise"], got["supervise-whole"]
+    rep = _report(proc.stdout) if proc.returncode == 0 else None
+    if rep is None or '"crashed_at": 6' not in proc.stdout \
+            or proc.stderr.count("launch (attempt") != 2 \
+            or "restarting from checkpoint" not in proc.stderr \
+            or rep["stopped_early"] or rep["steps"] != ref["steps"] - 4 \
+            or (rep["val_auc"], rep["val_acc"]) != (ref["val_auc"],
+                                                    ref["val_acc"]):
+        raise AssertionError(
+            f"the supervised run (rc {proc.returncode}) against {ref}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out["supervise"] = {"steps": [ref["steps"], rep["steps"]],
+                        "crashed_at": 6, "resumed_from": 4,
+                        "val_auc": rep["val_auc"], "report_equal": True,
+                        "command_s": [ref_s, sup_s]}
+    out["resume_wall_s"] = wall
     return out
 
 

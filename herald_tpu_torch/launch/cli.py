@@ -7,7 +7,12 @@
     python -m herald_tpu_torch.launch --scheduled [--pinned-rows P \
         --plan-cache DIR --device-data --autosize] [--device cuda|cpu]
     python -m torch.distributed.run --standalone --nproc-per-node S \
-        -m herald_tpu_torch.launch --comm hybrid [--device cuda:0|cpu]
+        -m herald_tpu_torch.launch --comm hybrid [--device cuda:0|cpu] \
+        [--ckpt DIR --ckpt-every N | --resume DIR]
+    python -m torch.distributed.run --nnodes N --node-rank I \
+        --master-addr HOST --master-port PORT --nproc-per-node P \
+        -m herald_tpu_torch.launch --comm hybrid --multihost [...]
+    python -m herald_tpu_torch.launch.supervise --ckpt-dir DIR -- [...]
 
 The flags are herald_tpu.launch's, plus `--device`; `--model` takes every
 name of `herald_tpu_torch.models.available_models()`. Four of its
@@ -24,7 +29,10 @@ branches are ported:
   (`--device cuda:0` puts every local rank on card 0), NCCL when each rank
   has a card of its own. Every rank trains; rank 0 alone prints and
   writes the outputs, and the report names `devices` (S) and `backend`.
-  Over S > 1 ranks `--ckpt` and `--resume` (ROADMAP item 9) are refused;
+  Over S ranks every rank enters each checkpoint: it writes its own
+  block of the table and slots, rank 0 the tower and the manifest
+  (`train/checkpoint.py`), and `--resume` restores a checkpoint of any
+  S, remapping the table when S differs;
 - the scheduled branch (`cli.py:736-1069`): the lookahead planner (live,
   or a plan tape with `--plan-cache`) drives `CachedEngine` chunk by chunk,
   with `--pinned-rows` over frequency-remapped ids, `--device-data`,
@@ -33,7 +41,9 @@ branches are ported:
   approximate per-epoch eval, the exact final eval after `sync_cache`, and
   the steady-state clock. Over S ranks (`--comm hybrid`) rank 0 alone
   plans for S workers and a `sched/service.py` `BroadcastPlanner` hands
-  every rank each chunk, `--autosize` probes on rank 0 and broadcasts its
+  every rank each chunk (and fast-forwards on `--resume`, which takes a
+  checkpoint of the same S only: the cache arrays are the stream's),
+  `--autosize` probes on rank 0 and broadcasts its
   sizes, the flush deltas cross the wire in `--bf16-flush` or
   `--int8-flush` form (accepted and unused on one rank, as in JAX), and
   `--plan-cache` and `--ckpt-serve-view` are refused with JAX's messages.
@@ -46,7 +56,7 @@ branches are ported:
   hot-id LUT profiled from the training ids, `evaluate_fae` per epoch and
   at the end; over S ranks (`--comm hybrid`) global batches of
   `--batch-size * S` rows. As in JAX it writes no checkpoint and ignores
-  `--ckpt`, `--resume`, `--max-steps` and `--crash-after` on one rank,
+  `--ckpt`, `--resume`, `--max-steps` and `--crash-after` at every S,
   and `--export-onnx` exits before training;
 - assign-only mode (`--assign-only`, `cli.py:1070-1125`): the plain engine
   over the batches the lookahead scheduler (csrc/herald_sched.cc)
@@ -54,8 +64,13 @@ branches are ported:
   each assignment), with checkpoints, `--max-steps`, `--resume` through a
   deterministic fast-forward of the scheduler, and its counters under
   `sched` in the report.
-The other modes and options raise NotImplementedError naming their
-ROADMAP item; none is ignored.
+`--crash-after N` ends every rank with exit code 17 once N steps have
+run (rank 0 prints `{"crashed_at": N}`), for the restart supervisor
+(`launch/supervise.py`). `--multihost` says that the ranks come from
+`torch.distributed.run` over one or more nodes (`--nnodes`, each rank on
+its LOCAL_RANK card), and raises without its environment; checkpoints
+must then be on storage every node reads. The other modes and options
+raise NotImplementedError naming their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -268,7 +283,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "training loop (reference analog: run_laia.py's "
                         "per-iteration/epoch log files)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host run (not ported: raises)")
+                   help="ranks over one or more nodes, from the environment "
+                        "of torch.distributed.run (--nnodes N); raises "
+                        "without it. Checkpoints must be on storage that "
+                        "every node reads")
     p.add_argument("--bf16-table", action="store_true")
     flushw = p.add_mutually_exclusive_group()
     flushw.add_argument("--bf16-flush", action="store_true",
@@ -323,8 +341,6 @@ def build_parser() -> argparse.ArgumentParser:
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
-    ("multihost", "--multihost", "item 9 (multi-process checkpoints; "
-     "the multi-rank engines run under torch.distributed.run)"),
     ("preprocess_raw", "--preprocess-raw", "item 10 (launcher and input "
      "feed: data/preprocess.py)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
@@ -354,20 +370,17 @@ def _refuse_unported(args, cfg) -> None:
         raise NotImplementedError(
             "--mp-shards > 1 is not ported to herald_tpu_torch yet "
             "(ROADMAP queue 1, item 13: tensor parallel)")
+    if args.multihost and "WORLD_SIZE" not in os.environ:
+        # where JAX's jax.distributed.initialize() finds no cluster
+        raise ValueError(
+            "--multihost takes its ranks from torch.distributed.run "
+            "(WORLD_SIZE, RANK, MASTER_ADDR, ...): launch with python -m "
+            "torch.distributed.run --nnodes N --nproc-per-node P ... -m "
+            "herald_tpu_torch.launch --comm hybrid --multihost")
     from herald_tpu_torch.parallel.comm import world_size
     S = world_size() if cfg.comm_mode == "hybrid" else 1
     if S == 1:
         return
-    # the modes of herald_tpu.launch that run over several ranks in JAX
-    # and not yet in the port, each with its ROADMAP item (queue 1)
-    for on, flag, item in (
-            (args.ckpt, "--ckpt", "item 9 (multi-process checkpoints)"),
-            (args.resume, "--resume", "item 9 (multi-process "
-             "checkpoints)")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} over {S} ranks is not ported to herald_tpu_torch "
-                f"yet (ROADMAP queue 1, {item})")
     # herald_tpu.launch's own one-process rules (cli.py:813-818, 850-854)
     if args.scheduled and args.plan_cache:
         raise ValueError(
@@ -491,9 +504,10 @@ def _start_trace(device):
 
 
 def _check_resumed(eng, state, path) -> None:
-    """A checkpoint must fit the engine it resumes: table shape and dtype,
-    the optimizers' slots, and for a cached run the cache and hot block."""
-    want = (eng.padded_rows, eng.width)
+    """A checkpoint must fit the engine it resumes: the rank's block of
+    the table (the whole table on one device) and its dtype, the
+    optimizers' slots, and for a cached run the cache and hot block."""
+    want = (eng.exchange.rows_per_shard, eng.width)
     if tuple(state.table.shape) != want \
             or state.table.dtype != eng.cfg.table_dtype:
         raise ValueError(
@@ -670,7 +684,7 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
         # continue from the saved position: the checkpoint holds the cache
         # arrays mid-stream, and the deterministic planner fast-forwards
         # to the same batch
-        state = load_cached_checkpoint(args.resume, eng.device)
+        state = load_cached_checkpoint(args.resume, eng.device, eng.comm)
         _check_resumed(eng, state, args.resume)
         done = int(state.step)
         skipped = planner.fast_forward(done)
@@ -849,8 +863,8 @@ def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
     lookahead scheduler for S workers composes each global batch, the
     plain engine trains it (rank r the samples of assignment row r). Over
     S > 1 ranks rank 0 alone plans and every rank gets the assignments
-    through a `BroadcastScheduler`. On `--resume` (one rank) the scheduler
-    pops the saved number of batches first (it is deterministic).
+    through a `BroadcastScheduler`. On `--resume` the scheduler pops the
+    saved number of batches first on every rank (it is deterministic).
     Returns (engine, state, losses, overflow, stopped_early, report
     extras)."""
     from herald_tpu_torch.sched.scheduler import LookaheadScheduler
@@ -873,7 +887,8 @@ def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
         done = 0
         if args.resume:
             state = load_checkpoint(args.resume, eng.device,
-                                    padded_rows=eng.padded_rows)
+                                    padded_rows=eng.padded_rows,
+                                    comm=eng.comm)
             _check_resumed(eng, state, args.resume)
             done = int(state.step)
             for _ in range(done):
@@ -992,12 +1007,15 @@ def run_training(args) -> dict:
                 pre()
             save_checkpoint(
                 state, args.ckpt,
-                extras=ckpt_extras[0](state) if ckpt_extras[0] else None)
+                extras=ckpt_extras[0](state) if ckpt_extras[0] else None,
+                comm=comm)
             last_ckpt[0] = done
             fired = True
         if args.crash_after and not args.resume \
                 and done >= args.crash_after:
-            print(json.dumps({"crashed_at": done}), flush=True)
+            # every rank ends here, at the same step
+            if lead:
+                print(json.dumps({"crashed_at": done}), flush=True)
             os._exit(17)
         return fired
 
@@ -1023,7 +1041,8 @@ def run_training(args) -> dict:
         start_step = 0
         if args.resume:
             state = load_checkpoint(args.resume, eng.device,
-                                    padded_rows=eng.padded_rows)
+                                    padded_rows=eng.padded_rows,
+                                    comm=eng.comm)
             _check_resumed(eng, state, args.resume)
             start_step = int(state.step)   # skip already-trained batches
         else:
@@ -1069,7 +1088,8 @@ def run_training(args) -> dict:
     if args.ckpt:
         save_checkpoint(
             state, args.ckpt,
-            extras=ckpt_extras[0](state) if ckpt_extras[0] else None)
+            extras=ckpt_extras[0](state) if ckpt_extras[0] else None,
+            comm=comm)
 
     report = {
         "model": cfg.model,

@@ -20,8 +20,9 @@ rank and no group is made.
   sums one flat buffer in place, `reduce_scatter` sums [S*b, ...] over the
   group and keeps this rank's block b (JAX's tiled `psum_scatter` over
   axis 0), `all_gather` stacks a tensor of every rank, `broadcast_` copies
-  rank 0's tensors to every rank, `subgroups` makes dense-sync groups on
-  every rank in one order. At S = 1 each returns its input. The split
+  rank 0's tensors to every rank, `barrier` waits for every rank,
+  `subgroups` makes dense-sync groups on every rank in one order. At
+  S = 1 each returns its input, and `barrier` returns at once. The split
   sizes are fixed, so no collective waits on the host to size itself.
   gloo takes CUDA tensors for every one of these (and copies them through
   host memory itself; `reduce_scatter_tensor` too, on an H100 with torch
@@ -149,6 +150,12 @@ class Comm:
             for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
                 t.copy_(v.view(t.shape))
         self._timed("broadcast", t0)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the group has called it (JAX's
+        `multihost_utils.sync_global_devices`)."""
+        if self.size > 1:
+            dist.barrier(group=self.group)
 
     def subgroups(self, size: int):
         """The group of `size` consecutive ranks this rank belongs to.

@@ -14,9 +14,17 @@ for a CachedTrainState also "cache", "hot_table", "hot_slots/<slot>".
 `load_checkpoint` reads the five base leaves of either state type (the
 JAX `to_base_state` view); `load_cached_checkpoint` reads a whole
 CachedTrainState, e.g. to resume a scheduled run mid-stream.
-A table saved row-sharded over S devices is laid out strided
-(parallel/exchange.py: logical row r at (r % S) * rps + r // S) and is
-remapped to the port's single-device layout on load.
+
+Over S ranks (a `Comm` of `parallel/comm.py`) rank r writes its block of
+every row-sharded leaf (the table and its slots; a cached state's cache
+and hot slots: `bridge._sharded_fields`) into shards.p<r>.npz with its
+global offsets, rank 0 writes the rest, and LATEST moves after a barrier,
+once every shard file exists; JAX's process p writes the blocks of its
+devices the same way. A restore reads only the blocks that cover the
+rank's own rows. A table saved over another shard count is laid out
+strided (parallel/exchange.py: logical row r at (r % S) * rps + r // S)
+and is remapped to the target's layout on load; the cache arrays belong
+to the planner stream that wrote them and restore at the same S only.
 """
 
 from __future__ import annotations
@@ -29,12 +37,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from herald_tpu_torch.bridge import tensor_from_numpy, tensor_to_numpy
+from herald_tpu_torch.bridge import (_sharded_fields, tensor_from_numpy,
+                                     tensor_to_numpy)
 from herald_tpu_torch.train.cached import CachedTrainState
 from herald_tpu_torch.train.engine import TrainState
 
 _BASE_LEAVES = ("table", "table_slots", "dense", "dense_slots", "step")
 _CACHED_LEAVES = _BASE_LEAVES + ("cache", "hot_table", "hot_slots")
+# the leaves row-sharded over S ranks (`bridge._sharded_fields`)
+_ROW_FIELDS = ("table", "table_slots", "cache", "hot_slots")
 
 
 def _version_dir(path: str) -> str:
@@ -71,22 +82,48 @@ def _leaf_items(state) -> List[Tuple[str, torch.Tensor]]:
     return items
 
 
+def _rank_size(comm) -> Tuple[int, int]:
+    return (comm.rank, comm.size) if comm is not None else (0, 1)
+
+
 def save_checkpoint(state, path: str,
-                    extras: Optional[Dict[str, Dict]] = None) -> None:
-    """Single-process save in the JAX layout: every leaf replicated, one
-    (empty) shard file. Writes <path>/v<step>/ and only then repoints
-    <path>/LATEST, keeping the previous version; `extras` ({name:
-    {key: array}}) become sidecar npz files in the same version dir."""
+                    extras: Optional[Dict[str, Dict]] = None,
+                    comm=None) -> None:
+    """Save in the JAX layout into <path>/v<step>/, then repoint
+    <path>/LATEST, keeping the previous version; `extras` ({name: {key:
+    array}}) become sidecar npz files in the same version dir. On one
+    process every leaf is replicated and the shard file is empty. Over
+    the S > 1 ranks of `comm` every rank must call it: each writes its
+    own blocks of the row-sharded leaves, rank 0 the replicated ones (its
+    tower), the extras and the manifest, and rank 0 moves LATEST only
+    after a barrier that every rank enters once its files are written;
+    a second barrier holds every rank until LATEST has moved."""
+    rank, S = _rank_size(comm)
+    sharded = _sharded_fields(state) if S > 1 else ()
     version = f"v{int(state.step)}"
     vdir = os.path.join(path, version)
     os.makedirs(vdir, exist_ok=True)
-    replicated: Dict[str, np.ndarray] = {}
+    blocks: Dict[str, np.ndarray] = {}
+    block_meta, replicated = [], {}
     layout, shapes, dtypes = {}, {}, {}
     for key, leaf in _leaf_items(state):
-        arr, name = tensor_to_numpy(leaf)
-        replicated[key] = arr
-        layout[key] = "replicated"
-        shapes[key] = list(arr.shape)
+        if key.split("/")[0] in sharded:
+            # block `rank` of S equal blocks of the global leaf, by rows
+            arr, name = tensor_to_numpy(leaf)
+            n = arr.shape[0]
+            fk = f"b{len(block_meta)}"
+            blocks[fk] = arr
+            block_meta.append({"key": key, "file_key": fk, "offsets": [
+                [rank * n, (rank + 1) * n]] + [[0, d] for d in arr.shape[1:]]})
+            layout[key] = "sharded"
+            shapes[key] = [S * n] + list(arr.shape[1:])
+        elif rank == 0:
+            arr, name = tensor_to_numpy(leaf)
+            replicated[key] = arr
+            layout[key] = "replicated"
+            shapes[key] = list(arr.shape)
+        else:
+            continue      # rank 0 writes the replicated leaves
         dtypes[key] = name
 
     def write_atomic(name, writer):
@@ -106,27 +143,38 @@ def save_checkpoint(state, path: str,
                 json.dump(obj, f, **kw)
         return writer
 
-    write_atomic("shards.p0.npz", savez({}))
-    write_atomic("blocks.p0.json", dump_json([]))
-    write_atomic("replicated.npz", savez(replicated))
-    for name, arrs in (extras or {}).items():
-        write_atomic(f"{name}.npz", savez(arrs))
-    manifest = {"state_type": type(state).__name__, "num_processes": 1,
-                "layout": layout, "shapes": shapes, "dtypes": dtypes}
-    write_atomic("manifest.json", dump_json(manifest, indent=2))
-    tmp = os.path.join(path, "LATEST.tmp")
-    with open(tmp, "w") as f:
-        f.write(version)
-    os.replace(tmp, os.path.join(path, "LATEST"))
-    versions = sorted((d for d in os.listdir(path)
-                       if d.startswith("v") and d[1:].isdigit()),
-                      key=lambda d: int(d[1:]))
-    for old in versions[:-2]:
-        shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+    write_atomic(f"shards.p{rank}.npz", savez(blocks))
+    write_atomic(f"blocks.p{rank}.json", dump_json(block_meta))
+    if rank == 0:
+        write_atomic("replicated.npz", savez(replicated))
+        for name, arrs in (extras or {}).items():
+            write_atomic(f"{name}.npz", savez(arrs))
+        manifest = {"state_type": type(state).__name__, "num_processes": S,
+                    "layout": layout, "shapes": shapes, "dtypes": dtypes}
+        write_atomic("manifest.json", dump_json(manifest, indent=2))
+    if S > 1:
+        # every shard file exists before LATEST names the version
+        comm.barrier()
+    if rank == 0:
+        tmp = os.path.join(path, "LATEST.tmp")
+        with open(tmp, "w") as f:
+            f.write(version)
+        os.replace(tmp, os.path.join(path, "LATEST"))
+        versions = sorted((d for d in os.listdir(path)
+                           if d.startswith("v") and d[1:].isdigit()),
+                          key=lambda d: int(d[1:]))
+        for old in versions[:-2]:
+            shutil.rmtree(os.path.join(path, old), ignore_errors=True)
+    if S > 1:
+        # and no rank returns before LATEST names it
+        comm.barrier()
 
 
 class _BlockReader:
-    """Assembles global index ranges of sharded leaves from saved blocks."""
+    """Assembles global index ranges of sharded leaves from saved blocks:
+    one file per process, each holding one block per device that process
+    saved (the port's ranks save one each; JAX's one process over S
+    devices saves S)."""
 
     def __init__(self, path: str, num_processes: int):
         self.path = path
@@ -142,35 +190,55 @@ class _BlockReader:
     def close(self):
         for z in self._npz.values():
             z.close()
+        self._npz = {}
 
     def num_row_blocks(self, key: str) -> int:
         return len({offs[0][0] for _, _, offs in self.meta.get(key, [])})
 
-    def read(self, key: str, shape, dtype) -> np.ndarray:
-        out = np.empty(shape, dtype)
-        filled = 0
+    def read(self, key: str, bounds: List[Tuple[int, int]],
+             dtype) -> np.ndarray:
+        """The global range `bounds` ([(start, stop)] a dimension) of leaf
+        `key`, filled from the blocks that intersect it; only those are
+        read. Raises when the blocks do not cover the range."""
+        bounds = [tuple(b) for b in bounds]
+        out, filled = None, 0
         for p, fk, offs in self.meta.get(key, []):
+            inter = [(max(ts, bs), min(te, be))
+                     for (ts, te), (bs, be) in zip(bounds, offs)]
+            if any(s >= e for s, e in inter):
+                continue
             if p not in self._npz:
                 self._npz[p] = np.load(
                     os.path.join(self.path, f"shards.p{p}.npz"))
             data = self._npz[p][fk]
-            out[tuple(slice(s, e) for s, e in offs)] = data
-            filled += int(np.prod([e - s for s, e in offs]))
-        if filled < out.size:
+            if list(offs) == bounds:
+                return data          # one block is the whole range
+            if out is None:
+                out = np.empty([e - s for s, e in bounds], dtype)
+            out[tuple(slice(s - ts, e - ts)
+                      for (s, e), (ts, _) in zip(inter, bounds))] = \
+                data[tuple(slice(s - bs, e - bs)
+                           for (s, e), (bs, _) in zip(inter, offs))]
+            filled += int(np.prod([e - s for s, e in inter]))
+        size = int(np.prod([e - s for s, e in bounds]))
+        if filled < size:
             raise ValueError(
-                f"checkpoint blocks do not cover leaf {key!r} "
-                f"(covered {filled} of {out.size})")
+                f"checkpoint blocks do not cover leaf {key!r} range "
+                f"{bounds} (covered {filled} of {size})")
         return out
 
 
-def _remap_rows(full_src: np.ndarray, s_src: int, rows: int) -> np.ndarray:
-    """A strided-layout row leaf saved over `s_src` shards, laid out for
-    one device with `rows` rows (`herald_tpu/train/checkpoint.py:220`)."""
+def _remap_rows(full_src: np.ndarray, s_src: int, rows: int, s_dst: int,
+                rank: int) -> np.ndarray:
+    """Block `rank` of a strided-layout row leaf saved over `s_src`
+    shards, laid out for `s_dst` shards of `rows` rows in all
+    (`herald_tpu/train/checkpoint.py:220`): local slot q holds logical row
+    q * s_dst + rank, read from its slot in the source layout."""
     rps_src = full_src.shape[0] // s_src
-    r = np.arange(rows)                                # logical ids
+    r = np.arange(rows // s_dst) * s_dst + rank        # logical ids
     p_src = (r % s_src) * rps_src + r // s_src         # source physical
     valid = r < s_src * rps_src
-    out = np.zeros((rows,) + full_src.shape[1:], full_src.dtype)
+    out = np.zeros((len(r),) + full_src.shape[1:], full_src.dtype)
     out[valid] = full_src[p_src[valid]]
     return out
 
@@ -182,9 +250,15 @@ def _insert(tree: Dict, parts: List[str], value) -> None:
 
 
 def _read_leaves(path: str, device, padded_rows: Optional[int],
-                 wanted: Tuple[str, ...]) -> Tuple[Dict, Dict]:
+                 wanted: Tuple[str, ...], comm=None) -> Tuple[Dict, Dict]:
     """(manifest, field trees) of the leaves whose first path part is in
-    `wanted`, read onto `device`."""
+    `wanted`, read onto `device`: the whole of every replicated leaf, and
+    over the S ranks of `comm` rank r's block of every row-sharded one.
+    With `padded_rows` the table leaves are laid out for S blocks of that
+    many rows in all, remapped from any saved layout; without it they,
+    like the cache and hot slots, need the saved shard count (at S = 1
+    the table then reads as saved)."""
+    rank, S = _rank_size(comm)
     path = _version_dir(path)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -193,7 +267,8 @@ def _read_leaves(path: str, device, padded_rows: Optional[int],
         raise FileNotFoundError(
             f"checkpoint {path!r} has a manifest but no replicated.npz — "
             f"multi-host checkpoints must live on storage shared by every "
-            f"process")
+            f"process (each process writes its own shard blocks and the "
+            f"leader writes replicated.npz; all must be readable here)")
     reader = _BlockReader(path, int(manifest["num_processes"]))
     fields: Dict = {"table_slots": {}, "dense": {}, "dense_slots": {},
                     "hot_slots": {}}
@@ -204,20 +279,40 @@ def _read_leaves(path: str, device, padded_rows: Optional[int],
                 if parts[0] not in wanted:
                     continue
                 name = manifest["dtypes"][key]
+                dtype = _storage_dtype(name)
                 shape = tuple(manifest["shapes"][key])
-                if where == "sharded":
-                    arr = reader.read(key, shape, _storage_dtype(name))
-                    s_src = reader.num_row_blocks(key)
+                saved_sharded = where == "sharded"
+                s_src = reader.num_row_blocks(key) if saved_sharded else 1
+
+                def rows(lo, hi):
+                    if saved_sharded:
+                        return reader.read(key, [(lo, hi)] + [
+                            (0, d) for d in shape[1:]], dtype)
+                    return repl[key][lo:hi]
+                if parts[0] in ("table", "table_slots") \
+                        and padded_rows is not None \
+                        and (s_src != S or shape[0] != padded_rows):
+                    # a resize: the source's logical rows, laid out anew
+                    arr = _remap_rows(rows(0, shape[0]), s_src, padded_rows,
+                                      S, rank)
+                elif parts[0] in _ROW_FIELDS and s_src != S and (
+                        S > 1 or parts[0] in ("cache", "hot_slots")):
+                    raise ValueError(
+                        f"leaf {key!r} cannot restore across topologies "
+                        f"({s_src} -> {S} shards); for cached states, "
+                        f"sync_cache and checkpoint a plain TrainState "
+                        f"before resizing the pod")
+                elif parts[0] in _ROW_FIELDS and S > 1:
+                    n = shape[0] // S           # this rank's block only
+                    arr = rows(rank * n, (rank + 1) * n)
                 else:
-                    arr = repl[key]
-                    s_src = 1
-                if (padded_rows is not None
-                        and parts[0] in ("table", "table_slots")
-                        and (s_src != 1 or shape[0] != padded_rows)):
-                    arr = _remap_rows(arr, s_src, padded_rows)
+                    arr = rows(0, shape[0]) if shape else repl[key]
                 _insert(fields, parts, tensor_from_numpy(arr, name, device))
     finally:
         reader.close()
+    if S > 1:
+        # no rank may prune a version (a later save) another still reads
+        comm.barrier()
     # a slotless dense optimizer saves no dense_slots leaves; its tree is
     # {"W1": {}, ...}, as the engine builds it and JAX keeps it
     for k in fields["dense"]:
@@ -225,27 +320,35 @@ def _read_leaves(path: str, device, padded_rows: Optional[int],
     return manifest, fields
 
 
-def load_checkpoint(path: str, device, padded_rows: Optional[int] = None
-                    ) -> TrainState:
+def load_checkpoint(path: str, device, padded_rows: Optional[int] = None,
+                    comm=None) -> TrainState:
     """Read the base leaves of a TrainState or CachedTrainState
-    checkpoint (written by either package) onto `device`. With
-    `padded_rows`, table leaves saved under another shard count or row
-    padding are remapped to one device's layout of that many rows."""
-    _, fields = _read_leaves(path, device, padded_rows, _BASE_LEAVES)
+    checkpoint (written by either package, over any number of processes
+    and shards) onto `device`. With `padded_rows`, table leaves saved
+    under another shard count or row padding are remapped to one
+    device's layout of that many rows, or over the S > 1 ranks of
+    `comm` (every rank calls it) to rank r's block of S blocks of
+    `padded_rows` rows in all; at the saved S a rank reads only the
+    blocks that cover its own rows."""
+    _, fields = _read_leaves(path, device, padded_rows, _BASE_LEAVES, comm)
     del fields["hot_slots"]
     return TrainState(**fields)
 
 
-def load_cached_checkpoint(path: str, device) -> CachedTrainState:
-    """Read a whole single-device CachedTrainState checkpoint (written by
-    either package, e.g. mid-stream) onto `device`. The cache arrays
-    belong to the planner stream that wrote them, so the layout must be
-    the training run's own: nothing is remapped."""
-    manifest, fields = _read_leaves(path, device, None, _CACHED_LEAVES)
+def load_cached_checkpoint(path: str, device, comm=None
+                           ) -> CachedTrainState:
+    """Read a whole CachedTrainState checkpoint (written by either
+    package, e.g. mid-stream) onto `device`, or over the ranks of `comm`
+    (every rank calls it) rank r's block of each row-sharded leaf. The
+    cache arrays belong to the planner stream that wrote them, so the
+    shard count must be the training run's own: nothing is remapped, and
+    a checkpoint of another shard count raises."""
+    manifest = read_manifest(path)
     if manifest["state_type"] != "CachedTrainState":
         raise ValueError(f"checkpoint {path!r} holds a "
                          f"{manifest['state_type']}, not a "
                          f"CachedTrainState")
+    _, fields = _read_leaves(path, device, None, _CACHED_LEAVES, comm)
     return CachedTrainState(**fields)
 
 

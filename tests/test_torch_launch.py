@@ -163,27 +163,12 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
     (["--export-onnx", "m.onnx"], "--export-onnx"),
-    (["--multihost"], "--multihost"),
     (["--preprocess-raw", "train.txt"], "--preprocess-raw"),
     (["--platform", "cpu"], "--platform"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         _port(argv)
-    assert "ROADMAP" in str(e.value)
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
-    (["--resume", "ck"], "--resume over 2 ranks.*item 9"),
-    (["--scheduled", "--ckpt", "ck"], "--ckpt over 2 ranks.*item 9"),
-], ids=lambda v: v[-1] if isinstance(v, list) else None)
-def test_multi_rank_modes_not_ported_raise(argv, match, monkeypatch):
-    """Over S > 1 ranks (WORLD_SIZE of torch.distributed.run) the modes of
-    later items raise before any group is made or any work is done."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=match) as e:
-        _port(["--comm", "hybrid"] + argv)
     assert "ROADMAP" in str(e.value)
 
 

@@ -8,13 +8,15 @@ through the scheduled, cached engine, and print what it measured.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
     python3 chip_smoke.py --phase assigned|hybrid
+    python3 chip_smoke.py --phase feed [--root DIR]
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
-kernel:hot_onehot_gather, launch:scheduled, hybrid, hybrid:checkpoint,
+kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
+hybrid:checkpoint,
 hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid,
 kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
@@ -82,6 +84,21 @@ the supervisor (`herald_tpu_torch.launch.supervise`) recovering a
 1-rank scheduled run that crashes at step 6 to the uninterrupted run's
 report.
 
+launch:feed runs the launcher's input feed at full width: a raw
+Criteo-layout TSV of 400,000 lines (over 64 MB, so the native parser
+runs) preprocessed in this process (MB/s) and by `--preprocess-raw` (the
+same six files); on the processed files the plain launcher with its
+prefetcher and with `--no-prefetch` (2 epochs in chunks of 32, which do
+not divide an epoch's steps) and the scheduled launcher
+(`--pinned-rows 4096 --plan-cache --device-data`, 2 epochs) at
+`--prestage 0`, `3` and `all`, each run twice in this process, the
+second time profiled: reports and final states equal (the states
+compared in device memory), the idle share and the copies' streams of
+every mode, the pinned host memory of every run; and 2-rank pairs on
+card 0 at 65,536 rows (`--scheduled --prestage 3` against `0`, the
+prefetched plain run against `--no-prefetch`), exact. It prints the
+predicted rates beside the measured ones.
+
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
 fused to 513 columns (34.64 GB in bfloat16): K5 (fm_second_order, forward
@@ -119,8 +136,11 @@ as CUDA graphs (`RUN_B_BUSY_MS`).
 
 `--phase scheduled:pinned`, `--phase train` (train alone) and `--phase
 fae` run the device and build phases and that phase alone; `--phase fae`
-and `--phase assigned` also run launch:fae or launch:assigned, and
-`--phase hybrid` runs hybrid and launch:hybrid. `--root
+and `--phase assigned` also run launch:fae or launch:assigned,
+`--phase hybrid` runs hybrid and launch:hybrid, and `--phase feed` runs
+launch:feed on `--samples` data of the same size instead of the raw
+file, so that a parent tree without the preprocessor runs the same
+launches. `--root
 DIR` imports herald_tpu_torch from another checkout, so that the steps
 of two trees (a parent unpacked with `git archive` into a gitignored
 directory, and this one) are timed and profiled in turns on one card,
@@ -139,7 +159,9 @@ import contextlib
 import gc
 import hashlib
 import importlib.util
+import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -2441,6 +2463,435 @@ def phase_launch_scheduled() -> dict:
     emit(out)
     return out
 
+
+
+# ----------------------------------------------------------------------
+# the launcher's input feed (the prefetcher, the prestager, the raw-data
+# preprocessor)
+# ----------------------------------------------------------------------
+
+# the tree whose package this script imported (--root), whose launcher
+# the feed phase runs
+PKG_ROOT = Path(herald_tpu_torch.__file__).resolve().parents[1]
+FEED_LINES, FEED_K, FEED_SAMPLES = 400_000, 32, 400_000
+# the size from which the preprocessor takes its native parser
+FEED_MIN_MB = 64 * 1024 * 1024 / 1e6
+# written before the first chip run of the feed phase (NVIDIA H100 80GB
+# HBM3, 700.00 W in every earlier run): [low, high]
+FEED_PREDICTED = {
+    "preprocess_mb_per_s": [60, 150],
+    "plain_examples_per_sec": {"prefetch": [750e3, 1.0e6],
+                               "no_prefetch": [600e3, 850e3]},
+    "scheduled_examples_per_sec_steady": {"0": [280e3, 400e3],
+                                          "3": [450e3, 650e3],
+                                          "all": [750e3, 950e3]},
+    # written before the re-measure of every launch in this process
+    "scheduled_examples_per_sec": {"0": [150e3, 250e3],
+                                   "3": [250e3, 400e3],
+                                   "all": [180e3, 300e3]},
+    "idle_share_profiled_all": [0.15, 0.35],
+    "pinned_pool_peak_mb_all": [32, 64]}
+FEED_CLOCKS = ("examples_per_sec", "examples_per_sec_steady",
+               "examples_per_sec_steady_segments", "timing")
+
+
+def _write_raw_criteo(path: Path, lines: int, seed: int = 0) -> None:
+    """A raw Criteo-layout TSV (Kaggle train.txt) from `seed`: the label,
+    13 integer columns and 26 hex categorical columns, a tenth of the
+    cells blank, each categorical column a Zipf law (a = 1.2) over a
+    vocabulary of its own (4 to 2,000,000 values)."""
+    rng = np.random.default_rng(seed)
+    vocab = np.geomspace(4, 2_000_000, 26).astype(np.int64)
+    hex2 = np.frombuffer(b"".join(b"%02x" % i for i in range(256)),
+                         np.uint8).reshape(256, 2)
+    with open(path, "wb") as f:
+        for lo in range(0, lines, 50_000):
+            n = min(50_000, lines - lo)
+            label = rng.integers(0, 2, n).astype("S1")
+            ints = rng.integers(0, 1000, (n, 13)).astype("S3")
+            ints[rng.random((n, 13)) < 0.1] = b""
+            ids = ((rng.zipf(1.2, (n, 26)) - 1) % vocab * 2654435761
+                   + np.arange(26) * 7919) % (1 << 32)
+            cats = np.ascontiguousarray(hex2[ids.astype(">u4").view(
+                np.uint8).reshape(n, 26, 4)].reshape(n, 26, 8)).view(
+                "S8").reshape(n, 26)
+            cats[rng.random((n, 26)) < 0.1] = b""
+            f.write(b"\n".join(
+                a + b"\t" + b"\t".join(i) + b"\t" + b"\t".join(c)
+                for a, i, c in zip(label.tolist(), ints.tolist(),
+                                   cats.tolist())) + b"\n")
+
+
+def _feed_run(argv, timeout=900):
+    """(report, command s) of a launch from the imported tree, a process
+    of its own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=PKG_ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv[:8])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return _report(proc.stdout), time.perf_counter() - t0
+
+
+HOST_KEYS = ("allocated_bytes.current", "allocated_bytes.peak",
+             "active_bytes.current", "num_host_alloc")
+
+
+def _host_stats() -> dict:
+    """The caching host allocator's pinned bytes: `allocated_bytes`, what
+    it holds from cudaHostAlloc (blocks in use and cached free ones), and
+    `active_bytes`, which `_active_bytes_probe` reads."""
+    stats = torch.cuda.host_memory_stats()
+    return {k: stats.get(k) for k in HOST_KEYS}
+
+
+def _feed_here(argv, env=None):
+    """(report, seconds, the state handed to its last save, the pinned
+    host memory of the run) of `python -m herald_tpu_torch.launch ARGV`
+    run in this process through `cli.run_training`, its output kept out
+    of this script's, with `train/checkpoint.py`'s `save_checkpoint`
+    replaced by a recorder: the full-width states (8.6-12.1 GB) are
+    compared in device memory (written to disk, five of them took 320 s
+    to write back on the H100 machine, about 150-200 MB/s). The pinned
+    memory: the host allocator's peak over the run, its peak reset
+    first."""
+    from herald_tpu_torch.launch import cli
+    from herald_tpu_torch.train import checkpoint
+    saved = []
+    real, env = checkpoint.save_checkpoint, env or {}
+    before = {k: os.environ.get(k) for k in env}
+    checkpoint.save_checkpoint = lambda state, path, **kw: saved.append(
+        state)
+    os.environ.update(env)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_host_memory_stats()
+    host0 = _host_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = cli.run_training(cli.build_parser().parse_args(argv[1:]))
+    finally:
+        checkpoint.save_checkpoint = real
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    host1 = _host_stats()
+    pinned = {"pool_peak_bytes": host1["allocated_bytes.peak"],
+              "pool_bytes_at_start": host0["allocated_bytes.current"],
+              "host_allocs": host1["num_host_alloc"]
+              - host0["num_host_alloc"],
+              "active_bytes_added": host1["active_bytes.current"]
+              - host0["active_bytes.current"]}
+    return rep, secs, saved[-1] if saved else None, pinned
+
+
+def _active_bytes_probe(blocks: int = 28, nbytes: int = 12_800_000
+                        ) -> dict:
+    """What the host allocator's `active_bytes` counts: `blocks` pinned
+    buffers of `nbytes` (a staged chunk's size) allocated one after the
+    other, each copied to the card on a side stream and freed once the
+    copy has landed, so that one cached block serves them all. The
+    allocator's bytes from cudaHostAlloc do not grow. In torch 2.11
+    `active_bytes` gains a block at each reuse and never loses it: a
+    block released through its copy's event is taken back as `size`, the
+    argument of `process_events_for_specific_size`, which is -1 there
+    (`ATen/core/CachingHostAllocator.h`), so it counts reuses, not memory
+    held."""
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    h0 = _host_stats()
+    for _ in range(blocks):
+        with torch.cuda.stream(side):
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            dev = host.to(DEVICE, non_blocking=True)
+        del host, dev
+        torch.cuda.synchronize()
+    h1 = _host_stats()
+    return {"blocks": blocks, "nbytes": nbytes,
+            "host_allocs": h1["num_host_alloc"] - h0["num_host_alloc"],
+            "allocated_bytes_added": h1["allocated_bytes.current"]
+            - h0["allocated_bytes.current"],
+            "active_bytes_added": h1["active_bytes.current"]
+            - h0["active_bytes.current"]}
+
+
+def _feed_untimed(rep: dict) -> dict:
+    out = {k: v for k, v in rep.items() if k not in FEED_CLOCKS}
+    if "cache" in out:
+        out["cache"] = {k: v for k, v in out["cache"].items()
+                        if k != "plan_time_us"}
+    return out
+
+
+def _same_ckpt(a: Path, b: Path) -> dict:
+    """Two checkpoint directories hold the same files: every .npz member's
+    dtype and bytes, every other file byte for byte."""
+    fa = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    fb = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    if fa != fb or not fa:
+        raise AssertionError(f"checkpoint files differ: {fa} / {fb}")
+    n_bytes = 0
+    for rel in fa:
+        if rel.suffix != ".npz":
+            if (a / rel).read_bytes() != (b / rel).read_bytes():
+                raise AssertionError(f"{rel} differs")
+            continue
+        with np.load(a / rel) as x, np.load(b / rel) as y:
+            if sorted(x.files) != sorted(y.files) or any(
+                    x[k].dtype != y[k].dtype
+                    or x[k].tobytes() != y[k].tobytes() for k in x.files):
+                raise AssertionError(f"{rel} differs")
+            n_bytes += sum(x[k].nbytes for k in x.files)
+    return {"files": len(fa), "npz_bytes": n_bytes}
+
+
+def _trace_window(path: Path) -> dict:
+    """From a launcher's torch.profiler trace (`--log-dir`): the device's
+    idle share over the steps (from the first graph replay past the first
+    tenth to the end of the last device event: training and eval steps,
+    each a batch), device busy a replay, replays a second, and the streams
+    of the host-to-device copies beside the streams of the kernels."""
+    mb = path.stat().st_size / 1e6
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    dev = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e.get("ph") == "X")
+    replays = sorted(e["ts"] for e in events
+                     if e.get("name") in ("cudaGraphLaunch", "cuGraphLaunch")
+                     and e.get("ph") == "X")
+    if not dev or not replays:
+        return {"idle_share": None, "replays": len(replays)}
+    first = len(replays) // 10
+    lo, hi = replays[first], dev[-1][1]
+    busy, end = 0.0, lo
+    for s, e in dev:
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    kernels, copies = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        stream = e.get("args", {}).get("stream")
+        if e.get("cat") == "kernel":
+            kernels[stream] = kernels.get(stream, 0) + 1
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            c = copies.setdefault(str(stream), {"copies": 0, "bytes": 0})
+            c["copies"] += 1
+            c["bytes"] += int(e.get("args", {}).get("bytes", 0))
+    compute = max(kernels, key=kernels.get)
+    n = len(replays) - first
+    return {"trace_mb": mb, "idle_share": 1.0 - busy / max(hi - lo, 1e-9),
+            "window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "replays": len(replays), "replays_in_window": n,
+            "busy_ms_per_replay": busy / 1e3 / n,
+            "batches_per_s": n / max(hi - lo, 1e-9) * 1e6,
+            "compute_stream": compute,
+            "htod_by_stream": copies,
+            "htod_off_compute_stream": sum(
+                c["copies"] for s, c in copies.items() if s != str(compute))}
+
+
+def _feed_group(name: str, tmp: Path, variants: dict) -> dict:
+    """Launch each variant {label: (argv, env)} in this process with
+    --ckpt, then again with --log-dir: every report equal to the first's
+    but for its clocks, every final state equal to the first's in device
+    memory. {label: {report, seconds, pinned, and the profiled run's
+    seconds, steady rate and trace}}."""
+    first, out = None, {}
+    for label, (argv, env) in variants.items():
+        for prof in (False, True):
+            tag = f"{name}-{label}-{'prof' if prof else 'run'}"
+            extra = ["--ckpt", str(tmp / f"ck-{tag}")]
+            if prof:
+                extra += ["--log-dir", str(tmp / f"log-{tag}")]
+            rep, secs, state, pinned = _feed_here(argv + extra, env)
+            if first is None:
+                first = (label, rep, state)
+            else:
+                diff = _differ(first[2], state)
+                if diff or _feed_untimed(rep) != _feed_untimed(first[1]):
+                    raise AssertionError(
+                        f"{name} {label}{' profiled' if prof else ''}: "
+                        f"{rep} against {first[0]}: {first[1]}; the saved "
+                        f"states differ in {diff}")
+            del state
+            _free()
+            if prof:
+                trace = tmp / f"log-{tag}" / "trace.json"
+                out[label].update(
+                    profiled_s=secs, profiled_examples_per_sec_steady=rep.get(
+                        "examples_per_sec_steady"),
+                    profile=_trace_window(trace))
+                trace.unlink()
+            else:
+                out[label] = {"report": rep, "seconds": secs,
+                              "pinned": pinned}
+    del first
+    _free()
+    return out
+
+
+def phase_launch_feed(raw: bool) -> dict:
+    """launch:feed, the imported tree's launcher:
+    - with `raw`, a raw Criteo TSV of FEED_LINES lines from seed 0 (>= 64
+      MB, so that the native parser runs), preprocessed in this process
+      (MB/s) and by `--preprocess-raw` in the plain prefetched launch
+      (the same six files, byte for byte), and every full-width launch
+      trains on the processed files; without, on --samples FEED_SAMPLES
+      (`--phase feed`: the same data for a parent tree under --root);
+    - the plain launcher at full width, 2 epochs in chunks of FEED_K
+      (which do not divide an epoch's steps), with the prefetcher and
+      with --no-prefetch;
+    - the scheduled launcher at full width (--pinned-rows 4096
+      --plan-cache --device-data, 2 epochs) at --prestage 0, at
+      --prestage 3 --prestage-threads 2 (HERALD_PRESTAGE_BUDGET=0, so
+      that the whole stream is not staged first) and at --prestage all;
+    - after one short untimed launch, every full-width launch twice in
+      this process (`_feed_group`), the second time profiled: equal
+      reports (steps, losses, evals, cache counters, overflow 0) and
+      final states (table, tower; cache and hot block), the idle share
+      and the copies' streams of each mode, the pinned host memory of
+      each run, and what `active_bytes` counts (`_active_bytes_probe`);
+    - 2 gloo ranks on card 0 at 65,536 rows, batch 256 a rank: --scheduled
+      --prestage 3 against --prestage 0 and the prefetched plain run
+      against --no-prefetch, 2 epochs of 28 global steps in chunks of 8,
+      every launch at once, reports and checkpoints exact."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    full = ["herald_tpu_torch.launch", "--model", "wdl_criteo",
+            "--bf16-table", "--rows", str(FULL_ROWS), "--batch-size",
+            str(BATCH), "--embedding-size", str(EMB), "--scan-steps",
+            str(FEED_K), "--nepoch", "2"]
+    out = {"phase": "launch:feed", "nvidia_smi": smi, "raw": raw,
+           "predicted": FEED_PREDICTED, "marks_s": {}}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    def mark(name):     # seconds since the phase started, by step
+        out["marks_s"][name] = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        data = pf_data = ["--samples", str(FEED_SAMPLES)]
+        if raw:
+            from herald_tpu_torch.data import preprocess_criteo
+            src = tmp / "train.txt"
+            t0 = time.perf_counter()
+            _write_raw_criteo(src, FEED_LINES)
+            write_s = time.perf_counter() - t0
+            mb = src.stat().st_size / 1e6
+            if mb < FEED_MIN_MB:
+                raise AssertionError(f"the raw file holds {mb} MB")
+            t0 = time.perf_counter()
+            host_build.preproc_lib_path()       # built outside the clock
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            preprocess_criteo(str(src), str(tmp / "ref"), seed=0)
+            pp_s = time.perf_counter() - t0
+            out["preprocess"] = {"raw_mb": mb, "lines": FEED_LINES,
+                                 "write_s": write_s, "build_s": build_s,
+                                 "seconds": pp_s, "mb_per_s": mb / pp_s}
+            data = ["--data-path", str(tmp / "ref")]
+            # the prefetched plain run preprocesses the raw file itself
+            pf_data = ["--preprocess-raw", str(src), "--data-path",
+                       str(tmp / "pp")]
+            mark("preprocess")
+        # the first full-width launch of a process pays one-time costs
+        # that later ones do not (two identical launches of one tree, the
+        # first the slower): a short one runs first, untimed
+        _feed_here(full + data + ["--no-prefetch", "--max-steps",
+                                  str(FEED_K)])
+        _free()
+        mark("warm-up")
+        plain = _feed_group("plain", tmp, {
+            "prefetch": (full + pf_data, None),
+            "no_prefetch": (full + data + ["--no-prefetch"], None)})
+        mark("plain")
+        rep = plain["prefetch"]["report"]
+        if rep["steps"] // 2 % FEED_K == 0 or not 0.0 <= rep["val_auc"] <= 1:
+            raise AssertionError(f"plain feed: {rep}")
+        if raw:
+            names = sorted(p.name for p in (tmp / "ref").glob("*.npy"))
+            if len(names) != 6 or any(
+                    (tmp / "ref" / n).read_bytes()
+                    != (tmp / "pp" / n).read_bytes() for n in names):
+                raise AssertionError("--preprocess-raw wrote other files "
+                                     "than preprocess_criteo")
+            out["preprocess"]["launcher_files_equal"] = True
+        sched = full + data + ["--scheduled", "--pinned-rows", str(PINNED),
+                               "--device-data", "--prestage-threads", "2"]
+        runs = _feed_group("scheduled", tmp, {
+            p: (sched + ["--prestage", p, "--plan-cache",
+                         str(tmp / f"tape-{p}")],
+                {"HERALD_PRESTAGE_BUDGET": "0"} if p == "3" else None)
+            for p in ("0", "3", "all")})
+        mark("scheduled")
+        rep = runs["0"]["report"]
+        if rep["overflow_rows"] or rep["val_auc"] is None:
+            raise AssertionError(f"scheduled feed: {rep}")
+        for name, group in (("plain", plain), ("scheduled", runs)):
+            out[name] = {
+                "steps": group[next(iter(group))]["report"]["steps"],
+                "val_auc": group[next(iter(group))]["report"]["val_auc"],
+                "states_equal": True,
+                **{k: {m: r["report"].get(k) for m, r in group.items()}
+                   for k in ("examples_per_sec", "examples_per_sec_steady",
+                             "examples_per_sec_steady_segments")},
+                **{k: {m: r[k] for m, r in group.items()}
+                   for k in ("seconds", "profiled_s",
+                             "profiled_examples_per_sec_steady", "profile",
+                             "pinned")}}
+        out["scheduled"].update(cache=rep["cache"],
+                                noflush_chunks=rep["noflush_chunks"])
+        out["active_bytes_probe"] = _active_bytes_probe()
+        out["two_ranks"] = _feed_two_ranks(tmp)
+        mark("two_ranks")
+    mark("end")
+    emit(out)
+    return out
+
+
+def _feed_two_ranks(tmp: Path) -> dict:
+    """launch:feed's 2-rank pairs on card 0 (gloo): --scheduled
+    --prestage 3 against --prestage 0, and the prefetched plain run
+    against --no-prefetch, at RESUME_ROWS rows, every launch at once:
+    reports and checkpoints exact."""
+    two = ["torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "herald_tpu_torch.launch", "--comm", "hybrid", "--device",
+           "cuda:0", "--model", "wdl_criteo", "--bf16-table", "--rows",
+           str(RESUME_ROWS), "--samples", "16384", "--scan-steps", "8",
+           "--nepoch", "2"]
+    sched = ["--scheduled", "--cache-limit-ratio", "0.25"]
+    runs = {"prestage3": sched + ["--prestage", "3"],
+            "prestage0": sched + ["--prestage", "0"],
+            "prefetch": [], "no_prefetch": ["--no-prefetch"]}
+    got = _on_threads({n: (lambda n=n, a=a: _feed_run(
+        two + a + ["--ckpt", str(tmp / f"two-{n}")]))
+        for n, a in runs.items()})
+    out = {}
+    for fed, direct in (("prestage3", "prestage0"),
+                        ("prefetch", "no_prefetch")):
+        a, b = got[fed][0], got[direct][0]
+        if (a["devices"], a["backend"]) != (2, "gloo") \
+                or _feed_untimed(a) != _feed_untimed(b) \
+                or fed == "prefetch" and a["steps"] // 2 % 8 == 0:
+            raise AssertionError(f"2 ranks: {fed} {a} against {direct} {b}")
+        out[fed] = {"steps": a["steps"], "val_auc": a["val_auc"],
+                    "checkpoints_equal": _same_ckpt(
+                        tmp / f"two-{fed}", tmp / f"two-{direct}"),
+                    "command_s": [got[fed][1], got[direct][1]]}
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -4849,11 +5300,12 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
-                                        "assigned", "hybrid"),
+                                        "assigned", "hybrid", "feed"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
-                         "launch:hybrid)")
+                         "launch:hybrid; feed: launch:feed on --samples "
+                         "data)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
@@ -4891,6 +5343,8 @@ def main() -> None:
     elif args.phase == "hybrid":
         phase_hybrid()
         phase_launch_hybrid()
+    elif args.phase == "feed":
+        phase_launch_feed(raw=False)
     if args.phase:
         emit({"phase": "profiler", **PROFILER})
         print(smi, flush=True)
@@ -4933,6 +5387,8 @@ def main() -> None:
     del hot, uniqs, positions
     _free()
     phase_launch_scheduled()
+    phase_launch_feed(raw=True)
+    _free()
     # the row-sharded exchange: two ranks sharing this card over gloo
     hybrid = phase_hybrid()
     for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push"),

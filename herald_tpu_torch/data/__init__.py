@@ -7,3 +7,9 @@ from herald_tpu_torch.data.datasets import (
     synthetic_ctr_data,
 )
 from herald_tpu_torch.data.loaders import Dataloader, LookaheadDataloader
+from herald_tpu_torch.data.prefetch import DevicePrefetcher
+from herald_tpu_torch.data.preprocess import (
+    preprocess_avazu,
+    preprocess_criteo,
+    preprocess_criteo_search,
+)

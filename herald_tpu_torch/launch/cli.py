@@ -15,14 +15,27 @@
     python -m herald_tpu_torch.launch.supervise --ckpt-dir DIR -- [...]
 
 The flags are herald_tpu.launch's, plus `--device`; `--model` takes every
-name of `herald_tpu_torch.models.available_models()`. Four of its
-branches are ported:
+name of `herald_tpu_torch.models.available_models()`. `herald_tpu_torch/
+bin/heraldrun` forwards to this module (`--supervise`: to
+`launch/supervise.py`), and `herald_tpu_torch/examples/` holds the
+counterparts of `examples/`. Ported:
+- `--preprocess-raw FILE --data-path DIR` (`cli.py:613-619`): the raw
+  criteo, avazu or criteosearch file becomes the six `.npy` files first
+  (`data/preprocess.py`; files of 64 MB or more through the native
+  parser, `csrc/herald_preproc.cc`, built by `sched/build.py`). Over S
+  ranks rank 0 writes them and every rank waits at a barrier, then loads.
 - the plain trainer (`cli.py:1126-1238`): init or `--resume`, chunks of
   `--scan-steps` steps through `Engine.train_epoch`, checkpoints at
   `--ckpt-every` crossings and at the end, `--max-steps`, a validation
-  pass per finished epoch and at the end, and the same report. It stages
-  each chunk from the host in one copy, whatever `--no-prefetch` says (the
-  async prefetcher is a later item). `--comm hybrid` runs it over the
+  pass per finished epoch and at the end, and the same report. Under
+  JAX's rule (prefetch on, no `--resume` past step 0, no `--max-steps`)
+  a `data/prefetch.py` `DevicePrefetcher` stages the chunks ahead on a
+  copy stream of its own, each rank its block of every global batch;
+  otherwise, or with `--no-prefetch`, each chunk is staged when it runs.
+  Unlike JAX's prefetcher (`data/prefetch.py:38-40`), which drops an
+  epoch's last `steps % --scan-steps` steps, an epoch's last chunk is
+  shorter, so both ways train the same steps in the same order.
+  `--comm hybrid` runs it over the
   ranks of `torch.distributed.run` (`parallel/comm.py`; one rank without
   it): the table row-sharded over S ranks, global batches of
   `--batch-size * S` rows, gloo on the CPU or when the ranks share a card
@@ -39,18 +52,23 @@ branches are ported:
   `--autosize` (and `--autosize-flush-budget`, with a wide engine for the
   cold steps), `--ckpt-serve-view`, `--resume` through `fast_forward`, an
   approximate per-epoch eval, the exact final eval after `sync_cache`, and
-  the steady-state clock. Over S ranks (`--comm hybrid`) rank 0 alone
+  the steady-state clock. Once the cold steps are done, `_Prestager`
+  (`cli.py:444-555`) pops the stream on a thread of its own and stages
+  `--prestage` chunks ahead through `--prestage-threads` workers, each
+  copy on a copy stream (`all`: the whole stream before the first step;
+  chosen by itself with `--plan-cache --device-data` when the stream fits
+  `HERALD_PRESTAGE_BUDGET` bytes, 1 GiB by default); `--prestage 0` stages
+  each chunk when it runs. Over S ranks (`--comm hybrid`) rank 0 alone
   plans for S workers and a `sched/service.py` `BroadcastPlanner` hands
-  every rank each chunk (and fast-forwards on `--resume`, which takes a
+  every rank each chunk over a gloo group of its own (and fast-forwards
+  on `--resume`, which takes a
   checkpoint of the same S only: the cache arrays are the stream's),
   `--autosize` probes on rank 0 and broadcasts its
   sizes, the flush deltas cross the wire in `--bf16-flush` or
   `--int8-flush` form (accepted and unused on one rank, as in JAX), and
   `--plan-cache` and `--ckpt-serve-view` are refused with JAX's messages.
-  The async `_Prestager` is not ported: every `--prestage` value runs the
-  per-chunk path, and the report says so. Unlike `cli.py:993`, a
-  `--max-steps` stop on an epoch boundary keeps that epoch's
-  (approximate) eval;
+  Unlike `cli.py:993`, a `--max-steps` stop on an epoch boundary keeps
+  that epoch's (approximate) eval;
 - the FAE branch (`cli.py:665-708`; `--fae` or a `fae_*` model, with
   `--hot-rate`): `FaeEngine` step by step over the whole epochs, the
   hot-id LUT profiled from the training ids, `evaluate_fae` per epoch and
@@ -69,8 +87,9 @@ run (rank 0 prints `{"crashed_at": N}`), for the restart supervisor
 (`launch/supervise.py`). `--multihost` says that the ranks come from
 `torch.distributed.run` over one or more nodes (`--nnodes`, each rank on
 its LOCAL_RANK card), and raises without its environment; checkpoints
-must then be on storage every node reads. The other modes and options
-raise NotImplementedError naming their ROADMAP item; none is ignored.
+must then be on storage every node reads. `--export-onnx`, `--mp-shards`
+and `--platform` raise NotImplementedError naming their ROADMAP item;
+no flag is ignored.
 """
 
 from __future__ import annotations
@@ -78,8 +97,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import queue
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -303,22 +325,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prestage", type=_prestage_arg, default=3,
                    metavar="DEPTH|all",
                    help="scheduled mode: keep up to DEPTH chunks popped "
-                        "+ staged to device AHEAD of the training loop "
-                        "(a pop thread + small staging pool). 0 disables "
-                        "(per-chunk depth-1 staging). 'all' stages the "
-                        "ENTIRE stream to HBM before the first dispatch "
-                        "— the timed loop is then pure dispatch, which "
-                        "is the device-ceiling mode on transports where "
-                        "transfers serialize with compute (budget: "
-                        "~wire-bytes-per-step x total steps of HBM; "
+                        "+ staged to the card AHEAD of the training loop "
+                        "(a pop thread + small staging pool, copies on a "
+                        "stream of their own). 0 disables (per-chunk "
+                        "staging). 'all' stages the ENTIRE stream to the "
+                        "card before the first dispatch — the timed loop "
+                        "is then pure dispatch (budget: the bytes of a "
+                        "staged step x total steps of device memory; "
                         "pair with --plan-cache + --device-data). "
                         "Exactness is untouched in every mode: the "
                         "chunk stream is identical and serve-view "
                         "residency mirrors advance at dispatch time")
     p.add_argument("--prestage-threads", type=int, default=2,
-                   help="staging pool width for --prestage (parallel "
-                        "device_puts; raise if staging wall time still "
-                        "exceeds device execution per chunk)")
+                   help="staging pool width for --prestage (chunks packed "
+                        "and copied at once; raise if staging wall time "
+                        "still exceeds device execution per chunk)")
     p.add_argument("--plan-cache", default=None, metavar="DIR",
                    help="scheduled mode, single process: record the "
                         "planner's micro-program tape here on first run "
@@ -341,8 +362,6 @@ def build_parser() -> argparse.ArgumentParser:
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
     ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
-    ("preprocess_raw", "--preprocess-raw", "item 10 (launcher and input "
-     "feed: data/preprocess.py)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
      "--device"),
 )
@@ -563,6 +582,112 @@ class _ChunkStats:
         return self.losses, self.overflow
 
 
+class _Prestager:
+    """The scheduled path's staging pipeline (JAX's `_Prestager`,
+    `cli.py:444-555`): a producer thread pops the planner stream in order,
+    clamping chunks at epoch boundaries and at the step target as the
+    per-chunk loop does and never popping past the target, and hands each
+    chunk to a pool of `threads` workers that run
+    `CachedEngine._stage_chunk` on a copy stream (`data/prefetch.py`
+    `CopyStream`). Chunks come back in stream order through a queue of
+    `depth` (0: unbounded, for prestage-all), so the pops, the packing and
+    the host-to-device copies overlap the steps of earlier chunks.
+
+    Exactness is untouched: the chunks, their order and contents are the
+    per-chunk path's (each pop allocates fresh arrays), and residency
+    tracking (`--ckpt-serve-view`) is applied by the consumer when it
+    dispatches a chunk, so the host mirror never runs ahead of the steps.
+    Over S ranks the producer's pops are `BroadcastPlanner` broadcasts,
+    which go over a group of their own (`Comm.host_group`), never the
+    group the steps' collectives use."""
+
+    _END = object()
+
+    def __init__(self, eng, planner, trn, device_data, start_done, target,
+                 spe, scan_steps, depth, threads):
+        from herald_tpu_torch.data.prefetch import CopyStream
+        self.eng = eng
+        self.q = queue.Queue(maxsize=max(depth, 0))
+        self._stop = threading.Event()
+        self._pool = ThreadPoolExecutor(max_workers=max(threads, 1),
+                                        thread_name_prefix="herald-stage")
+        self._copies = CopyStream(eng.device)
+        self._cfg = (planner, trn, device_data, start_done, target, spe,
+                     scan_steps)
+        self._err = None
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="herald-prestager")
+        self._thread.start()
+
+    def _produce(self) -> None:
+        planner, trn, device_data, done, target, spe, scan = self._cfg
+        track = self.eng._slot2id is not None
+        idx_feed = device_data is not None
+        raw = {} if idx_feed else {"raw_dense": trn[0],
+                                   "raw_sparse": trn[1],
+                                   "raw_labels": trn[2]}
+        try:
+            while done < target and not self._stop.is_set():
+                k = min(scan, target - done,
+                        spe - done % spe if done % spe else spe)
+                out = planner.pop_chunk(k)
+                K = out[0]
+                if K == 0:
+                    break
+                tr = (K, out[2], out[6], out[7], out[8]) if track else None
+                fut = self._pool.submit(self._copies.run,
+                                        self.eng._stage_chunk, *out,
+                                        index_feed=idx_feed, **raw)
+                if not self._put((fut, tr)):
+                    return
+                done += K
+                if K < k:       # the stream ended short of the request
+                    break
+        except BaseException as e:      # raised again by get()
+            self._err = e
+        finally:
+            self._put(self._END)
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def await_staged(self) -> None:
+        """Block until the whole stream is popped and its copies issued
+        (prestage-all): the loop is then pure dispatch."""
+        self._thread.join()
+        self._pool.shutdown(wait=True)
+
+    def get(self):
+        """The next staged chunk as (StagedChunk, residency args or None),
+        ready on the caller's current stream; None at the end of the
+        stream. Raises the producer's or a worker's error."""
+        item = self.q.get()
+        if item is self._END:
+            if self._err is not None:
+                raise self._err
+            return None
+        fut, tr = item
+        staged, event = fut.result()
+        self._copies.ready(staged.packed, event)
+        return staged, tr
+
+    def close(self) -> None:
+        self._stop.set()
+        while True:     # unblock a producer waiting on a full queue
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=10)
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+
 def _fail_on_overflow(total: int) -> None:
     """The JAX launcher's abort on rows dropped by the exchange's static
     buckets (one device has no exchange: the count stays 0), beside every
@@ -651,11 +776,6 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
                                                    load_extra)
     from herald_tpu_torch.utils.profiler import cache_report
 
-    if args.prestage:
-        print(json.dumps({
-            "prestage": "not ported (ROADMAP item 10)",
-            "note": "every chunk is staged when it runs, in one copy from "
-                    "pinned host memory"}), flush=True)
     eng_cold, warm_steps = None, 0
     if args.autosize:
         eng_cold, warm_steps = _autosize(cfg, rows, trn, args, device, comm)
@@ -663,10 +783,11 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
     S = eng.num_shards
     if S > 1:
         # one planner for the job, on rank 0; every rank gets its chunks
+        # over a group of their own (the prestager pops on its thread)
         planner = BroadcastPlanner(
             lambda: eng.make_planner(trn[1], epochs=args.nepoch,
                                      n_threads=cfg.sched_threads),
-            comm, num_samples=len(trn[1]), nrank=S,
+            comm.host_group(), num_samples=len(trn[1]), nrank=S,
             batch_size=cfg.batch_size, unique_cap=eng.U_cap,
             flush_cap=eng.F_cap, cache_rows=eng.cache_rows,
             epochs=args.nepoch, prefetch_cap=eng.P_cap,
@@ -733,42 +854,81 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
         steady["t0"] = time.perf_counter()
         steady["done0"] = done
 
-    while done < target:
-        run_eng = eng_cold if (eng_cold is not None
-                               and done < warm_steps) else eng
-        # chunks stop at epoch boundaries, so each eval sees one epoch
-        k = min(args.scan_steps, target - done,
-                spe - done % spe if done % spe else spe)
-        if run_eng is eng_cold:
-            k = min(k, warm_steps - done)
-        with timer:
-            state, stats = run_eng.train_epoch_cached(
-                state, planner, *trn, steps=k, device_data=dev_data)
-        if stats is None:
-            break
-        cs.push(stats)
-        done += int(stats["loss"].shape[0])     # the executed count
-        steady["chunks"] += 1
-        if steady["chunks"] == warm_chunks and done < target:
-            cs.drain()
-            steady_open()
-        if maybe_ckpt(state, done, pre=lambda: (cs.drain(), steady_close(),
-                                                _fail_on_overflow(
-                                                    cs.overflow))) \
-                and done < target and steady["chunks"] >= warm_chunks:
-            steady_open()
-        if done % spe == 0 and done > start_done:
-            cs.drain()
-            steady_close()
-            losses_ep = cs.losses[-(done - max(start_done, done - spe)):]
-            if done >= steps_total:
-                # the last epoch of the stream: its eval waits for
-                # sync_cache, so it is exact
-                final_eval_losses = losses_ep
-                continue
-            eval_epoch(eng, state, done // spe - 1, losses_ep, approx=True)
-            if steady["chunks"] >= warm_chunks:
+    prestage = args.prestage
+    if prestage > 0 and args.plan_cache and args.device_data:
+        # the whole stream staged before the first step when it fits the
+        # budget (JAX's cli.py:904-926): the bytes of a step's packed row
+        est = eng.staged_step_bytes() * (target - done)
+        if est <= int(os.environ.get("HERALD_PRESTAGE_BUDGET", 1 << 30)):
+            print(json.dumps({
+                "prestage": "all", "est_bytes": est,
+                "note": "program stream fits HERALD_PRESTAGE_BUDGET; "
+                        "staging everything before the first dispatch"}),
+                flush=True)
+            prestage = -1
+    prestager = None
+    try:
+        while done < target:
+            run_eng = eng_cold if (eng_cold is not None
+                                   and done < warm_steps) else eng
+            if prestage and prestager is None and run_eng is eng:
+                # past the cold steps: stage from the stream's position
+                prestager = _Prestager(
+                    eng, planner, trn, dev_data, done, target, spe,
+                    args.scan_steps, depth=max(prestage, 0),
+                    threads=args.prestage_threads)
+                if prestage == -1:
+                    prestager.await_staged()
+            if prestager is not None:
+                item = prestager.get()
+                if item is None:
+                    break
+                staged, tr = item
+                if tr is not None:
+                    eng._track_residency(*tr)
+                with timer:
+                    state, stats = eng.train_epoch_staged(
+                        state, staged, device_data=dev_data)
+            else:
+                # chunks stop at epoch boundaries, so each eval sees one
+                # epoch
+                k = min(args.scan_steps, target - done,
+                        spe - done % spe if done % spe else spe)
+                if run_eng is eng_cold:
+                    k = min(k, warm_steps - done)
+                with timer:
+                    state, stats = run_eng.train_epoch_cached(
+                        state, planner, *trn, steps=k, device_data=dev_data)
+                if stats is None:
+                    break
+            cs.push(stats)
+            done += int(stats["loss"].shape[0])     # the executed count
+            steady["chunks"] += 1
+            if steady["chunks"] == warm_chunks and done < target:
+                cs.drain()
                 steady_open()
+            if maybe_ckpt(state, done, pre=lambda: (
+                    cs.drain(), steady_close(),
+                    _fail_on_overflow(cs.overflow))) \
+                    and done < target and steady["chunks"] >= warm_chunks:
+                steady_open()
+            if done % spe == 0 and done > start_done:
+                cs.drain()
+                steady_close()
+                losses_ep = cs.losses[-(done - max(start_done,
+                                                   done - spe)):]
+                if done >= steps_total:
+                    # the last epoch of the stream: its eval waits for
+                    # sync_cache, so it is exact
+                    final_eval_losses = losses_ep
+                    continue
+                eval_epoch(eng, state, done // spe - 1, losses_ep,
+                           approx=True)
+                if steady["chunks"] >= warm_chunks:
+                    steady_open()
+    finally:
+        if prestager is not None:
+            prestager.close()
     losses, overflow_total = cs.finish()
     steady_close()
     _fail_on_overflow(overflow_total)
@@ -797,7 +957,6 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
             eng_cold.noflush_chunks if eng_cold is not None else 0),
         "nopull_chunks": eng.nopull_chunks + (
             eng_cold.nopull_chunks if eng_cold is not None else 0),
-        "prestage": "not ported (ROADMAP item 10)",
     }
     return eng, state, losses, overflow_total, stopped_early, extra
 
@@ -926,6 +1085,86 @@ def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
     return eng, state, losses, overflow_total, done < total, extra
 
 
+def _preprocess_raw(args, spec, comm, lead: bool) -> None:
+    """`--preprocess-raw`: the raw file into --data-path's six .npy files
+    (JAX's `cli.py:613-619`). Over S ranks rank 0 writes them while the
+    others wait at a barrier, then every rank loads them."""
+    from herald_tpu_torch.data import (preprocess_avazu, preprocess_criteo,
+                                       preprocess_criteo_search)
+    pp = {"criteo": preprocess_criteo, "avazu": preprocess_avazu,
+          "criteosearch": preprocess_criteo_search}.get(spec.name)
+    if pp is None:
+        raise ValueError(f"--preprocess-raw takes a criteo, avazu or "
+                         f"criteosearch raw file; {args.model} reads "
+                         f"{spec.name}")
+    if not args.data_path:
+        raise ValueError("--preprocess-raw requires --data-path")
+    if lead:
+        pp(args.preprocess_raw, args.data_path, seed=args.seed)
+    if comm is not None:
+        comm.barrier()
+
+
+def _train_prefetched(args, eng, state, trn, spe, eval_epoch, maybe_ckpt,
+                      timer):
+    """The plain branch's epochs through a `DevicePrefetcher` (JAX's
+    `cli.py:1143-1170`): chunks of `--scan-steps` steps staged ahead, an
+    epoch's last chunk shorter (JAX drops those steps), a checkpoint at
+    each `--ckpt-every` crossing and an eval per epoch. Losses and
+    overflow stay on the device until a boundary needs them. Returns
+    (state, losses, overflow)."""
+    from herald_tpu_torch.data.prefetch import DevicePrefetcher
+    pf = DevicePrefetcher(
+        trn, steps_per_chunk=min(args.scan_steps, spe),
+        global_batch=eng.cfg.batch_size * eng.num_shards,
+        dtypes=(np.float32, np.int32, np.float32), device=eng.device,
+        rank=eng.rank, ranks=eng.num_shards)
+    cs = _ChunkStats()
+    done = 0
+    try:
+        for chunk in pf(epochs=args.nepoch):
+            with timer:
+                state, stats = eng.train_epoch(state, chunk)
+            cs.push(stats)
+            done += chunk.steps
+            maybe_ckpt(state, done, pre=lambda: (
+                cs.drain(), _fail_on_overflow(cs.overflow)))
+            if done % spe == 0:
+                cs.drain()
+                eval_epoch(eng, state, done // spe - 1, cs.losses[-spe:])
+    finally:
+        pf.close()
+    return (state, *cs.finish())
+
+
+def _train_direct(args, eng, state, trn, spe, start_step, total_target,
+                  eval_epoch, maybe_ckpt, timer):
+    """The plain branch's chunks staged when they run (JAX's
+    `cli.py:1171-1192`), from `start_step` to `total_target`: (state,
+    losses, overflow)."""
+    gb = eng.cfg.batch_size * eng.num_shards
+    losses = []
+    overflow_total = 0
+    for ep in range(args.nepoch):
+        done = max(0, min(start_step - ep * spe, spe))
+        trained = 0
+        while done < spe and ep * spe + done < total_target:
+            k = min(args.scan_steps, spe - done,
+                    total_target - ep * spe - done)
+            lo = done * gb
+            with timer:
+                state, stats = eng.train_epoch(
+                    state, trn[0][lo:], trn[1][lo:], trn[2][lo:], steps=k)
+            losses.extend(stats["loss"].cpu().tolist())
+            overflow_total += int(stats["overflow"].sum())
+            done += k
+            trained += k
+            maybe_ckpt(state, ep * spe + done)
+        if done >= spe and trained:
+            eval_epoch(eng, state, ep, losses[-trained:])
+    return state, losses, overflow_total
+
+
 def run_training(args) -> dict:
     import warnings
 
@@ -956,6 +1195,8 @@ def run_training(args) -> dict:
     args.log_dir = args.log_dir or cfg.log_dir   # config-file fallback
     model = get_model(cfg.model)
     spec = dataset_for_model(cfg.model)
+    if args.preprocess_raw:
+        _preprocess_raw(args, spec, comm, lead)
     dense, sparse, labels = load_dataset(spec, args.data_path,
                                          num_samples=args.samples,
                                          seed=cfg.seed, num_rows=args.rows)
@@ -1047,31 +1288,18 @@ def run_training(args) -> dict:
             start_step = int(state.step)   # skip already-trained batches
         else:
             state = eng.init_state(cfg.seed)
-        losses = []
-        overflow_total = 0
         total_target = args.nepoch * steps_per_epoch
         if args.max_steps:
             total_target = min(total_target, args.max_steps)
-        for ep in range(args.nepoch):
-            done = max(0, min(start_step - ep * steps_per_epoch,
-                              steps_per_epoch))
-            trained = 0
-            while done < steps_per_epoch \
-                    and ep * steps_per_epoch + done < total_target:
-                k = min(args.scan_steps, steps_per_epoch - done,
-                        total_target - ep * steps_per_epoch - done)
-                lo = done * gb
-                with timer:
-                    state, stats = eng.train_epoch(
-                        state, trn[0][lo:], trn[1][lo:], trn[2][lo:],
-                        steps=k)
-                losses.extend(stats["loss"].cpu().tolist())
-                overflow_total += int(stats["overflow"].sum())
-                done += k
-                trained += k
-                maybe_ckpt(state, ep * steps_per_epoch + done)
-            if done >= steps_per_epoch and trained:
-                eval_epoch(eng, state, ep, losses[-trained:])
+        if cfg.prefetch and start_step == 0 and not args.max_steps:
+            # JAX's rule (cli.py:1140-1142): whole epochs from step 0
+            state, losses, overflow_total = _train_prefetched(
+                args, eng, state, trn, steps_per_epoch, eval_epoch,
+                maybe_ckpt, timer)
+        else:
+            state, losses, overflow_total = _train_direct(
+                args, eng, state, trn, steps_per_epoch, start_step,
+                total_target, eval_epoch, maybe_ckpt, timer)
         _fail_on_overflow(overflow_total)
         stopped_early = total_target < args.nepoch * steps_per_epoch
         extra = {}

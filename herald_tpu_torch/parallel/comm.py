@@ -21,9 +21,11 @@ rank and no group is made.
   group and keeps this rank's block b (JAX's tiled `psum_scatter` over
   axis 0), `all_gather` stacks a tensor of every rank, `broadcast_` copies
   rank 0's tensors to every rank, `barrier` waits for every rank,
-  `subgroups` makes dense-sync groups on every rank in one order. At
-  S = 1 each returns its input, and `barrier` returns at once. The split
-  sizes are fixed, so no collective waits on the host to size itself.
+  `subgroups` makes dense-sync groups on every rank in one order, and
+  `host_group` a gloo twin of the group for another thread's host
+  arrays. At S = 1 each returns its input, and `barrier` returns at
+  once. The split sizes are fixed, so no collective waits on the host to
+  size itself.
   gloo takes CUDA tensors for every one of these (and copies them through
   host memory itself; `reduce_scatter_tensor` too, on an H100 with torch
   2.11: `chip_smoke.py`'s hybrid:scheduled leg calls it there), so every
@@ -156,6 +158,18 @@ class Comm:
         `multihost_utils.sync_global_devices`)."""
         if self.size > 1:
             dist.barrier(group=self.group)
+
+    def host_group(self) -> "Comm":
+        """A Comm of the same ranks over a gloo group of its own, for host
+        arrays: collectives made from another thread (the scheduled
+        launcher's planner) then never interleave with this group's, and
+        its `seconds` are its own. Every rank makes it, in the same order
+        as every other group."""
+        cpu = torch.device("cpu")
+        if self.size == 1:
+            return Comm(self.rank, 1, cpu, None)
+        return Comm(self.rank, self.size, cpu, "gloo",
+                    dist.new_group(backend="gloo"))
 
     def subgroups(self, size: int):
         """The group of `size` consecutive ranks this rank belongs to.

@@ -1,13 +1,13 @@
 """Build the native host libraries with g++ and locate them for ctypes.
 
-The cache planner (`csrc/herald_cache_planner.cc`) and the lookahead
-sample scheduler (`csrc/herald_sched.cc`), each with
-`csrc/herald_common.h`, are host code that knows no framework. The port
-compiles the same sources itself, into
-`herald_tpu_torch/_build/libherald_<name>.<hash>.so`, where the hash
-covers the sources and the compiler flags, so an edited source builds a
-new library beside the old one. It never loads a library built by
-another package.
+The cache planner (`csrc/herald_cache_planner.cc`), the lookahead
+sample scheduler (`csrc/herald_sched.cc`) and the raw-data preprocessor
+(`csrc/herald_preproc.cc`), each hashed with `csrc/herald_common.h`, are
+host code that knows no framework. The port compiles the same sources
+itself, into `herald_tpu_torch/_build/libherald_<name>.<hash>.so`, where
+the hash covers the sources and the compiler flags, so an edited source
+builds a new library beside the old one. It never loads a library built
+by another package.
 
 Each build writes a temporary file named for its process and then
 renames it into place, so concurrent builds never share a path.
@@ -30,6 +30,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCE = "herald_cache_planner.cc"          # the planner
 SCHED_SOURCE = "herald_sched.cc"            # the lookahead scheduler
+PREPROC_SOURCE = "herald_preproc.cc"        # the raw-data parser
 COMMON = "herald_common.h"
 # -mcx16/-latomic: the planner's 128-bit residency words (64 workers) use
 # 16-byte atomic read-modify-writes (cmpxchg16b)
@@ -94,3 +95,8 @@ def planner_lib_path() -> str:
 def sched_lib_path() -> str:
     """The lookahead scheduler's library (`_lib_path`)."""
     return _lib_path(SCHED_SOURCE, "sched")
+
+
+def preproc_lib_path() -> str:
+    """The raw-data preprocessor's library (`_lib_path`)."""
+    return _lib_path(PREPROC_SOURCE, "preproc")

@@ -102,7 +102,8 @@ from herald_tpu_torch.parallel.exchange import (gather_rows, make_exchange,
                                                 scatter_grads)
 from herald_tpu_torch.sched.planner import CachePlanner
 from herald_tpu_torch.train.engine import Engine, TrainState, write_rows
-from herald_tpu_torch.train.graphs import Layout, unpack
+from herald_tpu_torch.train.graphs import (TORCH_DTYPES, Layout, layout_of,
+                                           unpack)
 
 
 class CachedTrainState(NamedTuple):
@@ -437,16 +438,17 @@ class CachedEngine(Engine):
     # ------------------------------------------------------------------
     # staging
     # ------------------------------------------------------------------
-    def _stage_chunk(self, K, assign, slots, pulls, fids, fslots, pfids,
-                     pfslots, uniq, inv, raw_dense=None, raw_sparse=None,
-                     raw_labels=None, *, index_feed: bool) -> StagedChunk:
-        """Stage one popped chunk (the first K rows of each array) for
-        `train_epoch_staged`. The sparse rows never ship: the planner's
-        uniq/inv replace them. Returns a StagedChunk whose variant follows
-        JAX's per-chunk rule, a pure function of the planner stream. Over
-        S ranks the arrays hold every worker's columns ([K, S*X]): the
-        phases are decided from all of them, and this rank stages its own
-        block of each (worker `rank`'s program)."""
+    def _chunk_program(self, K, assign, slots, pulls, fids, fslots, pfids,
+                       pfslots, uniq, inv, raw_dense=None, raw_sparse=None,
+                       raw_labels=None, *, index_feed: bool):
+        """The host side of staging one popped chunk (the first K rows of
+        each array): (its step inputs {name: [K, ...] array}, each step's
+        variant, the chunk's variant). The sparse rows never ship: the
+        planner's uniq/inv replace them. The chunk's variant follows JAX's
+        per-chunk rule, a pure function of the planner stream. Over S ranks
+        the arrays hold every worker's columns ([K, S*X]): the phases are
+        decided from all of them, and this rank stages its own block of
+        each (worker `rank`'s program)."""
         cfg = self.cfg
         C, S = self.cache_rows, self.num_shards
         pulls = np.asarray(pulls[:K]).view(np.uint8).astype(bool)
@@ -487,14 +489,40 @@ class CachedEngine(Engine):
         if S == 1:
             masks["ft"] = ((fids >= 0) & (fids < self.padded_rows), fids)
         kept = self._write_arrays(host, masks)
-        packed, layout = self._to_device(host, K)
         flush = kept["ft"] if S == 1 else has_flush
         steps = tuple((bool(flush[k]), bool(kept["fc"][k]),
                        bool(has_pull[k]), bool(kept["pf"][k]),
                        bool(kept["up"][k])) for k in range(K))
-        return StagedChunk(K=int(K), variant=2 if nopull else 1 if noflush
-                           else 0, index_feed=index_feed, steps=steps,
-                           packed=packed, layout=layout)
+        return host, steps, 2 if nopull else 1 if noflush else 0
+
+    def _stage_chunk(self, K, assign, slots, pulls, fids, fslots, pfids,
+                     pfslots, uniq, inv, raw_dense=None, raw_sparse=None,
+                     raw_labels=None, *, index_feed: bool) -> StagedChunk:
+        """Stage one popped chunk (the first K rows of each array) for
+        `train_epoch_staged`: its packed steps (`_chunk_program`) in one
+        copy from pinned host memory, on the current stream."""
+        host, steps, variant = self._chunk_program(
+            K, assign, slots, pulls, fids, fslots, pfids, pfslots, uniq,
+            inv, raw_dense, raw_sparse, raw_labels, index_feed=index_feed)
+        packed, layout = self._to_device(host, K)
+        return StagedChunk(K=int(K), variant=variant, index_feed=index_feed,
+                           steps=steps, packed=packed, layout=layout)
+
+    def staged_step_bytes(self) -> int:
+        """Bytes of one index-feed step of a staged chunk on the device
+        (its packed row), from the program caps: a zero program through
+        `_chunk_program`."""
+        S, P = self.num_shards, max(self.P_cap, 1)
+        mbs, U, F = self.cfg.batch_size, self.U_cap, self.F_cap
+
+        def zeros(w, dt=np.int32):
+            return np.zeros((1, S * w), dt)
+        host, _, _ = self._chunk_program(
+            1, zeros(mbs, np.int64), zeros(U), zeros(U, np.uint8), zeros(F),
+            zeros(F), zeros(P), zeros(P), zeros(U),
+            zeros(mbs * self.model.spec.num_sparse), index_feed=True)
+        return layout_of((k, TORCH_DTYPES[a.dtype], a.shape[1:])
+                         for k, a in host.items()).nbytes
 
     @staticmethod
     def _write_arrays(host, masks) -> Dict[str, np.ndarray]:

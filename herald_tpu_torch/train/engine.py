@@ -78,8 +78,9 @@ from herald_tpu_torch.optim.schedules import get_schedule
 from herald_tpu_torch.parallel.comm import setup as setup_comm
 from herald_tpu_torch.parallel.exchange import (make_exchange, owner_rows,
                                                 route_ids, scatter_grads)
-from herald_tpu_torch.train.graphs import (TORCH_DTYPES, StepGraphs,
-                                           feed_inputs, pack, pack_tensors)
+from herald_tpu_torch.train.graphs import (TORCH_DTYPES, PackedSteps,
+                                           StepGraphs, feed_inputs, pack,
+                                           pack_tensors)
 from herald_tpu_torch.utils import metrics as M
 
 # logical table rows drawn at a time by `Engine.init_state`
@@ -543,20 +544,29 @@ class Engine:
             return state, {"loss": res, "overflow": self._zero}
         return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
 
-    def train_epoch(self, state: TrainState, dense_x, sparse_ids, labels,
-                    steps: Optional[int] = None):
+    def train_epoch(self, state: TrainState, dense_x, sparse_ids=None,
+                    labels=None, steps: Optional[int] = None):
         """Run `steps` steps (default: as many full batches as the arrays
         hold). Host arrays are flat ([steps*B, ...]) and go to the device
         packed, one step a row, in one copy; tensors already shaped
-        [steps, B, ...] are packed on their card. Returns (state, stats)
-        with per-step `loss` and `overflow` tensors [steps]. Each step is
-        one replay of the step's graph (JAX scans the steps in one
-        program). Over S ranks the arrays hold global batches of
-        `batch_size * S` rows, each rank's blocks of the steps are packed
-        on the host, and the steps run uncaptured; a dense-sync relaxation
-        averages the dense state every `dense_sync_every` steps and at the
-        end (engine.py:455-476)."""
+        [steps, B, ...] are packed on their card. `dense_x` may instead be
+        a `PackedSteps` staged on the engine's device ("d", "s", "y" of
+        this rank's block of each step, as `data.prefetch.DevicePrefetcher`
+        gives it), which runs as it is. Returns (state, stats) with
+        per-step `loss` and `overflow` tensors [steps]. Each step is one
+        replay of the step's graph (JAX scans the steps in one program).
+        Over S ranks the arrays hold global batches of `batch_size * S`
+        rows, each rank's blocks of the steps are packed on the host, and
+        the steps run uncaptured; a dense-sync relaxation averages the
+        dense state every `dense_sync_every` steps and at the end
+        (engine.py:455-476)."""
         S = self.num_shards
+        if isinstance(dense_x, PackedSteps):
+            if steps not in (None, dense_x.steps):
+                raise ValueError(f"steps={steps} for a chunk of "
+                                 f"{dense_x.steps} staged steps")
+            return self._train_steps(state, dense_x.packed, dense_x.layout,
+                                     dense_x.steps)
         gb = self.cfg.batch_size * S
         steps = steps or len(sparse_ids) // gb
         if steps < 1:
@@ -583,6 +593,13 @@ class Engine:
         else:
             buf, layout = self._to_device(
                 {k: x for k, (x, _) in arrays.items()}, steps)
+        return self._train_steps(state, buf, layout, steps)
+
+    def _train_steps(self, state: TrainState, buf: torch.Tensor,
+                     layout, steps: int):
+        """`train_epoch`'s steps over a packed [steps, nbytes] buffer on
+        the device."""
+        S = self.num_shards
         res = torch.empty((2, steps), dtype=torch.float32,
                           device=self.device)     # loss; overflow
         # the scanned body's sync every k steps (engine.py:176-183); the

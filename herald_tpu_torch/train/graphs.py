@@ -112,6 +112,24 @@ def pack(arrays: Dict[str, np.ndarray], steps: Optional[int] = None,
     return (buf if steps else buf[0]), layout
 
 
+class PackedSteps(NamedTuple):
+    """The inputs of `steps` steps in one uint8 buffer `packed` [steps,
+    nbytes], one step a row, as `layout` places them (`pack`): a chunk
+    staged ahead of the step that reads it (`data/prefetch.py`)."""
+    packed: torch.Tensor
+    layout: Layout
+
+    @property
+    def steps(self) -> int:
+        return int(self.packed.shape[0])
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """{name: [steps, ...] view} of every input."""
+        return {f.name: self.packed[:, f.offset:f.offset + f.nbytes]
+                .view(f.dtype).view(self.steps, *f.shape)
+                for f in self.layout.fields}
+
+
 def pack_tensors(tensors: Dict[str, torch.Tensor], steps: int
                  ) -> Tuple[torch.Tensor, Layout]:
     """Tensors [steps, ...] on one device -> (uint8 [steps, nbytes] on that

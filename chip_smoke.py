@@ -9,17 +9,20 @@ through the scheduled, cached engine, and print what it measured.
     python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
     python3 chip_smoke.py --phase assigned|hybrid
     python3 chip_smoke.py --phase feed [--root DIR]
+    python3 chip_smoke.py --phase onnx
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
-serve, checkpoint, train, assigned, train:adam, launch, launch:assigned,
+serve, checkpoint, train, assigned, onnx, train:adam, launch,
+launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
 hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid,
 kernel:fm_second_order,
-kernel:dfm_width, serve:dfm, train:dfm, launch:dfm, scheduled:dfm, the
+kernel:dfm_width, serve:dfm, train:dfm, onnx:dfm, launch:dfm,
+scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
 that lost kernel records), the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -99,6 +102,18 @@ card 0 at 65,536 rows (`--scheduled --prestage 3` against `0`, the
 prefetched plain run against `--no-prefetch`), exact. It prints the
 predicted rates beside the measured ones.
 
+onnx exports the trained full-width wdl state with
+`herald_tpu_torch.onnx.export_state` (its whole table, a 17.3 GB f32
+file) after 8 more steps, loads the file with `OnnxModel` (mapped, not
+read) and scores 2 held-out batches as Engine.predict does (rtol 1e-4,
+atol 1e-6, tests/test_onnx.py's), printing the file's bytes, export_s,
+load_s, the scoring ms, the free disk before the export and the host's
+MemAvailable; onnx:dfm does the same for the trained dfm state over the
+first 1,048,576 rows of its table (the whole f32 table would be 69 GB),
+and launch:hybrid adds `--export-onnx` to its 2-rank plain and 1-rank
+scheduled launches at 65,536 rows, each file scored against the run's
+final checkpoint.
+
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
 fused to 513 columns (34.64 GB in bfloat16): K5 (fm_second_order, forward
@@ -140,7 +155,8 @@ and `--phase assigned` also run launch:fae or launch:assigned,
 `--phase hybrid` runs hybrid and launch:hybrid, and `--phase feed` runs
 launch:feed on `--samples` data of the same size instead of the raw
 file, so that a parent tree without the preprocessor runs the same
-launches. `--root
+launches; `--phase onnx` runs onnx and onnx:dfm, each from a fresh
+full-width engine. `--root
 DIR` imports herald_tpu_torch from another checkout, so that the steps
 of two trees (a parent unpacked with `git archive` into a gitignored
 directory, and this one) are timed and profiled in turns on one card,
@@ -5187,15 +5203,24 @@ def _resume_pairs(run) -> dict:
                  "--backoff", "0.1", "--", *child, "--crash-after", "6"],
                 cwd=ROOT, capture_output=True, text=True, timeout=600)
             return proc, time.perf_counter() - t0
+        def exported(name):
+            # the run's final state (its checkpoint) and rank 0's file
+            return ["--ckpt", str(tmp / f"ck-export-{name}"),
+                    "--export-onnx", str(tmp / f"{name}.onnx")]
         t0 = time.perf_counter()
         got = _on_threads({
-            **{f"{m}-whole": (lambda m=m: _timed_run(two + modes[m]))
+            **{f"{m}-whole": (lambda m=m: _timed_run(
+                two + modes[m] + (exported("plain") if m == "plain"
+                                  else [])))
                for m in modes},
             **{m: (lambda m=m: stop_and_resume(m)) for m in modes},
             "resize": resize, "supervise": supervised,
             "supervise-whole": lambda: _timed_run(
-                ["herald_tpu_torch.launch", *child])})
+                ["herald_tpu_torch.launch", *child,
+                 *exported("scheduled")])})
         wall = time.perf_counter() - t0
+        onnx = {"plain_two_ranks": _exported_launch(tmp, "plain"),
+                "scheduled_one_rank": _exported_launch(tmp, "scheduled")}
     out = {"resume_rows": RESUME_ROWS}
     for mode in modes:
         (w, w_s), ((s, s_s), (r, r_s)) = got[f"{mode}-whole"], got[mode]
@@ -5238,7 +5263,43 @@ def _resume_pairs(run) -> dict:
                         "val_auc": rep["val_auc"], "report_equal": True,
                         "command_s": [ref_s, sup_s]}
     out["resume_wall_s"] = wall
+    out["export_onnx"] = onnx
     return out
+
+
+def _exported_launch(tmp: Path, name: str) -> dict:
+    """A launch's `--export-onnx` file against its final state: the
+    checkpoint it wrote at the end, loaded on this card (a 2-rank plain
+    one onto one device, a cached one as its table and tower), scores
+    ONNX_BATCHES batches through Engine.predict as the file does through
+    OnnxModel, within ONNX_RTOL and ONNX_ATOL."""
+    from herald_tpu_torch.onnx import OnnxModel
+    cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                       embedding_dim=EMB, table_dtype=torch.bfloat16)
+    eng = Engine(cfg, table_rows=RESUME_ROWS, device="cuda")
+    ck = str(tmp / f"ck-export-{name}")
+    state = (CachedEngine.to_base_state(load_cached_checkpoint(ck, "cuda"))
+             if name == "scheduled" else
+             load_checkpoint(ck, "cuda", padded_rows=eng.padded_rows))
+    dense, sparse, _ = synthetic_ctr_data(eng.model.spec,
+                                          ONNX_BATCHES * BATCH, seed=1,
+                                          num_rows=RESUME_ROWS)
+    path = tmp / f"{name}.onnx"
+    om = OnnxModel.load(str(path))
+    want, got = [], []
+    for lo in range(0, len(sparse), BATCH):
+        d, s = dense[lo:lo + BATCH], sparse[lo:lo + BATCH]
+        want.append(eng.predict(state, d, s).cpu().numpy())
+        got.append(om(sparse_ids=s.astype(np.int64),
+                      dense_x=d.astype(np.float32))[0])
+    want, got = np.concatenate(want), np.concatenate(got)
+    diff = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=ONNX_RTOL, atol=ONNX_ATOL):
+        raise AssertionError(f"launch:hybrid {name}: the exported file's "
+                             f"scores differ from its checkpoint's by up "
+                             f"to {diff}")
+    return {"file_bytes": path.stat().st_size, "scored_rows": len(got),
+            "max_abs_diff": diff}
 
 
 def _times(k: dict) -> dict:
@@ -5297,15 +5358,144 @@ def phase_kernel_dfm_width(table: torch.Tensor, batches, positions,
           "rows_scatter_add": k2["dfm"]})
 
 
+# the onnx phase: steps trained before the export, held-out batches
+# scored by the file and by Engine.predict, the tolerance of
+# tests/test_onnx.py:114-115, and the dfm export's row cut (its f32 table
+# at full size would be 69 GB)
+ONNX_STEPS, ONNX_BATCHES = 8, 2
+ONNX_RTOL, ONNX_ATOL = 1e-4, 1e-6
+DFM_ONNX_ROWS = 1 << 20
+
+
+def _dfm_cfg() -> HeraldConfig:
+    return HeraldConfig(model=DFM, batch_size=DFM_BATCH,
+                        embedding_dim=DFM_EMB, table_dtype=torch.bfloat16,
+                        learning_rate=0.01)
+
+
+def _mem_available() -> int:
+    """The host's MemAvailable, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_onnx(eng: Engine, state: TrainState, label: str = "onnx",
+               rows: int = None, per_step: dict = None) -> dict:
+    """ONNX export of a state trained on the card (`herald_tpu_torch.onnx`,
+    the launcher's `--export-onnx`): ONNX_STEPS steps of train_epoch (the
+    captured path) on ids below `rows`, then the held-out batches through
+    Engine.predict, both with every kernel count set to 0 before and read
+    after; then `export_state` of the whole table (or, with `rows`,
+    `export_inference` of its first `rows` rows: a cut) into the build
+    directory, `OnnxModel.load` of the file (mapped, not read), its scores
+    of the held-out batches against predict's within ONNX_RTOL and
+    ONNX_ATOL, and the file deleted. A table whose f32 file would not fit
+    the free disk (with 4 GB to spare) is cut to the rows that fit, and
+    the line says so. Prints the file's bytes, export_s, load_s, the
+    scoring ms, the free disk before the export and the host's
+    MemAvailable."""
+    from herald_tpu_torch.onnx import OnnxModel, export_inference, \
+        export_state
+    per_step = per_step or {"embedding_gather": 1, "hot_onehot_push": 1,
+                            "rows_scatter_add": 1}
+    B, W = eng.cfg.batch_size, eng.width
+    rows = rows or eng.num_rows
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(build.BUILD_DIR).free
+    cut = None
+    if 4 * rows * W + (4 << 30) > free:
+        rows = max(1, (free - (4 << 30)) // (4 * W))
+        cut = (f"the f32 file of {4 * (rows or 1) * W} bytes needs more "
+               f"than the {free} bytes of free disk less 4 GB")
+    n = (ONNX_STEPS + ONNX_BATCHES) * B
+    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, n, seed=7,
+                                               num_rows=rows)
+    chunk = _stage(dense, sparse, labels, 0, ONNX_STEPS, B)
+    torch.cuda.synchronize()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, stats = eng.train_epoch(state, *chunk, steps=ONNX_STEPS)
+    held = [(dense[lo:lo + B], sparse[lo:lo + B])
+            for lo in range(ONNX_STEPS * B, n, B)]
+    want = np.concatenate([eng.predict(state, d, s).cpu().numpy()
+                           for d, s in held])
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    expect = _want(per_step, ONNX_STEPS)
+    expect["embedding_gather"] += ONNX_BATCHES
+    if "fm_second_order" in per_step:
+        expect["fm_second_order"] += ONNX_BATCHES
+    if launches != expect:
+        raise AssertionError(f"{label}: the path launched {launches}, "
+                             f"expected {expect}")
+    losses = stats["loss"].cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{label}: non-finite training loss")
+    mem = _mem_available()
+    path = build.BUILD_DIR / f"{label.replace(':', '_')}.{os.getpid()}.onnx"
+    try:
+        t0 = time.perf_counter()
+        if rows == eng.num_rows:
+            export_state(eng, state, str(path))
+        else:
+            export_inference(eng.model, state.dense, state.table[:rows],
+                             str(path), batch_size=B)
+        export_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        om = OnnxModel.load(str(path))
+        load_s = time.perf_counter() - t0
+        score_ms, got = [], []
+        for d, s in held:
+            t0 = time.perf_counter()
+            (p,) = om(sparse_ids=s.astype(np.int64),
+                      dense_x=d.astype(np.float32))
+            score_ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(p)
+        got = np.concatenate(got)
+        table_shape = list(om.initializers["embedding_table"].shape)
+        del om
+    finally:
+        path.unlink(missing_ok=True)
+    diff = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.allclose(got, want, rtol=ONNX_RTOL,
+                                                  atol=ONNX_ATOL):
+        raise AssertionError(f"{label}: the file's scores differ from "
+                             f"predict by up to {diff}")
+    if table_shape != [rows, W] or size <= 4 * rows * W:
+        raise AssertionError(f"{label}: a {size}-byte file with a "
+                             f"{table_shape} table")
+    out = {"phase": label, "model": eng.model.name, "batch": B,
+           "table_shape": list(state.table.shape),
+           "table_dtype": str(state.table.dtype),
+           "exported_rows": rows, "exported_width": W,
+           "row_cut": cut or (None if rows == eng.num_rows else
+                              f"the first {rows} rows (the f32 table of "
+                              f"all {eng.num_rows} would be "
+                              f"{4 * eng.num_rows * W} bytes)"),
+           "trained_steps": ONNX_STEPS, "launches": launches,
+           "loss_last": float(losses[-1]), "file_bytes": size,
+           "export_s": export_s, "export_gb_per_s": size / export_s / 1e9,
+           "load_s": load_s, "score_ms": score_ms,
+           "scored_rows": int(got.size), "max_abs_diff": diff,
+           "rtol": ONNX_RTOL, "atol": ONNX_ATOL,
+           "free_disk_bytes_before": free, "mem_available_bytes": mem}
+    emit(out)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
-                                        "assigned", "hybrid", "feed"),
+                                        "assigned", "hybrid", "feed",
+                                        "onnx"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
                          "launch:hybrid; feed: launch:feed on --samples "
-                         "data)")
+                         "data; onnx: onnx and onnx:dfm)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
@@ -5345,6 +5535,14 @@ def main() -> None:
         phase_launch_hybrid()
     elif args.phase == "feed":
         phase_launch_feed(raw=False)
+    elif args.phase == "onnx":
+        eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+        phase_onnx(eng, eng.init_state(0))
+        del eng
+        _free()
+        eng = Engine(_dfm_cfg(), table_rows=FULL_ROWS, device="cuda")
+        phase_onnx(eng, eng.init_state(0), "onnx:dfm", DFM_ONNX_ROWS,
+                   DFM_TRAIN)
     if args.phase:
         emit({"phase": "profiler", **PROFILER})
         print(smi, flush=True)
@@ -5371,6 +5569,8 @@ def main() -> None:
     phase_checkpoint()
     train = phase_train(eng, state)
     assigned, state = phase_assigned(eng, state)
+    # the serving handoff of a trained full-width state: its whole table
+    phase_onnx(eng, state)
     del state, eng
     _free()
     phase_train_adam()
@@ -5405,10 +5605,7 @@ def main() -> None:
 
     # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
     torch.cuda.reset_peak_memory_stats()
-    cfg = HeraldConfig(model=DFM, batch_size=DFM_BATCH,
-                       embedding_dim=DFM_EMB, table_dtype=torch.bfloat16,
-                       learning_rate=0.01)
-    eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
+    eng = Engine(_dfm_cfg(), table_rows=FULL_ROWS, device="cuda")
     state = eng.init_state(0)
     assert tuple(state.table.shape) == (33_762_584, DFM_EMB + 1)
     k5, k5b = phase_kernel_fm(state.table, dfm_sparse)
@@ -5421,6 +5618,7 @@ def main() -> None:
                             DFM_SERVE, tol=1e-5)
     train_dfm = phase_train(eng, state, "train:dfm", 32, plain_dfm_apply,
                             DFM_TRAIN)
+    phase_onnx(eng, state, "onnx:dfm", DFM_ONNX_ROWS, DFM_TRAIN)
     del state, eng
     _free()
     phase_launch_dfm()

@@ -75,21 +75,28 @@ counterparts of `examples/`. Ported:
   at the end; over S ranks (`--comm hybrid`) global batches of
   `--batch-size * S` rows. As in JAX it writes no checkpoint and ignores
   `--ckpt`, `--resume`, `--max-steps` and `--crash-after` at every S,
-  and `--export-onnx` exits before training;
+  and with `--export-onnx` it exits with JAX's message before training
+  (an FAE state has no exporter, as in JAX);
 - assign-only mode (`--assign-only`, `cli.py:1070-1125`): the plain engine
   over the batches the lookahead scheduler (csrc/herald_sched.cc)
   composes for S workers (rank 0 plans, `sched/service.py` broadcasts
   each assignment), with checkpoints, `--max-steps`, `--resume` through a
   deterministic fast-forward of the scheduler, and its counters under
   `sched` in the report.
+`--export-onnx PATH` (`cli.py:1208-1217`) writes the trained model as a
+standard `.onnx` file after the final checkpoint (`onnx/export.py`
+`export_state`), in the plain, assign-only and scheduled branches; a
+scheduled run must end synced (no early stop), else it exits with JAX's
+message. Over S ranks on one node every rank enters, rank 0 gathers the
+table and writes the file; ranks on several nodes raise, as JAX's
+export does when the table is not on one process.
 `--crash-after N` ends every rank with exit code 17 once N steps have
 run (rank 0 prints `{"crashed_at": N}`), for the restart supervisor
 (`launch/supervise.py`). `--multihost` says that the ranks come from
 `torch.distributed.run` over one or more nodes (`--nnodes`, each rank on
 its LOCAL_RANK card), and raises without its environment; checkpoints
-must then be on storage every node reads. `--export-onnx`, `--mp-shards`
-and `--platform` raise NotImplementedError naming their ROADMAP item;
-no flag is ignored.
+must then be on storage every node reads. `--mp-shards` and `--platform`
+raise NotImplementedError naming their ROADMAP item; no flag is ignored.
 """
 
 from __future__ import annotations
@@ -361,7 +368,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of herald_tpu.launch the port does not run yet, each with the
 # ROADMAP item (queue 1) that brings it
 _NOT_PORTED = (
-    ("export_onnx", "--export-onnx", "item 12 (ONNX)"),
     ("platform", "--platform", "none: it is JAX's platform switch; use "
      "--device"),
 )
@@ -508,18 +514,6 @@ def _dump_logs(args, report, losses) -> None:
             np.asarray(losses, np.float32))
     with open(os.path.join(args.log_dir, "report.json"), "w") as f:
         json.dump(report, f, indent=2, default=float)
-
-
-def _start_trace(device):
-    """A torch.profiler session over the training loop (the JAX
-    launcher's jax.profiler trace)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
 
 
 def _check_resumed(eng, state, path) -> None:
@@ -969,11 +963,12 @@ def _train_fae(args, cfg, rows, trn, val, device, eval_epoch,
     report before any checkpoint, as JAX's does. Losses and overflow stay
     on the card until an epoch ends."""
     from herald_tpu_torch.train.fae import FaeEngine, build_hot_lut
+    from herald_tpu_torch.utils.profiler import start_trace
     eng = FaeEngine(cfg, table_rows=rows, hot_rate=args.hot_rate,
                     device=device)
     lut, _ = build_hot_lut(trn[1], rows, num_hot=eng.num_hot)
     state = eng.init_fae_state(cfg.seed)
-    prof = _start_trace(device) if args.log_dir and lead else None
+    prof = start_trace(device) if args.log_dir and lead else None
     gb = cfg.batch_size * eng.num_shards
     steps_per_epoch = len(trn[1]) // gb
     losses = []
@@ -1175,7 +1170,7 @@ def run_training(args) -> dict:
     from herald_tpu_torch.train.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
     from herald_tpu_torch.train.engine import Engine, resolve_device
-    from herald_tpu_torch.utils.profiler import StepTimer
+    from herald_tpu_torch.utils.profiler import StepTimer, start_trace
 
     cfg = resolve_config(args)
     _refuse_unported(args, cfg)
@@ -1263,20 +1258,20 @@ def run_training(args) -> dict:
     gb = cfg.batch_size
     prof = None
     if args.scheduled:
-        prof = _start_trace(device) if args.log_dir and lead else None
+        prof = start_trace(device) if args.log_dir and lead else None
         eng, state, losses, overflow_total, stopped_early, extra = \
             _train_scheduled(args, cfg, rows, trn, device, comm,
                              eval_epoch, maybe_ckpt, ckpt_extras, timer)
         gb = cfg.batch_size * eng.num_shards     # the global batch
     elif args.assign_only:
-        prof = _start_trace(device) if args.log_dir and lead else None
+        prof = start_trace(device) if args.log_dir and lead else None
         eng, state, losses, overflow_total, stopped_early, extra = \
             _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
                             maybe_ckpt, timer)
         gb = cfg.batch_size * eng.num_shards     # the global batch
     else:
         eng = Engine(cfg, model=model, table_rows=rows, device=device)
-        prof = _start_trace(device) if args.log_dir and lead else None
+        prof = start_trace(device) if args.log_dir and lead else None
         gb = cfg.batch_size * eng.num_shards     # the global batch
         steps_per_epoch = len(trn[1]) // gb
         start_step = 0
@@ -1318,6 +1313,18 @@ def run_training(args) -> dict:
             state, args.ckpt,
             extras=ckpt_extras[0](state) if ckpt_extras[0] else None,
             comm=comm)
+    if args.export_onnx:
+        # the serving handoff (JAX: cli.py:1208-1217); a scheduled state is
+        # synced above unless the run stopped early with unflushed deltas.
+        # Over S ranks every rank enters, rank 0 writes the file
+        if args.scheduled and (stopped_early
+                               or getattr(eng, "_unsynced", False)):
+            raise SystemExit("--export-onnx needs a fully-synced state; "
+                             "finish the run (no early stop) first")
+        from herald_tpu_torch.onnx import export_state
+        export_state(eng, state, args.export_onnx)
+        if lead:
+            print(f"exported ONNX model to {args.export_onnx}", flush=True)
 
     report = {
         "model": cfg.model,

@@ -20,7 +20,8 @@ rank and no group is made.
   sums one flat buffer in place, `reduce_scatter` sums [S*b, ...] over the
   group and keeps this rank's block b (JAX's tiled `psum_scatter` over
   axis 0), `all_gather` stacks a tensor of every rank, `broadcast_` copies
-  rank 0's tensors to every rank, `barrier` waits for every rank,
+  rank 0's tensors to every rank, `send` and `recv_` move one tensor
+  from one rank to another, `barrier` waits for every rank,
   `subgroups` makes dense-sync groups on every rank in one order, and
   `host_group` a gloo twin of the group for another thread's host
   arrays. At S = 1 each returns its input, and `barrier` returns at
@@ -152,6 +153,19 @@ class Comm:
             for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
                 t.copy_(v.view(t.shape))
         self._timed("broadcast", t0)
+
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """Send x to rank `dst`, which takes it with `recv_`."""
+        t0 = time.perf_counter()
+        dist.send(x.contiguous(), dst, group=self.group)
+        self._timed("send", t0)
+
+    def recv_(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Fill the contiguous x with what rank `src` sent."""
+        t0 = time.perf_counter()
+        dist.recv(x, src, group=self.group)
+        self._timed("recv", t0)
+        return x
 
     def barrier(self) -> None:
         """Wait until every rank of the group has called it (JAX's

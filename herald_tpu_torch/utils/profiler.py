@@ -1,12 +1,19 @@
-"""Step timing and cache counters: the port's own copies of `StepTimer`
-and `cache_report` from `herald_tpu/utils/profiler.py`."""
+"""Profiling utilities (port of `herald_tpu/utils/profiler.py`):
+`StepTimer` (per-step wall times), `trace` (an op-level trace through
+`torch.profiler`, where JAX's wraps `jax.profiler`), `comm_stats` (the
+static all-to-all bytes a step from the engine's exchange spec) and
+`cache_report` (planner counters).
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 class StepTimer:
@@ -44,6 +51,46 @@ class StepTimer:
             "p50_ms": float(np.percentile(t, 50) * 1e3),
             "p99_ms": float(np.percentile(t, 99) * 1e3),
         }
+
+
+def start_trace(device):
+    """A started torch.profiler session: CPU ops, and the card's kernels
+    when `device` is a card."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device="cpu"):
+    """Trace the block into `<log_dir>/trace.json`, a Chrome trace
+    (chrome://tracing, Perfetto)."""
+    prof = start_trace(device)
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def comm_stats(engine, dtype_bytes: int = 4) -> Dict[str, float]:
+    """Static per-step all-to-all traffic estimate from the exchange spec."""
+    spec = engine.exchange
+    S, C, W = spec.num_shards, spec.capacity, engine.width
+    id_bytes = S * C * 8
+    vec_bytes = S * C * W * dtype_bytes
+    return {
+        "num_shards": S,
+        "capacity_per_pair": C,
+        "a2a_id_bytes_per_step": id_bytes,
+        "a2a_vector_bytes_per_step": vec_bytes,
+        "a2a_total_bytes_per_step": 2 * id_bytes + 2 * vec_bytes,
+    }
 
 
 def cache_report(planner, num_steps: int, ids_per_step: int

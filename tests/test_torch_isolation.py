@@ -64,6 +64,10 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "import herald_tpu_torch.data.loaders\n"
             "import herald_tpu_torch.data.prefetch\n"
             "import herald_tpu_torch.data.preprocess\n"
+            "import herald_tpu_torch.onnx, herald_tpu_torch.onnx.proto\n"
+            "import herald_tpu_torch.models.layers\n"
+            "import herald_tpu_torch.models.initializers\n"
+            "import herald_tpu_torch.utils.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'ml_dtypes', 'herald_tpu')\n"
             "       and sys.modules[m] is not None]\n"

@@ -173,7 +173,6 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
-    (["--export-onnx", "m.onnx"], "--export-onnx"),
     (["--platform", "cpu"], "--platform"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):

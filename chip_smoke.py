@@ -3,13 +3,15 @@
 and its host planner and scheduler from the sources in this checkout, hold
 each kernel against its plain PyTorch version, serve and train wdl_criteo
 at full width, plainly, in assign-only mode, through the FAE engine and
-through the scheduled, cached engine, and print what it measured.
+through the scheduled, cached engine, train the distributed GCN, and
+print what it measured.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
     python3 chip_smoke.py --phase assigned|hybrid
     python3 chip_smoke.py --phase feed [--root DIR]
     python3 chip_smoke.py --phase onnx
+    python3 chip_smoke.py --phase gnn
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
@@ -19,7 +21,7 @@ launch:assigned,
 fae, launch:fae, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
-hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid,
+hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid, gnn,
 kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, onnx:dfm, launch:dfm,
 scheduled:dfm, the
@@ -114,6 +116,26 @@ and launch:hybrid adds `--export-onnx` to its 2-rank plain and 1-rank
 scheduled launches at 65,536 rows, each file scored against the run's
 final checkpoint.
 
+gnn trains the distributed GCN (herald_tpu_torch/gnn/) at the shape of
+benchmarks/gnn_ab.py:51-70: synthetic_sbm(20,000 nodes, 8 classes, 64
+features, mean degree 16 at 4:1 in:out, seed 1), GCNConfig(64, 64, 8),
+lr 0.5, in the cases broadcast, pull, halo and halo_reorder (relabeled by
+locality_reorder for 2 ranks). At one rank in this process: the first
+logits, 20 SGD steps and the final parameters against the same model with
+K1 and K3 swapped for their plain versions on the card, and the first
+logits against a float64 scipy.sparse forward (1e-4); 60 epochs in halo
+mode beat the feature-only least-squares probe by 0.05 (the same edges,
+features at noise 4.0: at 0.6 the probe already scores 1.0). At two ranks
+sharing this card over gloo, each a process of its own started by this
+script (`--gnn-rank`): the same runs against the one-rank ones and
+against the plain versions of K1 and K3 there (1e-5 of the largest
+magnitude; halo's exchange launches K1 and K3 only over ranks), overflow
+0, the launches a step, and the collective bytes of a step by kind, with
+halo's and halo_reorder's reduction against broadcast. Then
+host ms and device busy a step at one rank, the launches a step of each
+mode, and K1 and K3 timed at every site of the halo step and at the pull
+step's exchange sites, forward and backward.
+
 The dfm phases run DeepFM at the repo's own dfm_criteo configuration of
 batch 1024, embedding 512 (BASELINE.md:26-27) over the same full table,
 fused to 513 columns (34.64 GB in bfloat16): K5 (fm_second_order, forward
@@ -156,7 +178,7 @@ and `--phase assigned` also run launch:fae or launch:assigned,
 launch:feed on `--samples` data of the same size instead of the raw
 file, so that a parent tree without the preprocessor runs the same
 launches; `--phase onnx` runs onnx and onnx:dfm, each from a fresh
-full-width engine. `--root
+full-width engine; `--phase gnn` runs gnn. `--root
 DIR` imports herald_tpu_torch from another checkout, so that the steps
 of two trees (a parent unpacked with `git archive` into a gitignored
 directory, and this one) are timed and profiled in turns on one card,
@@ -3693,10 +3715,11 @@ def _host_k3(ids, grads, num_rows):
         grads.device)
 
 
-def _recording(calls: list, fae: bool = False) -> dict:
+def _recording(calls: list, fae: bool = False, hooks=None) -> dict:
     """Hooks that append (kernel, args) of every K1 and K3 call (and K4
     add, with `fae`), the args cloned before the call but for the shard's
-    table (read in place), then launch."""
+    table (read in place), then launch; placed by `hooks` (default the
+    hybrid steps' `_hybrid_hooks`)."""
     def wrap(name, fn):
         def call(*args):
             calls.append((name, [a.clone() if isinstance(a, torch.Tensor)
@@ -3709,7 +3732,7 @@ def _recording(calls: list, fae: bool = False) -> dict:
     if fae:
         fns["hot_onehot_gather_add_"] = wrap(
             "hot_onehot_gather_add_", k4_ops.hot_onehot_gather_add_)
-    return _hybrid_hooks(fns)
+    return (hooks or _hybrid_hooks)(fns)
 
 
 def _hybrid_site_timing(name: str, inputs: list) -> dict:
@@ -5302,6 +5325,438 @@ def _exported_launch(tmp: Path, name: str) -> dict:
             "max_abs_diff": diff}
 
 
+# ----------------------------------------------------------------------
+# gnn: the distributed GCN (herald_tpu_torch/gnn/) at the shape of
+# benchmarks/gnn_ab.py:51-70
+GNN_NODES, GNN_DEGREE, GNN_CLASSES, GNN_WIDTH = 20_000, 16.0, 8, 64
+GNN_CASES = ("broadcast", "pull", "halo", "halo_reorder")
+GNN_S, GNN_STEPS, GNN_EPOCHS = 2, 20, 60
+GNN_TIMED, GNN_PROFILED, GNN_RECORDED = 50, 10, 4
+# the learning gate's feature noise: at gnn_ab's 0.6 a feature-only probe
+# already scores 1.0, which no model can beat by 0.05 (the edges are the
+# same draws at any noise)
+GNN_LEARN_NOISE = 4.0
+# kernel path against plain, 2 ranks against 1: max |a - b| over max |b|
+# (f32 sums in another order); the float64 oracle: rtol = atol = 1e-4
+GNN_TOL, GNN_ORACLE_TOL = 1e-5, 1e-4
+GNN_GRAPH = ("src", "dst", "weight", "features", "labels", "train_mask",
+             "eval_mask")
+
+
+def _gnn_sites(mode: str, S: int = 1) -> list:
+    """The K1 and K3 calls of one GCN step at S ranks, in order: layers 1
+    and 2 forward (pull: the owner's read and the read by position; halo
+    over S > 1 ranks: the send buffer; then the aggregation's read and
+    sum), then layers 2 and 1 backward (the aggregation's gradient read
+    and sum; pull: the send buffer and the owner's sum; halo over S > 1
+    ranks: the sum of the returned gradient into the send slots). Halo at
+    one rank and broadcast make no exchange through K1 or K3."""
+    k1, k3 = "embedding_gather", "hot_onehot_push"
+    pull, halo = mode == "pull", mode == "halo" and S > 1
+    out = []
+    for lay in (1, 2):
+        if pull:
+            out += [(k1, f"l{lay}_owner_read"), (k1, f"l{lay}_by_position")]
+        if halo:
+            out += [(k1, f"l{lay}_halo_send")]
+        out += [(k1, f"l{lay}_read"), (k3, f"l{lay}_sum")]
+    for lay in (2, 1):
+        out += [(k1, f"l{lay}_grad_read"), (k3, f"l{lay}_grad_sum")]
+        if pull:
+            out += [(k1, f"l{lay}_send_grads"), (k3, f"l{lay}_owner_sum")]
+        if halo:
+            out += [(k3, f"l{lay}_halo_grad_sum")]
+    return out
+
+
+_GNN_HALO_SITES = ("l1_halo_send", "l2_halo_send", "l2_halo_grad_sum",
+                   "l1_halo_grad_sum")
+
+
+def _gnn_per_step(mode: str, S: int) -> dict:
+    """Each kernel's launches in one GCN step: the calls of `_gnn_sites`."""
+    return {n: sum(1 for k, _ in _gnn_sites(mode, S) if k == n)
+            for n in KERNELS}
+
+
+def _gnn_record(m, mode: str, S: int) -> list:
+    """The K1 and K3 calls of GNN_RECORDED steps of `m`, held to
+    `_gnn_sites(mode, S)`'s order: [(kernel, site, [args of each step])]."""
+    calls = []
+    with _patched(_recording(calls, hooks=_gnn_hooks)):
+        for _ in range(GNN_RECORDED):
+            m.step()
+    want = _gnn_sites(mode, S)
+    got = [name for name, _ in calls]
+    if got != [name for name, _ in want] * GNN_RECORDED:
+        raise AssertionError(f"gnn {mode}: recorded calls {got[:20]}")
+    n = len(want)
+    return [(name, site, [calls[i * n + j][1] for i in range(GNN_RECORDED)])
+            for j, (name, site) in enumerate(want)]
+
+
+def _gnn_hooks(fns: dict) -> dict:
+    """{(module, name): fn} for the names through which the GCN calls K1
+    and K3 (its aggregation and exchanges, and the pull's `gather_rows`)."""
+    from herald_tpu_torch.gnn import gcn as gcn_mod
+    from herald_tpu_torch.parallel import exchange as ex_mod
+    return {(gcn_mod, "embedding_gather"): fns["embedding_gather"],
+            (gcn_mod, "hot_onehot_push"): fns["hot_onehot_push"],
+            (ex_mod, "embedding_gather"): fns["embedding_gather"]}
+
+
+def _gnn_graph(noise: float = 0.6):
+    """gnn_ab's graph: an 8-block SBM of 20,000 nodes, mean degree 16 at
+    4:1 in:out, 64 features, seed 1."""
+    from herald_tpu_torch.gnn import synthetic_sbm
+    within = GNN_NODES / GNN_CLASSES
+    return synthetic_sbm(num_nodes=GNN_NODES, num_classes=GNN_CLASSES,
+                         feat_dim=GNN_WIDTH,
+                         p_in=GNN_DEGREE * 0.8 / within,
+                         p_out=GNN_DEGREE * 0.2 / (GNN_NODES - within),
+                         noise=noise, seed=1)
+
+
+def _gnn_cfg():
+    from herald_tpu_torch.gnn import GCNConfig
+    return GCNConfig(GNN_WIDTH, GNN_WIDTH, GNN_CLASSES)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _gnn_run(g, mode: str, comm=None, hooks=None) -> dict:
+    """A fresh GCN on the card: its first logits, GNN_STEPS SGD steps'
+    losses and overflow, and its final parameters ("model": the model)."""
+    from herald_tpu_torch.gnn import GCN
+    with _patched(hooks or {}):
+        m = GCN(_gnn_cfg(), g, comm=comm, mode=mode,
+                device=DEVICE if comm is None else None)
+        logits = m.logits()
+        steps = [m.step() for _ in range(GNN_STEPS)]
+        losses = torch.stack([loss for loss, _ in steps]).cpu().numpy()
+        ovf = int(torch.stack([o for _, o in steps]).sum())
+    return {"model": m, "logits": logits, "losses": losses, "overflow": ovf,
+            "params": [t.detach().cpu().numpy().copy()
+                       for pair in m.params for t in pair]}
+
+
+def _gnn_oracle(g, params) -> np.ndarray:
+    """The forward in float64 on the host: Ā (h W) + b with ReLU between
+    the layers, Ā a `scipy.sparse` matrix of the graph's edges."""
+    import scipy.sparse as sp
+    n = g.num_nodes
+    a = sp.csr_matrix((g.weight.astype(np.float64), (g.dst, g.src)),
+                      shape=(n, n))
+    h = g.features.astype(np.float64)
+    for i, (w, b) in enumerate(params):
+        h = a @ (h @ np.asarray(w, np.float64)) + np.asarray(b, np.float64)
+        if i + 1 < len(params):
+            h = np.maximum(h, 0.0)
+    return h
+
+
+_PLAIN_GNN = {"embedding_gather": embedding_gather_ref,
+              "hot_onehot_push": hot_onehot_push_ref}
+
+
+def _gnn_errs(a: dict, b: dict) -> dict:
+    """Two `_gnn_run`s apart: first logits and final parameters, max |a -
+    b| over max |b|; losses, the largest relative difference."""
+    return {"logits": _rel(a["logits"], b["logits"]),
+            "losses": float(np.max(np.abs(a["losses"] - b["losses"])
+                                   / np.abs(b["losses"]))),
+            "params": max(_rel(x, y) for x, y in zip(a["params"],
+                                                     b["params"]))}
+
+
+def _gnn_case(g, case: str) -> dict:
+    """One case at one rank: the kernel path against the plain versions
+    of K1 and K3 on the card (first logits, GNN_STEPS losses, final
+    parameters, within GNN_TOL) and the first logits against the float64
+    oracle. Raises on a miss."""
+    from herald_tpu_torch.gnn import init_gcn_params
+    mode = "halo" if case == "halo_reorder" else case
+    k = _gnn_run(g, mode)
+    p = _gnn_run(g, mode, hooks=_gnn_hooks(_PLAIN_GNN))
+    del p["model"]
+    init = [(w.numpy(), b.numpy()) for w, b in init_gcn_params(_gnn_cfg())]
+    oracle = _gnn_oracle(g, init)
+    err = _gnn_errs(k, p)
+    oracle_err = float(np.max(np.abs(k["logits"] - oracle)
+                              - GNN_ORACLE_TOL * np.abs(oracle)))
+    if max(err.values()) > GNN_TOL or k["overflow"] or p["overflow"]:
+        raise AssertionError(f"gnn {case}: the kernel path differs from the "
+                             f"plain versions of K1 and K3 beyond {GNN_TOL}: "
+                             f"{err}, overflow {k['overflow']}")
+    if oracle_err > GNN_ORACLE_TOL or not np.isfinite(k["logits"]).all():
+        raise AssertionError(f"gnn {case}: the first logits differ from the "
+                             f"float64 scipy.sparse forward: {oracle_err}")
+    return {**k, "plain_kernels": err,
+            "oracle_max_abs_err": float(np.abs(k["logits"] - oracle).max())}
+
+
+def _gnn_learning(g) -> dict:
+    """60 epochs at one rank in halo mode on the graph's edges with
+    features at GNN_LEARN_NOISE: eval accuracy beats the feature-only
+    least-squares probe by 0.05 (tests/test_gnn.py:90-104)."""
+    from herald_tpu_torch.gnn import GCN
+    gl = _gnn_graph(GNN_LEARN_NOISE)
+    if not (np.array_equal(gl.src, g.src) and np.array_equal(gl.dst, g.dst)
+            and np.array_equal(gl.labels, g.labels)):
+        raise AssertionError("gnn: the learning graph's edges differ")
+    t0 = time.perf_counter()
+    m = GCN(_gnn_cfg(), gl, mode="halo", device=DEVICE).fit(GNN_EPOCHS)
+    fit_s = time.perf_counter() - t0
+    acc = m.accuracy("eval")
+    tr = gl.train_mask
+    x = np.concatenate([gl.features, np.ones((gl.num_nodes, 1),
+                                             np.float32)], 1)
+    wls, *_ = np.linalg.lstsq(x[tr], np.eye(GNN_CLASSES)[gl.labels[tr]],
+                              rcond=None)
+    base = float(((x[~tr] @ wls).argmax(1) == gl.labels[~tr]).mean())
+    if not acc > base + 0.05:
+        raise AssertionError(f"gnn: eval accuracy {acc} does not beat the "
+                             f"feature-only probe's {base} by 0.05")
+    return {"noise": GNN_LEARN_NOISE, "epochs": GNN_EPOCHS,
+            "eval_accuracy": acc, "train_accuracy": m.accuracy("train"),
+            "feature_only_accuracy": base, "fit_s": fit_s}
+
+
+def gnn_rank(rank: int, tmp: Path) -> None:
+    """One of GNN_S ranks of the gnn phase, in a process of its own on the
+    card (`--gnn-rank R --gnn-dir DIR`): each case from the graphs the
+    parent saved, its first logits, GNN_STEPS steps, the collective bytes
+    and the launches of one more step, and the same run with K1 and K3
+    swapped for their plain versions (its differences); in halo mode, the
+    inputs of the exchange's own K1 and K3 sites over GNN_RECORDED more
+    steps. Writes gnn<R>.pt to DIR."""
+    import torch.distributed as dist
+    from herald_tpu_torch.gnn import Graph
+    from herald_tpu_torch.parallel.comm import setup
+    from herald_tpu_torch.utils.hlo_stats import collective_bytes
+    comm = setup(DEVICE + ":0", init_method=f"file://{tmp}/store",
+                 rank=rank, world_size=GNN_S)
+    graphs = {}
+    for name in ("graph", "graph_reorder"):
+        z = np.load(tmp / f"{name}.npz")
+        graphs[name] = Graph(num_nodes=int(z["num_nodes"]),
+                             **{f: z[f] for f in GNN_GRAPH})
+    out = {"backend": comm.backend, "world_size": comm.size}
+    for case in GNN_CASES:
+        reorder = case == "halo_reorder"
+        g = graphs["graph_reorder" if reorder else "graph"]
+        mode = "halo" if reorder else case
+        r = _gnn_run(g, mode, comm)
+        m = r.pop("model")
+        for kern in KERNELS.values():
+            kern.launches = 0
+        r["bytes"] = collective_bytes(m.step, comm=comm)
+        r["launches"] = _launch_counts()
+        r["halo_rows"] = None if m.plan is None else m.plan.halo_rows
+        p = _gnn_run(g, mode, comm, hooks=_gnn_hooks(_PLAIN_GNN))
+        del p["model"]
+        r["plain_kernels"] = _gnn_errs(r, p)
+        r["plain_overflow"] = p["overflow"]
+        if case == "halo":
+            # the exchange's own K1 and K3 sites, timed by the parent
+            r["halo_site_inputs"] = {
+                f"{name}:halo_{GNN_S}ranks:{site}": [
+                    [a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args] for args in inputs]
+                for name, site, inputs in _gnn_record(m, mode, GNN_S)
+                if site in _GNN_HALO_SITES}
+        out[case] = r
+    torch.save(out, tmp / f"gnn{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _gnn_timing(m, mode: str, timed_sites=()) -> dict:
+    """One rank's step on the card: its launches (one step, no plain
+    version called), host waits, host ms a step over GNN_TIMED steps,
+    device busy from torch.profiler over GNN_PROFILED; and each K1 and K3
+    site named in `timed_sites`, its inputs recorded over GNN_RECORDED
+    steps, held against its plain version and timed
+    (`_hybrid_site_timing`)."""
+    for kern in KERNELS.values():
+        kern.launches = 0
+    with _PlainCalls() as plain:
+        m.step()
+        torch.cuda.synchronize()
+    launches = _launch_counts()
+    per_step = _gnn_per_step(mode, 1)
+    if launches != per_step or plain.calls:
+        raise AssertionError(f"gnn {mode}: a step launched {launches} "
+                             f"(expected {per_step}), plain calls "
+                             f"{plain.calls}")
+    waits, wait_sites = _count_host_waits(m.step)
+    for _ in range(3):
+        m.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GNN_TIMED):
+        m.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / GNN_TIMED * 1e3
+    busy, items, prof_host_ms, check = device_profile(lambda i: m.step(),
+                                                      GNN_PROFILED)
+    out = {"launches": launches, "host_waits": waits,
+           "host_wait_sites": wait_sites, "step_host_ms": host_ms,
+           "step_device_ms": busy, "profiled_host_ms": prof_host_ms,
+           "idle_share": None if busy is None else 1 - busy / prof_host_ms,
+           "profile_check": check, "top_items": _top(items, 8)}
+    if timed_sites:
+        out["sites"] = {
+            f"{name}:{mode}:{site}": _hybrid_site_timing(name, inputs)
+            for name, site, inputs in _gnn_record(m, mode, 1)
+            if site in timed_sites}
+    return out
+
+
+def phase_gnn() -> dict:
+    """The distributed GCN at benchmarks/gnn_ab.py:51-70's shape (20,000
+    nodes, mean degree 16, 64 features and hidden, 8 classes, lr 0.5) in
+    the cases broadcast, pull, halo and halo_reorder (the graph relabeled
+    by locality_reorder for GNN_S ranks), at one rank in this process and
+    at GNN_S ranks sharing the card over gloo (`gnn_rank`, started first
+    and run beside the one-rank checks). Gates: each case's kernel path
+    against the plain versions of K1 and K3, at one rank and at GNN_S,
+    and its first logits against the float64 scipy.sparse forward
+    (`_gnn_case`); the GNN_S-rank first logits, losses and parameters
+    against the one-rank run's within GNN_TOL, the ranks' losses equal,
+    overflow 0; 60 epochs beating the feature-only probe
+    (`_gnn_learning`); each mode's launches a step at both.
+    Prints the collective bytes a step at GNN_S ranks by kind and the
+    reductions against broadcast (gnn_ab.py:98-101), host ms and device
+    busy a step at one rank, and K1 and K3 timed at every site of the
+    halo and pull steps (halo's exchange sites from rank 0's inputs at
+    GNN_S ranks)."""
+    from herald_tpu_torch.gnn import locality_reorder, relabel_graph
+    _free()
+    t0 = time.perf_counter()
+    g = _gnn_graph()
+    g_re = relabel_graph(g, locality_reorder(g, GNN_S))
+    graph_s = time.perf_counter() - t0
+    graphs = {"graph": g, "graph_reorder": g_re}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        for name, gr in graphs.items():
+            np.savez(tmp / f"{name}.npz", num_nodes=gr.num_nodes,
+                     **{f: getattr(gr, f) for f in GNN_GRAPH})
+        t1 = time.perf_counter()
+        logs = [open(tmp / f"gnn{r}.log", "w") for r in range(GNN_S)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gnn-rank",
+             str(r), "--gnn-dir", str(tmp)], cwd=ROOT, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(GNN_S)]
+        done = False
+        try:
+            one = {case: _gnn_case(g_re if case == "halo_reorder" else g,
+                                   case) for case in GNN_CASES}
+            learning = _gnn_learning(g)
+            for p in procs:
+                p.wait(timeout=max(1.0, 400 - (time.perf_counter() - t1)))
+            done = True
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        ranks_s = time.perf_counter() - t1
+        for r, p in enumerate(procs):
+            if not done or p.returncode != 0:
+                raise AssertionError(
+                    f"gnn rank {r} exited {p.returncode}:\n"
+                    f"{(tmp / f'gnn{r}.log').read_text()[-4000:]}")
+        res = [torch.load(tmp / f"gnn{r}.pt", weights_only=False)
+               for r in range(GNN_S)]
+    ranks = {}
+    for case in GNN_CASES:
+        a, b = res[0][case], one[case]
+        err = _gnn_errs(a, b)
+        same = all(np.array_equal(r[case]["losses"], a["losses"])
+                   for r in res)
+        if max(err.values()) > GNN_TOL or a["overflow"] or not same:
+            raise AssertionError(f"gnn {case}: {GNN_S} ranks against one: "
+                                 f"{err}, overflow {a['overflow']}, ranks "
+                                 f"equal {same}")
+        mode = "halo" if case == "halo_reorder" else case
+        for r in res:
+            plain = r[case]["plain_kernels"]
+            if max(plain.values()) > GNN_TOL or r[case]["plain_overflow"]:
+                raise AssertionError(f"gnn {case}: at {GNN_S} ranks the "
+                                     f"kernel path differs from the plain "
+                                     f"versions of K1 and K3: {plain}")
+            if r[case]["launches"] != _gnn_per_step(mode, GNN_S):
+                raise AssertionError(f"gnn {case}: a step at {GNN_S} ranks "
+                                     f"launched {r[case]['launches']}, "
+                                     f"expected "
+                                     f"{_gnn_per_step(mode, GNN_S)}")
+        by_kind = {k: v for k, v in a["bytes"].items()
+                   if k != "count" and v}
+        ranks[case] = {"one_rank_err": err, "overflow": 0,
+                       "plain_kernels": [r[case]["plain_kernels"]
+                                         for r in res],
+                       "launches": {k: v for k, v in a["launches"].items()
+                                    if v},
+                       "first_last_loss": a["losses"][[0, -1]].tolist(),
+                       "collective_bytes": {**by_kind,
+                                            "count": a["bytes"]["count"]},
+                       "total_collective_bytes": sum(by_kind.values()),
+                       "halo_rows": a["halo_rows"]}
+    total = {c: ranks[c]["total_collective_bytes"] for c in GNN_CASES}
+    # every site of the halo step; the pull step's exchange sites (its
+    # aggregation's are the halo step's shapes); broadcast's are halo's
+    halo_sites = {site for _, site in _gnn_sites("halo")}
+    timing = {"halo": _gnn_timing(one["halo"]["model"], "halo", halo_sites),
+              "pull": _gnn_timing(one["pull"]["model"], "pull", {
+                  site for _, site in _gnn_sites("pull")} - halo_sites),
+              "broadcast": _gnn_timing(one["broadcast"]["model"],
+                                       "broadcast")}
+    # halo's exchange sites exist only over GNN_S ranks: rank 0's inputs,
+    # timed here with the card to this process
+    exchange_sites = {
+        key: _hybrid_site_timing(key.split(":")[0], [
+            [a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+             for a in args] for args in inputs])
+        for key, inputs in res[0]["halo"]["halo_site_inputs"].items()}
+    out = {"phase": "gnn", "nodes": g.num_nodes, "edges": int(len(g.src)),
+           "mean_degree": len(g.src) / g.num_nodes,
+           "widths": [GNN_WIDTH, GNN_WIDTH, GNN_CLASSES], "lr": 0.5,
+           "graph_s": graph_s, "ranks_command_s": ranks_s,
+           "backend": res[0]["backend"], "world_size": GNN_S,
+           "one_rank": {c: {"plain_kernels": one[c]["plain_kernels"],
+                            "oracle_max_abs_err": one[c]["oracle_max_abs_err"],
+                            "first_last_loss": one[c]["losses"][[0, -1]]
+                            .tolist()}
+                        for c in GNN_CASES},
+           "ranks": ranks,
+           "halo_vs_broadcast_bytes_reduction":
+               total["broadcast"] / max(total["halo"], 1),
+           "halo_reorder_vs_broadcast_bytes_reduction":
+               total["broadcast"] / max(total["halo_reorder"], 1),
+           "learning": learning,
+           "steps": {m: {k: v for k, v in t.items() if k != "sites"}
+                     for m, t in timing.items()}}
+    out["kernel_sites"] = {**timing["halo"]["sites"], **exchange_sites,
+                           **timing["pull"]["sites"]}
+    emit({**out, "kernel_sites": {k: {x: v[x] for x in (
+        "kernel_device_ms", "kernel_ms", "plain_device_ms", "plain_ms",
+        "library_device_ms", "library_ms", "bound_ms")} for k, v in
+        out["kernel_sites"].items()}})
+    out["launches"] = {m: t["launches"] for m, t in timing.items()}
+    return out
+
+
 def _times(k: dict) -> dict:
     """A timing's summary keys; K1's and K2's also carry the route they
     replaced and the call before it (K1 on unique ids in bf16, K2 without
@@ -5336,7 +5791,7 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
-    for key in ("hybrid", "hybrid_fae", "hybrid_scheduled"):
+    for key in ("hybrid", "hybrid_fae", "hybrid_scheduled", "gnn"):
         if key in k:
             out[key] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
                         for site, v in k[key].items()}
@@ -5490,21 +5945,28 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
                                         "assigned", "hybrid", "feed",
-                                        "onnx"),
+                                        "onnx", "gnn"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
                          "launch:hybrid; feed: launch:feed on --samples "
-                         "data; onnx: onnx and onnx:dfm)")
+                         "data; onnx: onnx and onnx:dfm; gnn: gnn)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
                     help="run one rank of the hybrid phase (its parent "
                          "starts them)")
     ap.add_argument("--hybrid-dir", help="the hybrid phase's directory")
+    ap.add_argument("--gnn-rank", type=int,
+                    help="run one rank of the gnn phase (its parent starts "
+                         "them)")
+    ap.add_argument("--gnn-dir", help="the gnn phase's directory")
     args = ap.parse_args()
     if args.hybrid_rank is not None:
         hybrid_rank(args.hybrid_rank, Path(args.hybrid_dir))
+        return
+    if args.gnn_rank is not None:
+        gnn_rank(args.gnn_rank, Path(args.gnn_dir))
         return
     smi = phase_device()
     if args.root:
@@ -5535,6 +5997,8 @@ def main() -> None:
         phase_launch_hybrid()
     elif args.phase == "feed":
         phase_launch_feed(raw=False)
+    elif args.phase == "gnn":
+        phase_gnn()
     elif args.phase == "onnx":
         eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
         phase_onnx(eng, eng.init_state(0))
@@ -5602,6 +6066,13 @@ def main() -> None:
             if mine:
                 k[key] = mine
     phase_launch_hybrid()
+    # the distributed GCN: K1 and K3 at its sites, one rank and two
+    gnn = phase_gnn()
+    for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push")):
+        k["gnn"] = {site.split(":", 1)[1]: v
+                    for site, v in gnn["kernel_sites"].items()
+                    if site.startswith(name + ":")}
+    _free()
 
     # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
     torch.cuda.reset_peak_memory_stats()
@@ -5632,6 +6103,9 @@ def main() -> None:
              "hybrid:assigned": hybrid["assigned"]["launches"],
              "hybrid:fae": hybrid["fae"]["launches"],
              "hybrid:scheduled": hybrid["scheduled"]["launches"],
+             "gnn:halo": gnn["launches"]["halo"],
+             "gnn:pull": gnn["launches"]["pull"],
+             "gnn:broadcast": gnn["launches"]["broadcast"],
              "serve:dfm": serve_dfm["launches"],
              "train:dfm": train_dfm["launches"],
              "scheduled:dfm": sched_dfm["launches_tape"]}

@@ -11,7 +11,8 @@ row-sharded table and its slots; the replicated tower and hot block; the
 cached state's row-sharded cache and hot slots) to one rank's state, its
 block of each sharded leaf, and `join_states` takes the ranks' states
 back to the global one (`ExchangeSpec.to_logical` then gives the logical
-table).
+table). `gcn_params_from_jax` takes the JAX GCN's `[(w, b), ...]` to
+the port's (`gnn.GCN.load_params` copies them into a model).
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -19,7 +20,7 @@ patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Optional, Tuple, Union
+from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -150,3 +151,12 @@ def join_states(rank_leaves) -> HybridState:
     first = rank_leaves[0]
     return first._replace(**{f: cat([getattr(r, f) for r in rank_leaves])
                              for f in _sharded_fields(first)})
+
+
+def gcn_params_from_jax(params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The JAX GCN's parameters `[(w, b), ...]` (arrays of any kind that
+    numpy reads) as the port's: `[(w, b), ...]` f32 CPU tensors, for
+    `gnn.GCN.load_params`."""
+    return [(torch.from_numpy(np.array(w, np.float32)),
+             torch.from_numpy(np.array(b, np.float32)))
+            for w, b in params]

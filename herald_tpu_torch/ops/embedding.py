@@ -5,7 +5,9 @@
 (`ops/kernels/segment.py`) and `scatter_add_rows` adds rows through K3 and
 K2 (`ops/kernels/scatter.py`): the CUDA kernels on the card, their plain
 versions on the CPU. `unique_static` is the training steps' dedup, at a
-static size and with no wait for the card.
+static size and with no wait for the card; `unique_fill`, under it, is
+JAX's `jnp.unique` at a static size with any fill, which may cut ids off
+(the GCN's pull mode).
 """
 
 from __future__ import annotations
@@ -45,26 +47,37 @@ def dedup_ids(ids: torch.Tensor, size: int
                                                device=ids.device)
 
 
-def unique_static(ids: torch.Tensor, size: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """JAX's `jnp.unique(ids, size=size, return_inverse=True,
-    fill_value=-1)` (`herald_tpu/train/engine.py:301-302`): (uniq [size],
-    the sorted distinct ids then -1 in every other slot; inv [N] int64,
-    each id's slot). Every shape is fixed, so nothing waits for the card:
-    one sort, the flags of each new id, their running count and two
-    scatters (a slot's duplicates all write its one id)."""
+def unique_fill(ids: torch.Tensor, size: int, fill: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's `jnp.unique(ids, size=size, fill_value=fill,
+    return_inverse=True)`: (uniq [size], the sorted distinct ids, cut to
+    `size` or padded with `fill`; inv [N] int64, each id's rank among the
+    distinct ids, `size` or more for an id cut off). Every shape is fixed,
+    so nothing waits for the card: one sort, the flags of each new id,
+    their running count and two scatters (a slot's duplicates all write
+    its one id)."""
     flat = ids.reshape(-1)
     n = flat.numel()
-    if size < n:
-        raise ValueError(f"unique_static: size {size} < {n} ids")
     srt, order = torch.sort(flat)
     new = torch.zeros(n, dtype=torch.bool, device=flat.device)
     torch.ne(srt[1:], srt[:-1], out=new[1:])
     slot = torch.cumsum(new, 0)
     inv = torch.empty_like(slot).scatter_(0, order, slot)
-    uniq = torch.full((size,), -1, dtype=flat.dtype,
+    uniq = torch.full((max(n, size),), fill, dtype=flat.dtype,
                       device=flat.device).scatter_(0, slot, srt)
-    return uniq, inv
+    return uniq[:size], inv
+
+
+def unique_static(ids: torch.Tensor, size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's `jnp.unique(ids, size=size, return_inverse=True,
+    fill_value=-1)` (`herald_tpu/train/engine.py:301-302`) at a size that
+    holds every id: (uniq [size], the sorted distinct ids then -1 in every
+    other slot; inv [N] int64, each id's slot)."""
+    n = ids.numel()
+    if size < n:
+        raise ValueError(f"unique_static: size {size} < {n} ids")
+    return unique_fill(ids, size, -1)
 
 
 def segment_sum_grads(grad: torch.Tensor, inverse: torch.Tensor,

@@ -33,6 +33,14 @@ rank and no group is made.
   backend runs the same calls and this module stages nothing.
 - Each collective adds its host seconds to `seconds`, for the profiles of
   `chip_smoke.py`; under gloo a call returns when its bytes have moved.
+  It also adds the bytes of its result buffer on this rank to `bytes`,
+  and one to `calls`, under the names of XLA's collectives that JAX's
+  `utils/hlo_stats.py` counts in a compiled step: "all-to-all",
+  "all-reduce", "reduce-scatter", "all-gather", "collective-broadcast"
+  (each flat buffer a call sends), and "collective-permute" (what `send`
+  sends and `recv_` receives). At S = 1 nothing is counted: JAX compiles
+  no collective there. `utils/hlo_stats.collective_bytes` reads them
+  around one step.
 """
 
 from __future__ import annotations
@@ -88,10 +96,17 @@ class Comm:
         self.rank, self.size, self.device = rank, size, device
         self.backend, self.group = backend, group
         self.seconds: Dict[str, float] = {}
+        self.bytes: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
 
     def _timed(self, name: str, t0: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + (
             time.perf_counter() - t0)
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0) + t.numel() * \
+            t.element_size()
+        self.calls[kind] = self.calls.get(kind, 0) + 1
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Block i of x goes to rank i; block j of the result came from
@@ -105,6 +120,7 @@ class Comm:
                                x.view(self.size, -1).view(torch.uint8),
                                group=self.group)
         self._timed("all_to_all", t0)
+        self._count("all-to-all", out)
         return out
 
     def all_reduce_(self, flat: torch.Tensor, group=None) -> torch.Tensor:
@@ -113,6 +129,7 @@ class Comm:
             t0 = time.perf_counter()
             dist.all_reduce(flat, group=group or self.group)
             self._timed("all_reduce", t0)
+            self._count("all-reduce", flat)
         return flat
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,6 +142,7 @@ class Comm:
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x, group=self.group)
         self._timed("reduce_scatter", t0)
+        self._count("reduce-scatter", out)
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,6 +154,7 @@ class Comm:
         out = x.new_empty((self.size,) + tuple(x.shape))
         dist.all_gather(list(out.unbind(0)), x, group=self.group)
         self._timed("all_gather", t0)
+        self._count("all-gather", out)
         return out
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
@@ -150,6 +169,7 @@ class Comm:
         for ts in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in ts])
             dist.broadcast(flat, 0, group=self.group)
+            self._count("collective-broadcast", flat)
             for t, v in zip(ts, torch.split(flat, [t.numel() for t in ts])):
                 t.copy_(v.view(t.shape))
         self._timed("broadcast", t0)
@@ -157,14 +177,17 @@ class Comm:
     def send(self, x: torch.Tensor, dst: int) -> None:
         """Send x to rank `dst`, which takes it with `recv_`."""
         t0 = time.perf_counter()
-        dist.send(x.contiguous(), dst, group=self.group)
+        x = x.contiguous()
+        dist.send(x, dst, group=self.group)
         self._timed("send", t0)
+        self._count("collective-permute", x)
 
     def recv_(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """Fill the contiguous x with what rank `src` sent."""
         t0 = time.perf_counter()
         dist.recv(x, src, group=self.group)
         self._timed("recv", t0)
+        self._count("collective-permute", x)
         return x
 
     def barrier(self) -> None:

@@ -524,6 +524,32 @@ class CachedEngine(Engine):
         return layout_of((k, TORCH_DTYPES[a.dtype], a.shape[1:])
                          for k, a in host.items()).nbytes
 
+    def example_step_args(self):
+        """Zero-filled device args of one cached step on this rank, in the
+        step body's order: `_cached_step_body(state, *args)` with args
+        (its inputs, a program of empty slots through `_chunk_program`;
+        its variant). The variant runs the pull and, over S ranks, the
+        flush, so that both exchanges move their buffers as JAX's compiled
+        step does; every write of the flush is masked there and the cache
+        is not written, so the table and the cache keep their values. For
+        `utils.hlo_stats.collective_bytes(eng._cached_step_body, state,
+        *eng.example_step_args(), comm=eng.comm)`."""
+        S, P = self.num_shards, max(self.P_cap, 1)
+        mbs, U, F = self.cfg.batch_size, self.U_cap, self.F_cap
+        spec = self.model.spec
+
+        def empty(w, fill, dt=np.int32):
+            return np.full((1, S * w), fill, dt)
+        C = self.cache_rows
+        host, _, _ = self._chunk_program(
+            1, empty(mbs, 0, np.int64), empty(U, C), empty(U, 0, np.uint8),
+            empty(F, -1), empty(F, C), empty(P, -1), empty(P, C),
+            empty(U, -1), empty(mbs * spec.num_sparse, 0),
+            np.zeros((1, max(spec.num_dense, 0)), np.float32), None,
+            np.zeros((1, 1), np.float32), index_feed=False)
+        buf, layout = self._to_device(host, 1)
+        return unpack(buf[0], layout), (S > 1, False, True, False, False)
+
     @staticmethod
     def _write_arrays(host, masks) -> Dict[str, np.ndarray]:
         """Each write's fixed-length lists into `host`; {write: any kept

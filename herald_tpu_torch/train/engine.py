@@ -525,6 +525,21 @@ class Engine:
                      else np.asarray(x)).astype(dt, copy=False))
             for k, (x, dt) in spec.items()})
 
+    def example_step_args(self):
+        """Zero-filled device args of one train step on this rank, in the
+        step body's order: `_train_step_body(state, *args)` (args is its
+        one feed, this rank's block of a global batch). For counting a
+        step's collective bytes: `utils.hlo_stats.collective_bytes(
+        eng._train_step_body, state, *eng.example_step_args(),
+        comm=eng.comm)`; the state is consumed."""
+        B, spec = self.cfg.batch_size, self.model.spec
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return ({"d": zeros((B, max(spec.num_dense, 0)), torch.float32),
+                 "s": zeros((B, spec.num_sparse), torch.int32),
+                 "y": zeros((B, 1), torch.float32)},)
+
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, dense_x, sparse_ids, labels):
         """One step on one global batch: (state, {"loss", "overflow"}). The

@@ -68,6 +68,10 @@ def test_serve_imports_with_jax_and_herald_tpu_blocked():
             "import herald_tpu_torch.models.layers\n"
             "import herald_tpu_torch.models.initializers\n"
             "import herald_tpu_torch.utils.metrics\n"
+            "import herald_tpu_torch.gnn, herald_tpu_torch.gnn.gcn\n"
+            "import herald_tpu_torch.data.tokenizer\n"
+            "import herald_tpu_torch.utils.hlo_stats\n"
+            "import herald_tpu_torch.utils.graphboard\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'ml_dtypes', 'herald_tpu')\n"
             "       and sys.modules[m] is not None]\n"

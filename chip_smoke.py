@@ -3,7 +3,8 @@
 and its host planner and scheduler from the sources in this checkout, hold
 each kernel against its plain PyTorch version, serve and train wdl_criteo
 at full width, plainly, in assign-only mode, through the FAE engine and
-through the scheduled, cached engine, train the distributed GCN, and
+through the scheduled, cached engine, over ranks with the tensor-parallel
+tower, train the distributed GCN and the pipelines, search layouts, and
 print what it measured.
 
     python3 chip_smoke.py
@@ -12,6 +13,7 @@ print what it measured.
     python3 chip_smoke.py --phase feed [--root DIR]
     python3 chip_smoke.py --phase onnx
     python3 chip_smoke.py --phase gnn
+    python3 chip_smoke.py --phase tp
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
@@ -22,7 +24,8 @@ fae, launch:fae, scheduled, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
 hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid, gnn,
-kernel:fm_second_order,
+hybrid:tp:2, hybrid:tp:4, the audit table, autoshard, pipeline,
+launch:tp, kernel:fm_second_order,
 kernel:dfm_width, serve:dfm, train:dfm, onnx:dfm, launch:dfm,
 scheduled:dfm, the
 kernels summary, profiler (the torch.profiler sessions taken and those
@@ -178,7 +181,15 @@ and `--phase assigned` also run launch:fae or launch:assigned,
 launch:feed on `--samples` data of the same size instead of the raw
 file, so that a parent tree without the preprocessor runs the same
 launches; `--phase onnx` runs onnx and onnx:dfm, each from a fresh
-full-width engine; `--phase gnn` runs gnn. `--root
+full-width engine; `--phase gnn` runs gnn; `--phase tp` runs
+hybrid:tp, autoshard, pipeline and launch:tp (`phase_tp`,
+`phase_launch_tp`: wdl_criteo's tensor-parallel tower at full width over
+(dp, mp) = (1, 2) and (2, 2) ranks sharing the card over gloo, each
+held to the one-device engine and to the plain K1 and K3; the layout
+search over 4 ranks at a cut table; GPipe, 1F1B and HetPipe over (dp,
+pp) = (2, 2) against their one-device oracles; the launcher with
+`--mp-shards 2`, its checkpoint resumed at mp = 1, and its ONNX export).
+Their times measure gloo between processes on one card, not NVLink. `--root
 DIR` imports herald_tpu_torch from another checkout, so that the steps
 of two trees (a parent unpacked with `git archive` into a gitignored
 directory, and this one) are timed and profiled in turns on one card,
@@ -194,6 +205,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import importlib.util
@@ -5060,7 +5072,9 @@ def phase_launch_hybrid() -> dict:
     `--model fae_wdl_criteo` (one epoch: the FAE branch takes no
     --max-steps), `--assign-only` (16 steps), and `--scheduled` and
     `--scheduled --int8-flush` (one epoch each, so that the cache syncs
-    and the last eval is exact) the same way; then 1 rank
+    and the last eval is exact) the same way, these four at once (their
+    rates share the card, as the emitted line's `measures` says); then 1
+    rank
     (its own card, so NCCL) and the local launcher over the same data for
     8 steps, whose per-step losses must be equal; then the stop/resume
     pairs, the resize and the supervisor of `_resume_pairs`."""
@@ -5077,18 +5091,22 @@ def phase_launch_hybrid() -> dict:
             or not np.isfinite(two["train_loss_last"]) \
             or two["overflow_rows"] != 0 or not 0.0 <= two["val_auc"] <= 1.0:
         raise AssertionError(f"2-rank hybrid launch report: {two}")
-    modes, modes_s = {}, {}
     epoch = (16384 - int(16384 * 0.1)) // (2 * BATCH)
-    for mode, argv, want in (
-            ("fae", ["--model", "fae_wdl_criteo"], ("fae", epoch)),
-            ("assigned", ["--assign-only", "--max-steps", "16"],
-             ("assigned", 16)),
-            ("scheduled", ["--scheduled"], ("scheduled", epoch)),
-            ("scheduled_int8", ["--scheduled", "--int8-flush"],
-             ("scheduled", epoch))):
-        t0 = time.perf_counter()
-        rep = modes[mode] = _report(_run(two_ranks + argv))
-        modes_s[mode] = time.perf_counter() - t0
+    want_modes = {
+        "fae": (["--model", "fae_wdl_criteo"], ("fae", epoch)),
+        "assigned": (["--assign-only", "--max-steps", "16"],
+                     ("assigned", 16)),
+        "scheduled": (["--scheduled"], ("scheduled", epoch)),
+        "scheduled_int8": (["--scheduled", "--int8-flush"],
+                           ("scheduled", epoch))}
+    # the four launches at once, each on a thread: their start-ups, not
+    # their steps, take the time
+    got = _on_threads({mode: (lambda argv=argv: _timed_run(two_ranks + argv))
+                       for mode, (argv, _) in want_modes.items()})
+    modes = {mode: rep for mode, (rep, _) in got.items()}
+    modes_s = {mode: secs for mode, (_, secs) in got.items()}
+    for mode, (_, want) in want_modes.items():
+        rep = modes[mode]
         if (rep["devices"], rep["backend"], rep["mode"], rep["steps"]) != \
                 (2, "gloo", *want) or not np.isfinite(rep["train_loss_last"]) \
                 or not 0.0 <= rep["val_auc"] <= 1.0 \
@@ -5118,6 +5136,11 @@ def phase_launch_hybrid() -> dict:
     keys = ("devices", "backend", "device", "steps", "train_loss_last",
             "val_auc", "examples_per_sec")
     out = {"phase": "launch:hybrid", "two_ranks_command_s": two_s,
+           "measures": "two_ranks_fae, two_ranks_assigned, "
+                       "two_ranks_scheduled and two_ranks_scheduled_int8 "
+                       "ran at once, sharing card 0: their "
+                       "examples_per_sec, examples_per_sec_steady and "
+                       "command_s are not one launch's alone",
            "two_ranks": {k: two[k] for k in keys},
            "two_ranks_fae": {**{k: modes["fae"][k] for k in keys},
                              "num_hot": modes["fae"]["num_hot"],
@@ -5299,11 +5322,11 @@ def _exported_launch(tmp: Path, name: str) -> dict:
     from herald_tpu_torch.onnx import OnnxModel
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
-    eng = Engine(cfg, table_rows=RESUME_ROWS, device="cuda")
+    eng = Engine(cfg, table_rows=RESUME_ROWS, device=DEVICE)
     ck = str(tmp / f"ck-export-{name}")
-    state = (CachedEngine.to_base_state(load_cached_checkpoint(ck, "cuda"))
+    state = (CachedEngine.to_base_state(load_cached_checkpoint(ck, DEVICE))
              if name == "scheduled" else
-             load_checkpoint(ck, "cuda", padded_rows=eng.padded_rows))
+             load_checkpoint(ck, DEVICE, padded_rows=eng.padded_rows))
     dense, sparse, _ = synthetic_ctr_data(eng.model.spec,
                                           ONNX_BATCHES * BATCH, seed=1,
                                           num_rows=RESUME_ROWS)
@@ -5323,6 +5346,632 @@ def _exported_launch(tmp: Path, name: str) -> dict:
                              f"to {diff}")
     return {"file_bytes": path.stat().st_size, "scored_rows": len(got),
             "max_abs_diff": diff}
+
+
+# ----------------------------------------------------------------------
+# hybrid:tp, autoshard, pipeline: the tensor-parallel tower over the
+# (dp, mp) grid of ranks sharing this card over gloo, the layout search
+# and the pipelines (parallel/tp.py, autoshard.py, pipeline.py)
+# ----------------------------------------------------------------------
+
+TP_SIZES, TP_MP, TP_STEPS, TP_TIMED = (2, 4), 2, 8, 32
+# the layout search's table: its scores count bytes and FLOPs of one
+# step, which do not depend on the row count (a cut of rows)
+TP_SEARCH_ROWS = 65_536
+# the step's counted collective bytes, at both mp, from engines over
+# this many rows (the bytes do not depend on the rows either)
+TP_BYTES_ROWS = 65_536
+# pipelines: stages of wdl's 256-wide tower layers, a batch of 256 a dp
+# replica in PIPE_M micro-batches, over (dp, pp) = (2, 2) ranks
+PIPE_STAGES, PIPE_M, PIPE_W, PIPE_LR = 2, 4, 256, 0.05
+# values against the sequential tower and 1F1B against the slot-by-slot
+# oracle, all f32 on this card with TF32 off: the same products over
+# other row counts may sum in another order. GPipe's values are held as
+# max |a - b| <= PIPE_RTOL * max |b| (two relu layers of K = 256 sums:
+# an elementwise rtol fails near zero; the first run on the card gave
+# 2.4e-6 against atol 1e-6 there)
+PIPE_RTOL, PIPE_ATOL = 1e-5, 1e-6
+PIPE_GRAD_RTOL = 1e-4
+
+
+def _tp_cfg(mp: int, **kw) -> HeraldConfig:
+    return HeraldConfig(model="wdl_criteo", batch_size=BATCH,
+                        embedding_dim=EMB, table_dtype=torch.bfloat16,
+                        comm_mode="hybrid", mp_shards=mp, **kw)
+
+
+def _tp_bytes() -> dict:
+    """One step's collective bytes by kind and its calls, at mp = TP_MP and
+    at mp = 1 over the same ranks, from zero args (`example_step_args`)
+    of engines over TP_BYTES_ROWS rows."""
+    from herald_tpu_torch.utils.hlo_stats import collective_bytes
+    out = {}
+    for mp in (TP_MP, 1):
+        eng = Engine(_tp_cfg(mp), table_rows=TP_BYTES_ROWS,
+                     device=DEVICE + ":0")
+        out[f"mp{mp}"] = collective_bytes(
+            eng._train_step_body, eng.init_state(0),
+            *eng.example_step_args(), comm=eng.comm)
+        del eng
+    return out
+
+
+def _tp_leg(rank: int, S: int) -> dict:
+    """hybrid:tp on this rank: wdl_criteo at full width over (S / TP_MP,
+    TP_MP), from its own init_state(0); TP_STEPS steps through the kernels
+    (launches counted), `predict` of a held-out global batch and
+    `evaluate` of four, the same steps from the same state through the
+    plain versions of K1 and K3, TP_TIMED timed steps, a profiled chunk on
+    rank 0, and at S = 4 the K1 and K3 inputs of TP_STEPS steps recorded
+    on rank 0 and timed; the collective bytes of a step at both mp."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = Engine(_tp_cfg(TP_MP), table_rows=FULL_ROWS, device=DEVICE + ":0")
+    comm = eng.comm
+    gb = S * BATCH
+    torch.cuda.reset_peak_memory_stats()
+    state = eng.init_state(0)
+    init = {"rows": state.table[:1024].clone().cpu(),
+            "dense": {k: v.clone().cpu() for k, v in state.dense.items()}}
+    n = 3 * TP_STEPS + TP_TIMED + 4
+    dense, sparse, labels = synthetic_ctr_data(eng.model.spec, n * gb,
+                                               seed=0, num_rows=FULL_ROWS)
+
+    def batches(lo, k):
+        z = slice(lo * gb, (lo + k) * gb)
+        return dense[z], sparse[z], labels[z]
+
+    touched = np.unique(sparse[:TP_STEPS * gb])
+    mine = touched[touched % S == rank]
+    local = torch.as_tensor(mine // S, device=comm.device)
+    start = (state.table[local].clone(),
+             {k: v.clone() for k, v in state.dense.items()})
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, st = eng.train_epoch(state, *batches(0, TP_STEPS))
+    launches = _launch_counts()
+    losses, overflow = st["loss"].cpu(), st["overflow"].cpu()
+    rows = state.table[local].clone()
+    dense_after = {k: v.clone() for k, v in state.dense.items()}
+    held = batches(TP_STEPS, 4)
+    probs = eng.predict(state, held[0][:gb], held[1][:gb]).cpu()
+    ev = eng.evaluate(state, *held)
+    # the same steps from the same state through the plain versions
+    state.table[local] = start[0]
+    for k, v in start[1].items():
+        state.dense[k].copy_(v)
+    state.step.zero_()
+    with _patched(_hybrid_hooks({"embedding_gather": embedding_gather_ref,
+                                 "hot_onehot_push": _host_k3})):
+        state, st = eng.train_epoch(state, *batches(0, TP_STEPS))
+    p_losses, p_rows = st["loss"].cpu(), state.table[local]
+    plain = {
+        **_movement(start[0], rows, p_rows),
+        "loss_max_rel_err": float(((losses - p_losses).abs()
+                                   / p_losses.abs()).max()),
+        "rows_within_one_ulp": bool(torch.allclose(
+            rows.float(), p_rows.float(), rtol=2 ** -7, atol=0)),
+        "dense_max_err": max(float((dense_after[k] - state.dense[k]).abs()
+                                   .max()) for k in state.dense)}
+    del start
+    # timed steps, every rank from one barrier
+    lo = TP_STEPS + 4
+    dist.barrier()
+    torch.cuda.synchronize()
+    sec0 = dict(comm.seconds)
+    t0 = time.perf_counter()
+    state, st = eng.train_epoch(state, *batches(lo, TP_TIMED))
+    float(st["loss"][-1])
+    timed_s = time.perf_counter() - t0
+    comm_s = {k: v - sec0.get(k, 0.0) for k, v in comm.seconds.items()}
+    holder = [state]
+    prof_batches = batches(lo + TP_TIMED, TP_STEPS)
+
+    def chunk(_i):
+        holder[0], _ = eng.train_epoch(holder[0], *prof_batches)
+
+    profile = None
+    sec0 = dict(comm.seconds)
+    if rank == 0:
+        prof, host_ms, lost = _session(chunk, 1)
+        per, _ = _device_items(prof, TP_STEPS)
+        host_ms /= TP_STEPS
+        busy = None if lost else sum(per.values())
+        coll = {k: (comm.seconds[k] - sec0.get(k, 0.0)) * 1e3 / TP_STEPS
+                for k in comm.seconds}
+        profile = {"steps": TP_STEPS, "device_busy_ms": busy,
+                   "host_ms_profiled": host_ms,
+                   "device_idle_share": None if busy is None
+                   else 1 - busy / host_ms,
+                   "embedding_gather_device_ms": _own_ms(per, K1),
+                   "hot_onehot_push_device_ms": _k3_ms(per),
+                   "collective_host_ms": coll,
+                   "collective_share": sum(coll.values()) / host_ms,
+                   "top_device_ms": _top(per), "lost_launches": len(lost)}
+    else:
+        chunk(0)
+        torch.cuda.synchronize()
+    state = holder[0]
+    sites = None
+    if S == 4:
+        calls = []
+        with _patched(_recording(calls) if rank == 0 else {}):
+            state, _ = eng.train_epoch(state, *batches(0, TP_STEPS))
+        if rank == 0:
+            per_step = len(HYBRID_SITES)
+            if len(calls) != per_step * TP_STEPS or any(
+                    calls[i][0] != HYBRID_SITES[i % per_step][0]
+                    for i in range(len(calls))):
+                raise AssertionError(
+                    f"the TP step called {[c[0] for c in calls[:8]]}")
+            sites = {f"{kern}:{site}": _hybrid_site_timing(kern, [
+                calls[i][1] for i in range(j, len(calls), per_step)])
+                for j, (kern, site) in enumerate(HYBRID_SITES)}
+        dist.barrier()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = {"table": list(state.table.shape),
+              "dense": {k: list(v.shape) for k, v in state.dense.items()}}
+    del state, eng, holder
+    _free()
+    return {"rank": rank, "backend": comm.backend, "world_size": comm.size,
+            "init": init, "mine": mine, "rows": rows.cpu(),
+            "losses": losses, "overflow": overflow,
+            "dense": {k: v.cpu() for k, v in dense_after.items()},
+            "probs": probs, "eval": ev, "launches": launches,
+            "plain_kernels": plain, "timed_s": timed_s,
+            "comm_host_s": comm_s, "step_profile": profile, "sites": sites,
+            "bytes": _tp_bytes(), "shapes": shapes, "peak_mem_gb": peak_gb}
+
+
+def _autoshard_leg(rank: int) -> dict:
+    """autoshard on this rank: `search_layout("wdl_criteo")` over the
+    ranks (batch 256, embedding 128, TP_SEARCH_ROWS rows), then 2 steps of
+    the chosen layout."""
+    from herald_tpu_torch.parallel.autoshard import (format_table,
+                                                     search_layout)
+    t0 = time.perf_counter()
+    cfg, scores = search_layout("wdl_criteo", batch_size=BATCH,
+                                embedding_dim=EMB, table_rows=TP_SEARCH_ROWS,
+                                device=DEVICE + ":0")
+    search_s = time.perf_counter() - t0
+    eng = Engine(dataclasses.replace(cfg, table_dtype=torch.bfloat16),
+                 table_rows=TP_SEARCH_ROWS, device=DEVICE + ":0")
+    d, s, y = synthetic_ctr_data(eng.model.spec,
+                                 2 * eng.num_shards * BATCH, seed=2,
+                                 num_rows=TP_SEARCH_ROWS)
+    _, st = eng.train_epoch(eng.init_state(0), d, s, y, steps=2)
+    del eng
+    _free()
+    return {"table": format_table(cfg, scores), "mp_shards": cfg.mp_shards,
+            "scores": [dataclasses.asdict(s) for s in scores],
+            "search_s": search_s,
+            "chosen_losses": st["loss"].tolist()}
+
+
+def _pipe_oracle(W, b, x, targets, M, lr):
+    """The 1F1B timetable run slot by slot on one device, with each
+    micro-batch's update applied at its backward (tests/test_pipeline.py's
+    `_pipedream_oracle`): x and targets hold the combined batch, laid out
+    [M, DP, mb] so that micro-batch m is every replica's m-th."""
+    N = W.shape[0]
+    xs, tg = x.reshape(M, -1, x.shape[-1]), targets.reshape(M, -1,
+                                                          x.shape[-1])
+    params = [{"W": W[s].clone(), "b": b[s].clone()} for s in range(N)]
+    stash = [dict() for _ in range(N)]
+    fmsg, bmsg, losses = {}, {}, torch.zeros(M, device=x.device)
+    for t in range(2 * (M + N - 1)):
+        for s in range(N):
+            rf = t - s
+            if rf >= 0 and rf % 2 == 0 and rf // 2 < M:
+                m = rf // 2
+                x_in = xs[m] if s == 0 else fmsg.pop((s, m))
+                w = dict(params[s])
+                stash[s][m] = (w, x_in)
+                if s + 1 < N:
+                    fmsg[(s + 1, m)] = _pipe_stage(w, x_in).detach()
+            rb = t - (2 * N - 1 - s)
+            if rb >= 0 and rb % 2 == 0 and rb // 2 < M:
+                m = rb // 2
+                w, x_in = stash[s].pop(m)
+                wg = {k: v.detach().requires_grad_(True) for k, v in w.items()}
+                xg = x_in.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    y = _pipe_stage(wg, xg)
+                    if s == N - 1:
+                        loss = torch.mean((y - tg[m]) ** 2)
+                        losses[m] = loss.detach()
+                        g = torch.autograd.grad(loss, y, retain_graph=True)[0]
+                    else:
+                        g = bmsg.pop((s, m))
+                    gw = torch.autograd.grad(y, [wg["W"], wg["b"], xg], g)
+                params[s] = {"W": params[s]["W"] - lr * gw[0],
+                             "b": params[s]["b"] - lr * gw[1]}
+                if s > 0:
+                    bmsg[(s - 1, m)] = gw[2]
+    return params, losses
+
+
+def _pipe_stage(params, h):
+    return torch.relu(h @ params["W"] + params["b"])
+
+
+def _pipeline_leg(rank: int, world) -> dict:
+    """pipeline on this rank of (dp, pp) = (2, 2): GPipe's values and
+    grads against the sequential tower on this card, 1F1B (the update's
+    grads summed over dp) and HetPipe (local updates, averaged over dp
+    after each, and after every second) against the slot-by-slot oracle
+    of the combined batch; the host ms of each."""
+    from herald_tpu_torch.parallel import pipeline as pl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = world.device
+    pp = world.split([[0, 1], [2, 3]])
+    dp = world.split([[0, 2], [1, 3]])
+    N, M, DP = PIPE_STAGES, PIPE_M, 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = 0.1 * torch.randn((N, PIPE_W, PIPE_W), generator=gen, device=dev)
+    b = 0.1 * torch.randn((N, PIPE_W), generator=gen, device=dev)
+    x = torch.randn((DP * BATCH, PIPE_W), generator=gen, device=dev)
+    tgt = torch.randn((DP * BATCH, PIPE_W), generator=gen, device=dev)
+    i = dp.rank
+    mine = slice(i * BATCH, (i + 1) * BATCH)
+    my = {"W": W[pp.rank].clone().requires_grad_(True),
+          "b": b[pp.rank].clone().requires_grad_(True)}
+    out, times = {}, {}
+
+    def seq(ws, bs, h):
+        for s in range(N):
+            h = _pipe_stage({"W": ws[s], "b": bs[s]}, h)
+        return h
+    # GPipe: values and grads against the sequential tower
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        y = pl.pipeline_apply(_pipe_stage, my, x[mine], pp, N, M)
+        loss = pl.stage_loss(lambda yy: torch.mean((yy - tgt[mine]) ** 2)
+                             / DP, y, pp, N)
+        g = torch.autograd.grad(loss, [my["W"], my["b"]])
+    g = [dp.all_reduce_(v.contiguous()) for v in g]
+    value = pl.last_stage_value(y.detach(), pp, N)
+    loss_all = world.all_reduce_(loss.detach().reshape(1))
+    torch.cuda.synchronize()
+    times["gpipe_ms"] = (time.perf_counter() - t0) * 1e3
+    Wr, br = W.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    with torch.enable_grad():
+        ref = seq(Wr, br, x)
+        lref = torch.mean((ref - tgt) ** 2)
+        gW, gb_ = torch.autograd.grad(lref, [Wr, br])
+
+    def err(a, r):
+        return float((a - r).abs().max())
+    out["gpipe"] = {
+        "value_max_err": err(value, ref[mine].detach()),
+        "value_ok": err(value, ref[mine].detach())
+        <= PIPE_RTOL * float(ref[mine].abs().max()),
+        "loss_rel_err": float(abs(loss_all - lref.detach()) / lref.detach()),
+        "grad_max_err": max(err(g[0], gW[pp.rank]), err(g[1], gb_[pp.rank])),
+        "grads_ok": bool(torch.allclose(g[0], gW[pp.rank],
+                                        rtol=PIPE_GRAD_RTOL, atol=PIPE_ATOL)
+                         and torch.allclose(g[1], gb_[pp.rank],
+                                            rtol=PIPE_GRAD_RTOL,
+                                            atol=PIPE_ATOL))}
+    # 1F1B and HetPipe against the oracle of the combined batch: replica
+    # i's micro-batch m is the oracle's rows [m, i]
+    mb = BATCH // M
+    comb = lambda a: a.reshape(DP, M, mb, PIPE_W).transpose(0, 1).reshape(
+        -1, PIPE_W)
+    want_p, want_l = _pipe_oracle(W, b, comb(x), comb(tgt), M, PIPE_LR)
+    start = {"W": W[pp.rank], "b": b[pp.rank]}
+
+    def lockstep(p, gr):
+        return {k: p[k] - PIPE_LR * dp.all_reduce_(gr[k].contiguous()) / DP
+                for k in p}
+
+    def local(p, gr):
+        return {k: p[k] - PIPE_LR * gr[k] for k in p}
+    runs = {}
+    for name, kw in (("1f1b", {"update_fn": lockstep}),
+                     ("hetpipe", {"update_fn": local, "dp_comm": dp,
+                                  "dp_sync_every": 1}),
+                     ("hetpipe_k2", {"update_fn": local, "dp_comm": dp,
+                                     "dp_sync_every": 2})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, losses = pl.pipedream_apply(_pipe_stage,
+                                       lambda yy, tt: torch.mean(
+                                           (yy - tt) ** 2),
+                                       start, x[mine], tgt[mine], pp, N, M,
+                                       **kw)
+        losses = dp.all_reduce_(pp.all_reduce_(losses.clone())) / DP
+        torch.cuda.synchronize()
+        times[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        runs[name] = (p, losses)
+        wp = want_p[pp.rank]
+        out[name] = {
+            "loss_max_err": err(losses, want_l),
+            "param_max_err": max(err(p[k], wp[k]) for k in p),
+            "ok": bool(torch.allclose(losses, want_l, rtol=PIPE_RTOL,
+                                      atol=PIPE_ATOL) and all(
+                torch.allclose(p[k], wp[k], rtol=PIPE_RTOL, atol=PIPE_ATOL)
+                for k in p))}
+    stale = runs["hetpipe_k2"]
+    out["hetpipe_k2"] = {
+        "differs": max(err(stale[0][k], runs["1f1b"][0][k])
+                       for k in stale[0]) > 1e-7,
+        "losses_finite": bool(torch.isfinite(stale[1]).all())}
+    return {"checks": out, "host_ms": times, "stage": pp.rank,
+            "replica": dp.rank}
+
+
+def tp_rank(rank: int, size: int, tmp: Path) -> None:
+    """One rank of the tp phase, in a process of its own on the card
+    (`--tp-rank R --tp-size S --tp-dir DIR`): hybrid:tp at S ranks, and at
+    S = 4 also autoshard and pipeline. Writes tp<R>.pt to DIR."""
+    import torch.distributed as dist
+    from herald_tpu_torch.parallel.comm import setup
+    world = setup(DEVICE + ":0", init_method=f"file://{tmp}/store",
+                  rank=rank, world_size=size)
+    res = {"tp": _tp_leg(rank, size)}
+    if size == 4:
+        res["autoshard"] = _autoshard_leg(rank)
+        res["pipeline"] = _pipeline_leg(rank, world)
+    torch.save(res, tmp / f"tp{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_tp(size: int, timeout: float = 600) -> tuple:
+    """(results of the `size` tp ranks, seconds) on this card."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        logs = [open(tmp / f"tp{r}.log", "w") for r in range(size)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+             str(r), "--tp-size", str(size), "--tp-dir", str(tmp)],
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(size)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                                   - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        secs = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"tp rank {r} of {size} exited {p.returncode}:\n"
+                    f"{(tmp / f'tp{r}.log').read_text()[-4000:]}")
+        return [torch.load(tmp / f"tp{r}.pt", weights_only=False)
+                for r in range(size)], secs
+
+
+def _tp_gates(res: list, S: int) -> dict:
+    """hybrid:tp at S ranks against the one-device engine (batch 256 * S)
+    from the same logical state over the same global batches: each rank's
+    init rows and tower shards equal its part of the one-device
+    init_state(0); losses within rtol 1e-5, overflow 0, touched rows within
+    2^-7 of their value plus 2^-13 and moved as the reference's (within
+    1%), the tower (joined from the shards) within rtol 1e-4, atol 1e-6;
+    the held-out predictions within 1e-4 and the AUC within 1e-3; each
+    rank's steps against the plain versions of K1 and K3 as hybrid's
+    gates, and HYBRID_STEP's launches a step."""
+    from herald_tpu_torch.parallel import tp
+    summ = [r["tp"] for r in res]
+    want_launches = _want(HYBRID_STEP, TP_STEPS)
+    for s in summ:
+        if s["backend"] != "gloo" or s["world_size"] != S \
+                or s["launches"] != want_launches:
+            raise AssertionError(f"hybrid:tp rank {s['rank']} of {S}: "
+                                 f"{s['backend']}, launches "
+                                 f"{s['launches']} (want {want_launches})")
+        p = s["plain_kernels"]
+        if p["loss_max_rel_err"] > 1e-5 or not p["rows_within_one_ulp"] \
+                or p["dense_max_err"] > 1e-5 or not _moved_ok(p):
+            raise AssertionError(f"hybrid:tp rank {s['rank']} of {S} "
+                                 f"differs from the plain versions: {p}")
+    if any(not torch.equal(s["losses"], summ[0]["losses"]) for s in summ) \
+            or any(int(s["overflow"].sum()) for s in summ):
+        raise AssertionError("hybrid:tp: the ranks' losses differ or "
+                             "overflowed")
+    gb = S * BATCH
+    one = Engine(HeraldConfig(model="wdl_criteo", batch_size=gb,
+                              embedding_dim=EMB, table_dtype=torch.bfloat16),
+                 table_rows=FULL_ROWS, device=DEVICE)
+    st = one.init_state(0)
+    plan = one.model.tp_plan
+    for s in summ:
+        r = s["rank"]
+        cut = tp.cut({k: v.cpu() for k, v in st.dense.items()}, plan, TP_MP,
+                     r % TP_MP)
+        if not torch.equal(s["init"]["rows"],
+                           st.table[r::S][:1024].cpu()) or any(
+                not torch.equal(s["init"]["dense"][k], cut[k]) for k in cut):
+            raise AssertionError(f"hybrid:tp rank {r} of {S}: init_state(0) "
+                                 f"is not its part of the one-device one")
+    n = 3 * TP_STEPS + TP_TIMED + 4
+    dense, sparse, labels = synthetic_ctr_data(one.model.spec, n * gb,
+                                               seed=0, num_rows=FULL_ROWS)
+    mine = [torch.as_tensor(s["mine"], device=DEVICE) for s in summ]
+    start = [st.table[m].clone() for m in mine]
+    z = slice(0, TP_STEPS * gb)
+    st, stats = one.train_epoch(st, dense[z], sparse[z], labels[z])
+    want_l = stats["loss"].cpu()
+    loss_err = float(((summ[0]["losses"] - want_l).abs()
+                      / want_l.abs()).max())
+    row_err, ok, moves = 0.0, True, []
+    for s, m, s0 in zip(summ, mine, start):
+        a, w = s["rows"].to(DEVICE), st.table[m]
+        row_err = max(row_err, float((a.float() - w.float()).abs().max()))
+        ok &= bool(torch.allclose(a.float(), w.float(), rtol=2 ** -7,
+                                  atol=2 ** -13))
+        moves.append(_movement(s0, a, w))
+        ok &= _moved_ok(moves[-1])
+    joined = tp.join([{k: v.numpy() for k, v in s["dense"].items()}
+                      for s in summ[:TP_MP]], plan)
+    dense_err = max(float(np.abs(joined[k] - st.dense[k].cpu().numpy())
+                          .max()) for k in joined)
+    ok &= all(np.allclose(joined[k], st.dense[k].cpu().numpy(), rtol=1e-4,
+                          atol=1e-6) for k in joined)
+    held = slice(TP_STEPS * gb, (TP_STEPS + 4) * gb)
+    probs = one.predict(st, dense[held][:gb], sparse[held][:gb]).cpu()
+    ev = one.evaluate(st, dense[held], sparse[held], labels[held])
+    prob_err = float((summ[0]["probs"] - probs).abs().max())
+    auc_err = abs(summ[0]["eval"]["auc"] - ev["auc"])
+    ok &= prob_err <= 1e-4 and auc_err <= 1e-3
+    del st, one, start
+    _free()
+    if loss_err > 1e-5 or not ok:
+        raise AssertionError(
+            f"hybrid:tp at {S} ranks differs from the one-device engine: "
+            f"loss {loss_err}, rows {row_err}, dense {dense_err}, "
+            f"probabilities {prob_err}, auc {auc_err}, movement {moves}")
+    by = summ[0]["bytes"]
+    if by[f"mp{TP_MP}"]["all-to-all"] != by["mp1"]["all-to-all"]:
+        raise AssertionError(f"hybrid:tp changed the exchange's bytes: {by}")
+    timed = max(s["timed_s"] for s in summ)
+    return {"phase": f"hybrid:tp:{S}", "model": "wdl_criteo",
+            "backend": "gloo", "world_size": S,
+            "layout": {"dp": S // TP_MP, "mp": TP_MP},
+            "measures": "gloo between processes on one card, not NVLink",
+            "batch_per_rank": BATCH, "global_batch": gb,
+            "shapes_per_rank": summ[0]["shapes"],
+            "init_equal_one_device": True, "losses": want_l.tolist(),
+            "overflow": 0,
+            "one_device": {"steps": TP_STEPS, "loss_max_rel_err": loss_err,
+                           "row_max_err": row_err, "row_movement": moves,
+                           "dense_max_err": dense_err,
+                           "predict_max_abs_err": prob_err,
+                           "auc": summ[0]["eval"]["auc"],
+                           "auc_one_device": ev["auc"],
+                           "acc": summ[0]["eval"]["acc"]},
+            "plain_kernels": [s["plain_kernels"] for s in summ],
+            "launches": summ[0]["launches"],
+            "bytes_a_step": by,
+            "train_examples_per_s": TP_TIMED * gb / timed,
+            "step_ms": timed / TP_TIMED * 1e3,
+            "comm_host_s_timed": [s["comm_host_s"] for s in summ],
+            "step_profile": summ[0]["step_profile"],
+            "kernel_sites": summ[0]["sites"],
+            "peak_mem_gb": [s["peak_mem_gb"] for s in summ]}
+
+
+def phase_tp() -> dict:
+    """hybrid:tp at S = 2 ((dp, mp) = (1, 2)) and S = 4 ((2, 2)): ranks
+    sharing this card over gloo, each a process of its own (`tp_rank`),
+    held here by `_tp_gates`; the S = 4 ranks then run autoshard (the
+    audit table printed, the chosen layout's 2 steps finite) and pipeline
+    (GPipe, 1F1B and HetPipe against their oracles within PIPE_RTOL,
+    PIPE_ATOL, GPipe's grads within PIPE_GRAD_RTOL), each emitted as a
+    line of its own."""
+    _free()
+    out = {}
+    for S in TP_SIZES:
+        res, secs = _spawn_tp(S)
+        line = _tp_gates(res, S)
+        line["ranks_command_s"] = secs
+        emit(line)
+        out[S] = line
+    a = [r["autoshard"] for r in res]
+    if any(x["table"] != a[0]["table"] for x in a) or not all(
+            np.isfinite(x["chosen_losses"]).all() for x in a):
+        raise AssertionError(f"autoshard: {a}")
+    valid = [s for s in a[0]["scores"] if s["valid"]]
+    if {s["mp_shards"] for s in valid} != {1, 2, 4} \
+            or len({s["a2a_bytes"] for s in valid}) != 1:
+        raise AssertionError(f"autoshard's table: {a[0]['scores']}")
+    print(a[0]["table"], flush=True)
+    emit({"phase": "autoshard", "model": "wdl_criteo", "world_size": 4,
+          "table_rows": TP_SEARCH_ROWS, "reduced": {"table_rows": [
+              FULL_ROWS, TP_SEARCH_ROWS]},
+          "link_gbps": 450.0, "peak_tflops": 67.0,
+          "scores": a[0]["scores"], "chosen_mp_shards": a[0]["mp_shards"],
+          "chosen_losses": a[0]["chosen_losses"],
+          "search_s": max(x["search_s"] for x in a)})
+    pipe = [r["pipeline"] for r in res]
+    for p in pipe:
+        c = p["checks"]
+        if not (c["gpipe"]["value_ok"] and c["gpipe"]["grads_ok"]
+                and c["gpipe"]["loss_rel_err"] <= PIPE_RTOL
+                and c["1f1b"]["ok"] and c["hetpipe"]["ok"]
+                and c["hetpipe_k2"]["differs"]
+                and c["hetpipe_k2"]["losses_finite"]):
+            raise AssertionError(f"pipeline on rank {p}: {c}")
+    emit({"phase": "pipeline", "layout": {"dp": 2, "pp": PIPE_STAGES},
+          "stages": PIPE_STAGES, "width": PIPE_W,
+          "batch_per_replica": BATCH, "microbatches": PIPE_M,
+          "lr": PIPE_LR, "rtol": PIPE_RTOL, "atol": PIPE_ATOL,
+          "grad_rtol": PIPE_GRAD_RTOL,
+          "measures": "gloo between processes on one card, not NVLink",
+          "ranks": [{"stage": p["stage"], "replica": p["replica"],
+                     **p["checks"], "host_ms": p["host_ms"]}
+                    for p in pipe]})
+    return out
+
+
+def phase_launch_tp() -> dict:
+    """`torch.distributed.run` with 2 ranks on card 0 at full width: the
+    plain hybrid branch with `--mp-shards 2` for 16 steps and `--ckpt`,
+    then, at once, a resume of that checkpoint onto `--mp-shards 1` at the
+    same S for 8 more and, at RESUME_ROWS rows, an uninterrupted
+    `--mp-shards 2` run with `--ckpt` and `--export-onnx`, the file
+    scored against its checkpoint's `predict` (`_exported_launch`). The
+    two share the card: their rates are not the launcher's alone."""
+    run = ["torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "herald_tpu_torch.launch", "--model", "wdl_criteo",
+           "--bf16-table", "--samples", "16384", "--scan-steps", "8",
+           "--comm", "hybrid", "--device", "cuda:0"]
+    full = run + ["--rows", str(FULL_ROWS)]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        ck = str(tmp / "ck-tp")
+        tp, tp_s = _timed_run(full + ["--mp-shards", str(TP_MP),
+                                      "--max-steps", "16", "--ckpt", ck])
+        if (tp["devices"], tp["backend"], tp["steps"]) != (2, "gloo", 16) \
+                or not np.isfinite(tp["train_loss_last"]) \
+                or tp["overflow_rows"] != 0 \
+                or not 0.0 <= tp["val_auc"] <= 1.0:
+            raise AssertionError(f"--mp-shards launch report: {tp}")
+        manifest = json.loads(
+            (Path(ck) / (Path(ck) / "LATEST").read_text().strip()
+             / "manifest.json").read_text())
+        if manifest["layout"]["dense/W1"] != "sharded" \
+                or manifest["shapes"]["dense/W1"] != [13, 256]:
+            raise AssertionError(f"the TP checkpoint's tower: {manifest}")
+        # the resume and the export launch at once, each on a thread
+        got = _on_threads({
+            "back": lambda: _timed_run(full + [
+                "--mp-shards", "1", "--resume", ck, "--max-steps", "24"]),
+            "export": lambda: _timed_run(run + [
+                "--rows", str(RESUME_ROWS), "--mp-shards", str(TP_MP),
+                "--ckpt", str(tmp / "ck-export-tp"),
+                "--export-onnx", str(tmp / "tp.onnx")])})
+        (back, back_s), (ex, ex_s) = got["back"], got["export"]
+        if back["steps"] != 8 or not np.isfinite(back["train_loss_last"]) \
+                or not 0.0 <= back["val_auc"] <= 1.0:
+            raise AssertionError(f"the mp = 1 resume's report: {back}")
+        onnx = _exported_launch(tmp, "tp")
+    keys = ("devices", "backend", "steps", "train_loss_last", "val_auc",
+            "examples_per_sec")
+    out = {"phase": "launch:tp",
+           "measures": "gloo between processes on one card, not NVLink",
+           "tp_full_width": {**{k: tp[k] for k in keys},
+                             "command_s": tp_s},
+           "resumed_mp1": {**{k: back[k] for k in keys},
+                           "command_s": back_s},
+           "export": {**{k: ex[k] for k in keys}, "command_s": ex_s,
+                      "rows": RESUME_ROWS, **onnx}}
+    emit(out)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -5791,7 +6440,8 @@ def _entry(name, route_src, replaces, by_path, k) -> dict:
     if "fae" in k:
         out["fae"] = [{**_times(f), "hot_share": f["hot_share"]}
                       for f in k["fae"]]
-    for key in ("hybrid", "hybrid_fae", "hybrid_scheduled", "gnn"):
+    for key in ("hybrid", "hybrid_fae", "hybrid_scheduled", "hybrid_tp",
+                "gnn"):
         if key in k:
             out[key] = {site: {**_times(v), "max_abs_err": v["max_abs_err"]}
                         for site, v in k[key].items()}
@@ -5945,12 +6595,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
                                         "assigned", "hybrid", "feed",
-                                        "onnx", "gnn"),
+                                        "onnx", "gnn", "tp"),
                     help="the device and build phases and this one alone "
                          "(fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
                          "launch:hybrid; feed: launch:feed on --samples "
-                         "data; onnx: onnx and onnx:dfm; gnn: gnn)")
+                         "data; onnx: onnx and onnx:dfm; gnn: gnn; tp: "
+                         "hybrid:tp, autoshard, pipeline and launch:tp)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
@@ -5961,7 +6612,15 @@ def main() -> None:
                     help="run one rank of the gnn phase (its parent starts "
                          "them)")
     ap.add_argument("--gnn-dir", help="the gnn phase's directory")
+    ap.add_argument("--tp-rank", type=int,
+                    help="run one rank of the tp phase (its parent starts "
+                         "them)")
+    ap.add_argument("--tp-size", type=int, help="the tp phase's ranks")
+    ap.add_argument("--tp-dir", help="the tp phase's directory")
     args = ap.parse_args()
+    if args.tp_rank is not None:
+        tp_rank(args.tp_rank, args.tp_size, Path(args.tp_dir))
+        return
     if args.hybrid_rank is not None:
         hybrid_rank(args.hybrid_rank, Path(args.hybrid_dir))
         return
@@ -5999,6 +6658,9 @@ def main() -> None:
         phase_launch_feed(raw=False)
     elif args.phase == "gnn":
         phase_gnn()
+    elif args.phase == "tp":
+        phase_tp()
+        phase_launch_tp()
     elif args.phase == "onnx":
         eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
         phase_onnx(eng, eng.init_state(0))
@@ -6073,6 +6735,14 @@ def main() -> None:
                     for site, v in gnn["kernel_sites"].items()
                     if site.startswith(name + ":")}
     _free()
+    # tensor and pipeline parallel: ranks sharing this card over gloo
+    tp = phase_tp()
+    for k, name in ((k1, "embedding_gather"), (k3, "hot_onehot_push")):
+        k["hybrid_tp"] = {site.split(":")[1]: v
+                          for site, v in tp[4]["kernel_sites"].items()
+                          if site.startswith(name + ":")}
+    phase_launch_tp()
+    _free()
 
     # DeepFM at its own full width: the 33,762,584 x 513 bf16 table
     torch.cuda.reset_peak_memory_stats()
@@ -6103,6 +6773,8 @@ def main() -> None:
              "hybrid:assigned": hybrid["assigned"]["launches"],
              "hybrid:fae": hybrid["fae"]["launches"],
              "hybrid:scheduled": hybrid["scheduled"]["launches"],
+             "hybrid:tp:2": tp[2]["launches"],
+             "hybrid:tp:4": tp[4]["launches"],
              "gnn:halo": gnn["launches"]["halo"],
              "gnn:pull": gnn["launches"]["pull"],
              "gnn:broadcast": gnn["launches"]["broadcast"],

@@ -11,8 +11,13 @@ row-sharded table and its slots; the replicated tower and hot block; the
 cached state's row-sharded cache and hot slots) to one rank's state, its
 block of each sharded leaf, and `join_states` takes the ranks' states
 back to the global one (`ExchangeSpec.to_logical` then gives the logical
-table). `gcn_params_from_jax` takes the JAX GCN's `[(w, b), ...]` to
-the port's (`gnn.GCN.load_params` copies them into a model).
+table). Given a model's `tp_plan` and mp > 1, `shard_state` also cuts
+the tower (JAX's global dense params and slots) to rank r's shards: the
+ranks form a (S / mp, mp) grid, rank r holds shard r % mp of each col
+(columns) or row (rows) param, and `join_states` joins the shards of
+ranks 0..mp-1 back (`parallel/tp.py`'s `cut` and `join`).
+`gcn_params_from_jax` takes the JAX GCN's `[(w, b), ...]` to the port's
+(`gnn.GCN.load_params` copies them into a model).
 bfloat16 has no numpy dtype without `ml_dtypes`, and `np.savez` stores it
 as raw 2-byte voids (`|V2`), so bf16 leaves cross as their 16-bit
 patterns: a `uint16`/`int16`/`V2` view reinterpreted as `torch.bfloat16`.
@@ -25,6 +30,7 @@ from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from herald_tpu_torch.parallel import tp
 from herald_tpu_torch.train.engine import TrainState
 
 if TYPE_CHECKING:
@@ -117,7 +123,8 @@ def _sharded_fields(state) -> tuple:
         ("cache", "hot_slots") if hasattr(state, "cache") else ())
 
 
-def shard_state(leaves, spec, rank: int, device) -> HybridState:
+def shard_state(leaves, spec, rank: int, device, tp_plan=None,
+                mp: int = 1) -> HybridState:
     """JAX's hybrid TrainState, FaeTrainState or CachedTrainState of numpy
     arrays (table and slots [S * rows_per_shard, W] in the physical layout
     of `spec`, an `ExchangeSpec` of `parallel/exchange.py`; a cached
@@ -125,7 +132,8 @@ def shard_state(leaves, spec, rank: int, device) -> HybridState:
     pinned tier) -> rank `rank`'s state of the same kind: block `rank` of
     S equal blocks of rows of each sharded leaf, and the whole of every
     replicated leaf (the tower; the hot block, and the FAE state's hot
-    slots)."""
+    slots). With `tp_plan` and mp > 1 the tower and its slots are cut to
+    the rank's shards (`parallel/tp.py` `cut`, shard rank % mp)."""
     def block(x):
         if isinstance(x, dict):
             return {k: block(v) for k, v in x.items()}
@@ -134,10 +142,13 @@ def shard_state(leaves, spec, rank: int, device) -> HybridState:
     d = leaves._asdict()
     for f in _sharded_fields(leaves):
         d[f] = block(d[f])
+    if mp > 1:
+        for f in ("dense", "dense_slots"):
+            d[f] = tp.cut(d[f], tp_plan, mp, rank % mp)
     return state_from_numpy(type(leaves)(**d), device)
 
 
-def join_states(rank_leaves) -> HybridState:
+def join_states(rank_leaves, tp_plan=None, mp: int = 1) -> HybridState:
     """The ranks' states as host arrays (`state_to_numpy` of each, in rank
     order; TrainState, FaeTrainState or CachedTrainState) -> one state of
     the same kind: each rank's block of every sharded leaf one after the
@@ -149,8 +160,14 @@ def join_states(rank_leaves) -> HybridState:
             return {k: cat([x[k] for x in xs]) for k in xs[0]}
         return np.concatenate(xs)
     first = rank_leaves[0]
-    return first._replace(**{f: cat([getattr(r, f) for r in rank_leaves])
-                             for f in _sharded_fields(first)})
+    out = first._replace(**{f: cat([getattr(r, f) for r in rank_leaves])
+                            for f in _sharded_fields(first)})
+    if mp > 1:
+        out = out._replace(**{f: tp.join([getattr(r, f)
+                                          for r in rank_leaves[:mp]],
+                                         tp_plan)
+                              for f in ("dense", "dense_slots")})
+    return out
 
 
 def gcn_params_from_jax(params) -> List[Tuple[torch.Tensor, torch.Tensor]]:

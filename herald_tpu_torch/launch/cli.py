@@ -95,8 +95,12 @@ run (rank 0 prints `{"crashed_at": N}`), for the restart supervisor
 (`launch/supervise.py`). `--multihost` says that the ranks come from
 `torch.distributed.run` over one or more nodes (`--nnodes`, each rank on
 its LOCAL_RANK card), and raises without its environment; checkpoints
-must then be on storage every node reads. `--mp-shards` and `--platform`
-raise NotImplementedError naming their ROADMAP item; no flag is ignored.
+must then be on storage every node reads. `--mp-shards N` trains JAX's
+tensor-parallel tower over the ranks' (S / N, N) grid in the plain and
+assign-only branches (its checkpoints hold the tower's shards as blocks,
+its export gathers them); with `--scheduled`, lamb or dense-sync it
+raises JAX's config errors, with the FAE engine the port's. `--platform`
+raises NotImplementedError naming its ROADMAP item; no flag is ignored.
 """
 
 from __future__ import annotations
@@ -391,10 +395,6 @@ def _refuse_unported(args, cfg) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported to herald_tpu_torch yet "
                 f"(ROADMAP queue 1, {item})")
-    if cfg.mp_shards > 1:
-        raise NotImplementedError(
-            "--mp-shards > 1 is not ported to herald_tpu_torch yet "
-            "(ROADMAP queue 1, item 13: tensor parallel)")
     if args.multihost and "WORLD_SIZE" not in os.environ:
         # where JAX's jax.distributed.initialize() finds no cluster
         raise ValueError(
@@ -901,7 +901,7 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
             if steady["chunks"] == warm_chunks and done < target:
                 cs.drain()
                 steady_open()
-            if maybe_ckpt(state, done, pre=lambda: (
+            if maybe_ckpt(eng, state, done, pre=lambda: (
                     cs.drain(), steady_close(),
                     _fail_on_overflow(cs.overflow))) \
                     and done < target and steady["chunks"] >= warm_chunks:
@@ -1042,7 +1042,7 @@ def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
         if args.resume:
             state = load_checkpoint(args.resume, eng.device,
                                     padded_rows=eng.padded_rows,
-                                    comm=eng.comm)
+                                    comm=eng.comm, tp=eng.tp_layout)
             _check_resumed(eng, state, args.resume)
             done = int(state.step)
             for _ in range(done):
@@ -1064,7 +1064,7 @@ def _train_assigned(args, cfg, model, rows, trn, device, eval_epoch,
                 break
             cs.push(stats)
             done += int(stats["loss"].shape[0])   # the executed count
-            maybe_ckpt(state, done, pre=lambda: (
+            maybe_ckpt(eng, state, done, pre=lambda: (
                 cs.drain(), _fail_on_overflow(cs.overflow)))
             if done % steps_per_epoch == 0 and done > start_done:
                 cs.drain()
@@ -1122,7 +1122,7 @@ def _train_prefetched(args, eng, state, trn, spe, eval_epoch, maybe_ckpt,
                 state, stats = eng.train_epoch(state, chunk)
             cs.push(stats)
             done += chunk.steps
-            maybe_ckpt(state, done, pre=lambda: (
+            maybe_ckpt(eng, state, done, pre=lambda: (
                 cs.drain(), _fail_on_overflow(cs.overflow)))
             if done % spe == 0:
                 cs.drain()
@@ -1154,7 +1154,7 @@ def _train_direct(args, eng, state, trn, spe, start_step, total_target,
             overflow_total += int(stats["overflow"].sum())
             done += k
             trained += k
-            maybe_ckpt(state, ep * spe + done)
+            maybe_ckpt(eng, state, ep * spe + done)
         if done >= spe and trained:
             eval_epoch(eng, state, ep, losses[-trained:])
     return state, losses, overflow_total
@@ -1233,7 +1233,7 @@ def run_training(args) -> dict:
     last_ckpt = [0]
     ckpt_extras = [None]   # the scheduled branch installs the serve view
 
-    def maybe_ckpt(state, done, pre=None):
+    def maybe_ckpt(eng, state, done, pre=None):
         # fire on CROSSING a multiple of ckpt_every: `done` advances in
         # chunk strides, so an exact-modulus test could miss a boundary
         fired = False
@@ -1244,7 +1244,7 @@ def run_training(args) -> dict:
             save_checkpoint(
                 state, args.ckpt,
                 extras=ckpt_extras[0](state) if ckpt_extras[0] else None,
-                comm=comm)
+                comm=comm, tp=eng.tp_layout)
             last_ckpt[0] = done
             fired = True
         if args.crash_after and not args.resume \
@@ -1278,7 +1278,7 @@ def run_training(args) -> dict:
         if args.resume:
             state = load_checkpoint(args.resume, eng.device,
                                     padded_rows=eng.padded_rows,
-                                    comm=eng.comm)
+                                    comm=eng.comm, tp=eng.tp_layout)
             _check_resumed(eng, state, args.resume)
             start_step = int(state.step)   # skip already-trained batches
         else:
@@ -1312,7 +1312,7 @@ def run_training(args) -> dict:
         save_checkpoint(
             state, args.ckpt,
             extras=ckpt_extras[0](state) if ckpt_extras[0] else None,
-            comm=comm)
+            comm=comm, tp=eng.tp_layout)
     if args.export_onnx:
         # the serving handoff (JAX: cli.py:1208-1217); a scheduled state is
         # synced above unless the run stopped early with unflushed deltas.

@@ -4,8 +4,11 @@ A model is a pair of plain functions over a flat dict of tensors: the
 engine owns the embedding table and hands the tower the looked-up
 activations `emb [B, F, W]` plus the dense features; `apply` returns
 logits [B]. The registry holds every model of the JAX package and the
-four `fae_*` aliases (`models/__init__.py`). The tensor-parallel fields
-`tp_plan` and `apply_tp` come with ROADMAP queue 1 item 13.
+four `fae_*` aliases (`models/__init__.py`). A model with a Megatron
+tower (wdl, dfm, dcn, emb_sum_wdl and their aliases) also carries
+`tp_plan`, which shards each tower param over the mp group, and
+`apply_tp`, the tower over those shards (`parallel/tp.py`), as in the
+JAX package (`base.py:71-79`).
 """
 
 from __future__ import annotations
@@ -63,6 +66,13 @@ class ModelDef:
     # "engine" (the default) or "fae": the launcher trains the model on
     # the hot/cold FAE engine (train/fae.py), as if given --fae
     train_engine: str = "engine"
+    # tensor-parallel tower (cfg.mp_shards > 1): `tp_plan` maps a param
+    # name to "col" | "row" | "rep" (column-sharded, row-sharded or
+    # replicated over the mp group; absent names are "rep"), and
+    # `apply_tp(params_local, emb, dense, mp_comm) -> logits` is the
+    # Megatron form of `apply` over those shards
+    tp_plan: Optional[Dict[str, str]] = None
+    apply_tp: Optional[Callable] = None
 
     @property
     def table_rows(self) -> int:

@@ -2,7 +2,9 @@
 `dcn_criteo`, `dcn_avazu`, `dcn_criteosearch`. The input is x0 =
 [flattened embeddings ; dense features]; three cross layers compute
 x_{l+1} = x0 * (x_l w) + x_l + b beside a 3-layer 256-wide MLP over x0,
-and one linear head reads [x_3 ; h]."""
+and one linear head reads [x_3 ; h]. Under tensor parallelism the cross
+layers and the head W4 are replicated and the MLP is W1 col / W2 row /
+W3 col (JAX `dcn.py:47-70`: the head's input width is odd)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 
 from herald_tpu_torch.data.datasets import DATASETS
 from herald_tpu_torch.models.base import ModelDef, mlp_init, normal, register
+from herald_tpu_torch.parallel import tp
 
 NUM_CROSS = 3
 
@@ -24,15 +27,16 @@ def cross_init(gen, x_dim):
     return params
 
 
-def cross_layers(params, x0):
-    """Logits [B] of the cross network and the MLP over x0 [B, x_dim]."""
+def cross_layers(params, x0, comm=None):
+    """Logits [B] of the cross network and the MLP over x0 [B, x_dim];
+    with an mp `comm` the MLP's params are its tp_plan shards."""
     x = x0
     for i in range(NUM_CROSS):
         xw = x @ params[f"cross_w{i + 1}"]          # [B, 1]
         x = x0 * xw + x + params[f"cross_b{i + 1}"]
     h = torch.relu(x0 @ params["W1"])
-    h = torch.relu(h @ params["W2"])
-    h = h @ params["W3"]
+    h = torch.relu(tp.row_parallel_sharded(h, params["W2"], comm))
+    h = tp.gather_cols(h @ params["W3"], comm)
     return (torch.cat([x, h], dim=1) @ params["W4"]).reshape(-1)
 
 
@@ -46,9 +50,15 @@ def _make_dcn(name, spec):
         return cross_layers(params, torch.cat(
             [emb.reshape(emb.shape[0], -1), dense], dim=1))
 
+    def apply_tp(params, emb, dense, comm):
+        return cross_layers(params, torch.cat(
+            [emb.reshape(emb.shape[0], -1), dense], dim=1), comm)
+
     return register(ModelDef(
         name=name, spec=spec, emb_width=lambda d: d,
-        init_dense=init_dense, apply=apply, default_lr=0.003))
+        init_dense=init_dense, apply=apply, default_lr=0.003,
+        tp_plan={"W1": "col", "W2": "row", "W3": "col"},
+        apply_tp=apply_tp))
 
 
 dcn_criteo = _make_dcn("dcn_criteo", DATASETS["criteo"])

@@ -5,15 +5,19 @@ The 1st-order [rows, 1] and 2nd-order [rows, D] tables of the reference
 are fused into one [rows, D+1] table (column 0 = the 1st-order weight), as
 in the JAX package. The FM 2nd-order term runs through K5
 (`ops/kernels/fm.py`, `FMSecondOrder`) on the view `emb[:, :, 1:]`, where
-JAX computes it inline.
+JAX computes it inline. Under tensor parallelism the FM terms are
+replicated and the DNN is W1 col / W2 row / W3 row (JAX `dfm.py:55-75`).
 """
 
 from __future__ import annotations
+
+import torch
 
 from herald_tpu_torch.data.datasets import DATASETS
 from herald_tpu_torch.models.base import (ModelDef, mlp_apply, mlp_init,
                                           normal, register)
 from herald_tpu_torch.ops.kernels.fm import FMSecondOrder
+from herald_tpu_torch.parallel import tp
 
 _TOWERS = {
     # dataset -> (mlp widths, stddev)
@@ -47,9 +51,18 @@ def _make_dfm(name, spec, widths, stddev):
         h = mlp_apply(params, second.reshape(emb.shape[0], -1), len(widths))
         return y1 + y2 + h.reshape(-1)
 
+    def apply_tp(params, emb, dense, comm):
+        y1, y2, second = fm_terms(params, emb, dense)
+        h = torch.relu(second.reshape(emb.shape[0], -1) @ params["W1"])
+        h = torch.relu(tp.row_parallel_sharded(h, params["W2"], comm))
+        h = tp.row_parallel(h, params["W3"], comm)
+        return y1 + y2 + h.reshape(-1)
+
     return register(ModelDef(
         name=name, spec=spec, emb_width=lambda d: d + 1,
-        init_dense=init_dense, apply=apply, default_lr=0.01))
+        init_dense=init_dense, apply=apply, default_lr=0.01,
+        tp_plan={"W1": "col", "W2": "row", "W3": "row"},
+        apply_tp=apply_tp))
 
 
 dfm_criteo = _make_dfm("dfm_criteo", DATASETS["criteo"], *_TOWERS["criteo"])

@@ -8,6 +8,7 @@ import torch
 
 from herald_tpu_torch.data.datasets import DATASETS
 from herald_tpu_torch.models.base import ModelDef, mlp_init, normal, register
+from herald_tpu_torch.models.wdl import WDL_TP_PLAN, wdl_tower_tp
 
 # ----------------------------------------------------------------------
 # NCF (MovieLens): GMF + MLP towers over user/item embeddings. The table
@@ -104,9 +105,14 @@ def _make_emb_sum_wdl(name, spec):
         h = h @ params["W3"]
         return (torch.cat([pooled, h], dim=1) @ params["W4"]).reshape(-1)
 
+    def apply_tp(params, emb, dense, comm):
+        # the wdl tower's pairing with the pooled embedding in the head
+        return wdl_tower_tp(params, emb.sum(dim=1), dense, comm)
+
     return register(ModelDef(
         name=name, spec=spec, emb_width=lambda d: d,
-        init_dense=init_dense, apply=apply, default_lr=0.01))
+        init_dense=init_dense, apply=apply, default_lr=0.01,
+        tp_plan=WDL_TP_PLAN, apply_tp=apply_tp))
 
 
 emb_sum_wdl_criteo = _make_emb_sum_wdl("emb_sum_wdl_criteo",

@@ -296,7 +296,8 @@ def export_state(engine, state, path: str,
     `sync_cache`). Over S ranks every rank calls it: rank 0 receives each
     rank's block and alone writes the file, and every rank returns once
     it is written. The file bakes in `batch_size`, by default the
-    per-rank `cfg.batch_size`."""
+    per-rank `cfg.batch_size`. A tensor-parallel state's tower is gathered
+    over the mp group first (JAX `onnx/export.py:287-303`)."""
     if hasattr(state, "hot_table") and not hasattr(state, "cache"):
         raise ValueError("export_state does not support FAE states "
                          "(hot/cold split state); train the plain or "
@@ -313,10 +314,11 @@ def export_state(engine, state, path: str,
             "multi-process runs save a checkpoint instead and export "
             "from a single-process load (load_checkpoint -> "
             "export_state)")
+    dense = engine.global_dense(state.dense)
     table = (_logical_table(engine, state.table) if S > 1
              else state.table[:engine.num_rows])
     if table is not None:
-        export_inference(engine.model, state.dense, table, path,
+        export_inference(engine.model, dense, table, path,
                          batch_size=batch_size or engine.cfg.batch_size)
     if S > 1:
         engine.comm.barrier()

@@ -22,11 +22,16 @@ rank and no group is made.
   axis 0), `all_gather` stacks a tensor of every rank, `broadcast_` copies
   rank 0's tensors to every rank, `send` and `recv_` move one tensor
   from one rank to another, `barrier` waits for every rank,
-  `subgroups` makes dense-sync groups on every rank in one order, and
   `host_group` a gloo twin of the group for another thread's host
-  arrays. At S = 1 each returns its input, and `barrier` returns at
-  once. The split sizes are fixed, so no collective waits on the host to
-  size itself.
+  arrays, `split` the subgroup of a partition of the ranks that holds
+  this rank (the dense-sync groups, the pipelines' groups), `grid` the
+  mp and dp groups of a (dp, mp) layout (JAX's mesh axes,
+  `herald_tpu/config.py:266-283`: flat rank dp_i * mp + mp_j), and
+  `shift` moves a tensor one way round a ring (JAX's `lax.ppermute`).
+  `all_gather` and `reduce_scatter` also work along any dimension (JAX's
+  tiled `all_gather` and `psum_scatter`). At S = 1 each returns its
+  input, and `barrier` returns at once. The split sizes are fixed, so no
+  collective waits on the host to size itself.
   gloo takes CUDA tensors for every one of these (and copies them through
   host memory itself; `reduce_scatter_tensor` too, on an H100 with torch
   2.11: `chip_smoke.py`'s hybrid:scheduled leg calls it there), so every
@@ -38,16 +43,20 @@ rank and no group is made.
   `utils/hlo_stats.py` counts in a compiled step: "all-to-all",
   "all-reduce", "reduce-scatter", "all-gather", "collective-broadcast"
   (each flat buffer a call sends), and "collective-permute" (what `send`
-  sends and `recv_` receives). At S = 1 nothing is counted: JAX compiles
-  no collective there. `utils/hlo_stats.collective_bytes` reads them
-  around one step.
+  sends, `recv_` receives and `shift` receives). At S = 1 nothing is
+  counted: JAX compiles no collective there. A Comm of a subgroup
+  (`split`, `grid`) adds to its parent's `seconds`, `bytes` and `calls`, so one
+  step's count covers every group it used, as JAX's compiled step's
+  does. `utils/hlo_stats.collective_bytes` reads them around one step.
+- gloo's point-to-point calls take host tensors only: over gloo, `shift`
+  moves a card's tensor through host memory (one copy each way).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -95,6 +104,8 @@ class Comm:
                  backend: Optional[str], group=None):
         self.rank, self.size, self.device = rank, size, device
         self.backend, self.group = backend, group
+        # the group's members as ranks of the default group
+        self.ranks: List[int] = list(range(size))
         self.seconds: Dict[str, float] = {}
         self.bytes: Dict[str, int] = {}
         self.calls: Dict[str, int] = {}
@@ -123,20 +134,22 @@ class Comm:
         self._count("all-to-all", out)
         return out
 
-    def all_reduce_(self, flat: torch.Tensor, group=None) -> torch.Tensor:
-        """Sum `flat` over the group (or the given subgroup) in place."""
+    def all_reduce_(self, flat: torch.Tensor) -> torch.Tensor:
+        """Sum `flat` over the group in place."""
         if self.size > 1:
             t0 = time.perf_counter()
-            dist.all_reduce(flat, group=group or self.group)
+            dist.all_reduce(flat, group=self.group)
             self._timed("all_reduce", t0)
             self._count("all-reduce", flat)
         return flat
 
-    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """[S*b, ...] -> [b, ...]: block `rank` of the sum of every rank's
-        x."""
+        x; along `dim` when given (JAX's tiled `psum_scatter`)."""
         if self.size == 1:
             return x
+        if dim % x.dim():
+            return self.reduce_scatter(x.movedim(dim, 0)).movedim(0, dim)
         t0 = time.perf_counter()
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
@@ -145,17 +158,22 @@ class Comm:
         self._count("reduce-scatter", out)
         return out
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[S, *x.shape]: every rank's x, in rank order."""
+    def all_gather(self, x: torch.Tensor,
+                   dim: Optional[int] = None) -> torch.Tensor:
+        """[S, *x.shape]: every rank's x, in rank order; with `dim`, the
+        ranks' x joined along it in rank order (JAX's tiled
+        `all_gather`)."""
         if self.size == 1:
-            return x[None]
+            return x[None] if dim is None else x
         t0 = time.perf_counter()
         x = x.contiguous()
         out = x.new_empty((self.size,) + tuple(x.shape))
         dist.all_gather(list(out.unbind(0)), x, group=self.group)
         self._timed("all_gather", t0)
         self._count("all-gather", out)
-        return out
+        if dim is None:
+            return out
+        return torch.cat(out.unbind(0), dim)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Copy rank 0's tensors into every rank's, one call for each
@@ -178,17 +196,38 @@ class Comm:
         """Send x to rank `dst`, which takes it with `recv_`."""
         t0 = time.perf_counter()
         x = x.contiguous()
-        dist.send(x, dst, group=self.group)
+        dist.send(x, self.ranks[dst], group=self.group)
         self._timed("send", t0)
         self._count("collective-permute", x)
 
     def recv_(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """Fill the contiguous x with what rank `src` sent."""
         t0 = time.perf_counter()
-        dist.recv(x, src, group=self.group)
+        dist.recv(x, self.ranks[src], group=self.group)
         self._timed("recv", t0)
         self._count("collective-permute", x)
         return x
+
+    def shift(self, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """x of rank (rank - offset) mod S: every rank sends its x to rank
+        (rank + offset) mod S (JAX's `lax.ppermute` over the ring). The
+        sends and receives are posted together and then waited on, so a
+        ring of them cannot deadlock; every rank must call it."""
+        if self.size == 1 or offset % self.size == 0:
+            return x
+        t0 = time.perf_counter()
+        staged = self.backend == "gloo" and x.device.type != "cpu"
+        src = (x.detach().cpu() if staged else x).contiguous()
+        out = torch.empty_like(src)
+        dst = self.ranks[(self.rank + offset) % self.size]
+        frm = self.ranks[(self.rank - offset) % self.size]
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, src, dst, self.group),
+                dist.P2POp(dist.irecv, out, frm, self.group)]):
+            w.wait()
+        self._timed("shift", t0)
+        self._count("collective-permute", out)
+        return out.to(x.device, non_blocking=True) if staged else out
 
     def barrier(self) -> None:
         """Wait until every rank of the group has called it (JAX's
@@ -208,15 +247,41 @@ class Comm:
         return Comm(self.rank, self.size, cpu, "gloo",
                     dist.new_group(backend="gloo"))
 
-    def subgroups(self, size: int):
-        """The group of `size` consecutive ranks this rank belongs to.
-        Every rank creates every group, in one order, as
-        `dist.new_group` requires."""
+    def _sub(self, ranks: List[int], group) -> "Comm":
+        """A Comm over `group`, whose members are `ranks` of this one,
+        counting into this Comm's `seconds`, `bytes` and `calls`."""
+        c = Comm(ranks.index(self.rank), len(ranks), self.device,
+                 self.backend, group)
+        c.ranks = [self.ranks[r] for r in ranks]
+        c.seconds, c.bytes, c.calls = self.seconds, self.bytes, self.calls
+        return c
+
+    def grid(self, mp: int) -> Tuple["Comm", "Comm"]:
+        """(mp Comm, dp Comm) of the (S / mp, mp) layout: the mp group is
+        this rank's mp consecutive ranks, the dp group the ranks spaced mp
+        apart from it (JAX's mesh `(dp, mp)`, flat rank dp_i * mp + mp_j).
+        Every rank makes every group, the mp groups first, in one order.
+        A group of one rank is made by no call."""
+        if self.size % mp:
+            raise ValueError(f"{self.size} devices not divisible by "
+                             f"mp_shards={mp}")
+        dp = self.size // mp
+        return (self.split([list(range(i * mp, (i + 1) * mp))
+                            for i in range(dp)]),
+                self.split([list(range(j, self.size, mp))
+                            for j in range(mp)]))
+
+    def split(self, groups: List[List[int]]) -> "Comm":
+        """The Comm of the group, of `groups` (lists of this Comm's ranks
+        that cover it once), that holds this rank; it counts into this
+        Comm's counters. Every rank makes every group, in the order
+        given; a group of one rank is made by no call."""
         mine = None
-        for a in range(0, self.size, size):
-            g = dist.new_group(list(range(a, a + size)))
-            if a <= self.rank < a + size:
-                mine = g
+        for g in groups:
+            pg = dist.new_group([self.ranks[r] for r in g]) \
+                if len(g) > 1 else None
+            if self.rank in g:
+                mine = self._sub(list(g), pg)
         return mine
 
 

@@ -25,6 +25,16 @@ rank's own rows. A table saved over another shard count is laid out
 strided (parallel/exchange.py: logical row r at (r % S) * rps + r // S)
 and is remapped to the target's layout on load; the cache arrays belong
 to the planner stream that wrote them and restore at the same S only.
+
+A state of the tensor-parallel tower (`tp=(tp_plan, mp)`, mp > 1) saves
+each col or row param and its slots as a sharded leaf of its global
+shape: ranks 0..mp-1 (the first dp row, JAX's replica 0) each write
+their shard as one block with its bounds, as JAX's process writes the
+blocks of an mp-sharded leaf (`herald_tpu/train/checkpoint.py:45-160`).
+A restore with `tp` reads the rank's shard of such a leaf, from blocks
+or from a replicated leaf; without it the whole leaf, joined from its
+blocks. So a checkpoint moves between mp = 1 and mp > 1 at one S, in
+either package.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 
 from herald_tpu_torch.bridge import (_sharded_fields, tensor_from_numpy,
                                      tensor_to_numpy)
+from herald_tpu_torch.parallel.tp import plan_kind, shard_axis, shard_bounds
 from herald_tpu_torch.train.cached import CachedTrainState
 from herald_tpu_torch.train.engine import TrainState
 
@@ -86,9 +97,19 @@ def _rank_size(comm) -> Tuple[int, int]:
     return (comm.rank, comm.size) if comm is not None else (0, 1)
 
 
+def _tp_bounds(key: str, shape, tp, j: int):
+    """The global bounds of shard j of a dense leaf `key` ("dense/<k>" or
+    "dense_slots/<k>/<slot>") of global `shape` under `tp` = (tp_plan,
+    mp), or None when the leaf is replicated."""
+    parts = key.split("/")
+    if tp is None or parts[0] not in ("dense", "dense_slots"):
+        return None
+    return shard_bounds(plan_kind(tp[0], parts[1]), shape, tp[1], j)
+
+
 def save_checkpoint(state, path: str,
                     extras: Optional[Dict[str, Dict]] = None,
-                    comm=None) -> None:
+                    comm=None, tp=None) -> None:
     """Save in the JAX layout into <path>/v<step>/, then repoint
     <path>/LATEST, keeping the previous version; `extras` ({name: {key:
     array}}) become sidecar npz files in the same version dir. On one
@@ -97,7 +118,9 @@ def save_checkpoint(state, path: str,
     own blocks of the row-sharded leaves, rank 0 the replicated ones (its
     tower), the extras and the manifest, and rank 0 moves LATEST only
     after a barrier that every rank enters once its files are written;
-    a second barrier holds every rank until LATEST has moved."""
+    a second barrier holds every rank until LATEST has moved. With `tp`
+    = (tp_plan, mp) the state's col and row tower params are this rank's
+    shards, saved as blocks by ranks 0..mp-1."""
     rank, S = _rank_size(comm)
     sharded = _sharded_fields(state) if S > 1 else ()
     version = f"v{int(state.step)}"
@@ -117,6 +140,21 @@ def save_checkpoint(state, path: str,
                 [rank * n, (rank + 1) * n]] + [[0, d] for d in arr.shape[1:]]})
             layout[key] = "sharded"
             shapes[key] = [S * n] + list(arr.shape[1:])
+        elif _tp_bounds(key, leaf.shape, tp, 0) is not None:
+            # a tower shard, written by the first dp row as one block of
+            # the global leaf
+            plan, mp = tp
+            if rank >= mp:
+                continue
+            shape = list(leaf.shape)
+            shape[shard_axis(plan_kind(plan, key.split("/")[1]),
+                             len(shape))] *= mp
+            arr, name = tensor_to_numpy(leaf)
+            fk = f"b{len(block_meta)}"
+            blocks[fk] = arr
+            block_meta.append({"key": key, "file_key": fk,
+                               "offsets": _tp_bounds(key, shape, tp, rank)})
+            layout[key], shapes[key] = "sharded", shape
         elif rank == 0:
             arr, name = tensor_to_numpy(leaf)
             replicated[key] = arr
@@ -250,14 +288,16 @@ def _insert(tree: Dict, parts: List[str], value) -> None:
 
 
 def _read_leaves(path: str, device, padded_rows: Optional[int],
-                 wanted: Tuple[str, ...], comm=None) -> Tuple[Dict, Dict]:
+                 wanted: Tuple[str, ...], comm=None,
+                 tp=None) -> Tuple[Dict, Dict]:
     """(manifest, field trees) of the leaves whose first path part is in
     `wanted`, read onto `device`: the whole of every replicated leaf, and
     over the S ranks of `comm` rank r's block of every row-sharded one.
     With `padded_rows` the table leaves are laid out for S blocks of that
     many rows in all, remapped from any saved layout; without it they,
     like the cache and hot slots, need the saved shard count (at S = 1
-    the table then reads as saved)."""
+    the table then reads as saved). With `tp` = (tp_plan, mp) each col or
+    row tower leaf reads as this rank's shard (shard rank % mp)."""
     rank, S = _rank_size(comm)
     path = _version_dir(path)
     with open(os.path.join(path, "manifest.json")) as f:
@@ -289,7 +329,12 @@ def _read_leaves(path: str, device, padded_rows: Optional[int],
                         return reader.read(key, [(lo, hi)] + [
                             (0, d) for d in shape[1:]], dtype)
                     return repl[key][lo:hi]
-                if parts[0] in ("table", "table_slots") \
+                tb = _tp_bounds(key, shape, tp, rank % tp[1]) if tp \
+                    else None
+                if tb is not None:
+                    arr = reader.read(key, tb, dtype) if saved_sharded \
+                        else repl[key][tuple(slice(a, b) for a, b in tb)]
+                elif parts[0] in ("table", "table_slots") \
                         and padded_rows is not None \
                         and (s_src != S or shape[0] != padded_rows):
                     # a resize: the source's logical rows, laid out anew
@@ -321,7 +366,7 @@ def _read_leaves(path: str, device, padded_rows: Optional[int],
 
 
 def load_checkpoint(path: str, device, padded_rows: Optional[int] = None,
-                    comm=None) -> TrainState:
+                    comm=None, tp=None) -> TrainState:
     """Read the base leaves of a TrainState or CachedTrainState
     checkpoint (written by either package, over any number of processes
     and shards) onto `device`. With `padded_rows`, table leaves saved
@@ -329,8 +374,10 @@ def load_checkpoint(path: str, device, padded_rows: Optional[int] = None,
     device's layout of that many rows, or over the S > 1 ranks of
     `comm` (every rank calls it) to rank r's block of S blocks of
     `padded_rows` rows in all; at the saved S a rank reads only the
-    blocks that cover its own rows."""
-    _, fields = _read_leaves(path, device, padded_rows, _BASE_LEAVES, comm)
+    blocks that cover its own rows. With `tp` = (tp_plan, mp) the tower's
+    col and row params and slots read as this rank's shards."""
+    _, fields = _read_leaves(path, device, padded_rows, _BASE_LEAVES, comm,
+                             tp)
     del fields["hot_slots"]
     return TrainState(**fields)
 

@@ -57,6 +57,19 @@ uncaptured (gloo cannot be captured), and `predict` and `evaluate` read
 the eval exchange's overflow back from the card and raise on one. At
 S = 1 hybrid is the local engine, as in JAX.
 
+`mp_shards` = mp > 1 adds JAX's tensor-parallel tower
+(`engine.py:369-409`): the S ranks form a (S / mp, mp) grid
+(`Comm.grid`: the mp group is mp consecutive ranks, the dp group the
+ranks mp apart), the table and the exchange stay row-sharded over all S,
+and each col/row tower param (and its slots) keeps only this rank's
+shard of the one-device engine's values (`models` `tp_plan`). A step
+gathers the embeddings and dense features over the mp group
+(`parallel/tp.gather_batch`), runs `apply_tp` on the group's batch and
+takes this rank's chunk of the logits, so each rank's loss covers its
+own samples (scaled by 1/S). The sharded params' grads are summed over
+the dp group in one all-reduce, the replicated ones with the loss and
+the overflow over the whole group in another.
+
 Entry points run on the card unless the caller passes `device="cpu"`;
 with no device given and no card present they raise.
 """
@@ -75,6 +88,7 @@ from herald_tpu_torch.ops.embedding import segment_sum_grads, unique_static
 from herald_tpu_torch.ops.kernels import embedding_gather, rows_scatter_add
 from herald_tpu_torch.optim import get_optimizer
 from herald_tpu_torch.optim.schedules import get_schedule
+from herald_tpu_torch.parallel import tp
 from herald_tpu_torch.parallel.comm import setup as setup_comm
 from herald_tpu_torch.parallel.exchange import (make_exchange, owner_rows,
                                                 route_ids, scatter_grads)
@@ -147,10 +161,6 @@ class Engine:
         if cfg.comm_mode not in ("local", "hybrid"):
             raise ValueError(f"comm_mode={cfg.comm_mode!r}: 'local' or "
                              f"'hybrid'")
-        if cfg.mp_shards > 1:
-            raise NotImplementedError(
-                "mp_shards > 1 is not ported to herald_tpu_torch yet "
-                "(ROADMAP queue 1, item 13: tensor parallel)")
         self.cfg = cfg
         self.model = model or get_model(cfg.model)
         if cfg.comm_mode == "hybrid":
@@ -169,6 +179,16 @@ class Engine:
         self.num_rows = table_rows or self.model.table_rows
         self.num_shards = self.comm.size if self.comm else 1
         self.rank = self.comm.rank if self.comm else 0
+        # the tensor-parallel tower over the (dp, mp) grid of the ranks
+        self.mp = cfg.mp_shards if cfg.comm_mode == "hybrid" else 1
+        self.mp_comm = self.dp_comm = None
+        if self.mp > 1:
+            self._validate_tp()
+            self.mp_comm, self.dp_comm = self.comm.grid(self.mp)
+        self.dp_shards = self.num_shards // self.mp
+        # what checkpoints need of the layout: (tp_plan, mp), or None
+        self.tp_layout = (self.model.tp_plan, self.mp) if self.mp > 1 \
+            else None
         self.ids_per_worker = cfg.batch_size * self.model.spec.num_sparse
         # the table pads to S blocks of a multiple of 8 rows
         # (parallel/exchange.py:93-94), so checkpoints interchange
@@ -204,6 +224,68 @@ class Engine:
                        if cuda_graphs and self.device.type == "cuda"
                        and self.num_shards == 1 else None)
 
+    def _validate_tp(self):
+        """mp_shards > 1 (engine.py:185-213, with the mesh's own check):
+        the model has a Megatron tower, mp divides the ranks, the tower's
+        params are a flat dict and every sharded dim divides by mp."""
+        from herald_tpu_torch.models.base import available_models
+        if self.model.apply_tp is None or not self.model.tp_plan:
+            tp_models = [m for m in available_models()
+                         if get_model(m).apply_tp is not None]
+            raise ValueError(
+                f"model {self.model.name!r} has no tensor-parallel tower; "
+                f"models supporting mp_shards > 1: {tp_models}")
+        if self.num_shards % self.mp:
+            raise ValueError(f"{self.num_shards} devices not divisible by "
+                             f"mp_shards={self.mp}")
+        shapes = self.model.init_dense(torch.Generator().manual_seed(0),
+                                       self.cfg.embedding_dim)
+        if not isinstance(shapes, dict) or not all(
+                isinstance(v, torch.Tensor) for v in shapes.values()):
+            raise ValueError(
+                f"model {self.model.name!r}: TP towers must keep dense "
+                f"params as a flat dict (tp_plan maps its keys)")
+        for k, kind in self.model.tp_plan.items():
+            s = tuple(shapes[k].shape)
+            ax = tp.shard_axis(kind, len(s))
+            if ax is not None and s[ax] % self.mp:
+                raise ValueError(
+                    f"param {k!r} ({kind}-parallel, shape {s}) not "
+                    f"divisible by mp_shards={self.mp}")
+
+    def _tp_kind(self, name: str) -> str:
+        """"col", "row" or "rep": how param `name` lies over the mp group
+        ("rep" at mp = 1)."""
+        return "rep" if self.mp == 1 else tp.plan_kind(self.model.tp_plan,
+                                                      name)
+
+    def global_dense(self, dense: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The whole tower from this rank's shards: each col or row param
+        gathered over the mp group (every rank of the group calls it), the
+        rest as it is; at mp = 1 `dense` itself."""
+        if self.mp == 1:
+            return dense
+        axes = {k: tp.shard_axis(self._tp_kind(k), v.dim())
+                for k, v in dense.items()}
+        return {k: v if axes[k] is None else
+                self.mp_comm.all_gather(v, axes[k])
+                for k, v in dense.items()}
+
+    def _tower(self, params, emb, dense_x):
+        """Logits [B] of this rank's batch: `apply`, or at mp > 1 the
+        Megatron tower over the mp group's batch and this rank's chunk of
+        its logits (engine.py:377-385, 470-478)."""
+        if self.mp == 1:
+            return self.model.apply(params, emb, dense_x)
+        c = self.mp_comm
+        # `emb` in the table's dtype: gathered so and widened after, so
+        # the backward's reduce-scatter runs in that dtype too
+        logits = self.model.apply_tp(
+            params, tp.gather_batch(emb, c).to(torch.float32),
+            tp.gather_batch(dense_x, c), c)
+        return tp.my_batch_chunk(logits, emb.shape[0], c)
+
     # ------------------------------------------------------------------
     # dense-sync relaxation (engine.py:104-183)
     # ------------------------------------------------------------------
@@ -222,14 +304,15 @@ class Engine:
                              f"({S} workers)")
         self.dsync_g = g if S > 1 else 1
         self._dsync_on = S > 1 and (self.dsync_k > 1 or self.dsync_g < S)
-        self._dsync_group = None
+        self._dsync_comm = None
         if not self._dsync_on:
             return
         if S % self.dsync_g:
             raise ValueError(f"dense_sync_group={self.dsync_g} does not "
                              f"divide the dp axis ({S} workers)")
-        if self.dsync_g < S:
-            self._dsync_group = self.comm.subgroups(self.dsync_g)
+        if g < S:
+            self._dsync_comm = self.comm.split(
+                [list(range(a, a + g)) for a in range(0, S, g)])
         if self.dsync_k == 1:
             warnings.warn(
                 "dense_sync_group with dense_sync_every=1 averages the "
@@ -264,30 +347,49 @@ class Engine:
     def _reduce(self, dgrads, loss, overflow):
         """(dense grads, the step's result). Over S ranks the result is f32
         [loss, overflow] (`overflow`: the step's dropped ids on this rank),
-        summed over the group with the grads in one all-reduce of one flat
-        buffer; on one device (`overflow` None) the grads are as they are
-        and the result is the loss alone (no overflow, and no kernel to
-        make one). Under a dense-sync subgroup
-        the grads go over it instead and are scaled by S/g (the loss was
-        scaled by 1/S, so the group's sum is g/S of its mean), and the loss
-        and overflow take a second call."""
+        summed over the group; on one device (`overflow` None) the grads
+        are as they are and the result is the loss alone (no overflow, and
+        no kernel to make one). The grads of the tower's col and row shards
+        (mp > 1) already hold the whole mp group's samples (the tower's
+        collectives mixed them), so they are summed over the dp group in
+        one all-reduce; the rest hold this rank's samples only and go over
+        the whole group with [loss, overflow] in another (engine.py:
+        397-407); at mp = 1 that is every grad, in one call. Under a
+        dense-sync subgroup the grads go over it instead and are scaled by
+        S/g (the loss was scaled by 1/S, so the group's sum is g/S of its
+        mean), and the loss and overflow take a second call."""
         if overflow is None:
             return dgrads, loss
-        names = list(dgrads)
-        parts = [dgrads[k].reshape(-1) for k in names]
         stats = torch.stack([loss.to(torch.float32),
                              overflow.to(torch.float32)])
-        if self._dsync_group is None:
-            flat = self.comm.all_reduce_(torch.cat(parts + [stats]))
-            stats = flat[-2:]
+        out = {}
+        if self._dsync_comm is not None:
+            names = list(dgrads)
+            out.update(zip(names, self._sum_packed(
+                self._dsync_comm, [dgrads[k] for k in names],
+                self.num_shards / self.dsync_g)))
+            stats = self.comm.all_reduce_(stats)
         else:
-            flat = self.comm.all_reduce_(torch.cat(parts),
-                                         group=self._dsync_group)
-            flat.mul_(self.num_shards / self.dsync_g)
-            self.comm.all_reduce_(stats)
-        sizes = [p.numel() for p in parts]
-        return {k: v.view(dgrads[k].shape) for k, v in zip(
-            names, torch.split(flat[:sum(sizes)], sizes))}, stats
+            sharded = [k for k in dgrads if self._tp_kind(k) != "rep"]
+            rep = [k for k in dgrads if self._tp_kind(k) == "rep"]
+            out.update(zip(sharded, self._sum_packed(
+                self.dp_comm, [dgrads[k] for k in sharded])))
+            *grads, stats = self._sum_packed(
+                self.comm, [dgrads[k] for k in rep] + [stats])
+            out.update(zip(rep, grads))
+        return {k: out[k] for k in dgrads}, stats
+
+    @staticmethod
+    def _sum_packed(comm, ts, scale=None):
+        """`ts` summed over `comm` (times `scale` when given) in one
+        all-reduce of one flat buffer, as views of it; none for none."""
+        if not ts:
+            return []
+        flat = comm.all_reduce_(torch.cat([t.reshape(-1) for t in ts]))
+        if scale is not None:
+            flat.mul_(scale)
+        return [v.view(t.shape) for t, v in zip(
+            ts, torch.split(flat, [t.numel() for t in ts]))]
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -302,7 +404,9 @@ class Engine:
         peak is one block and one chunk. The tower is drawn from the same
         generator after the table, so it too is the one-device engine's;
         over S > 1 ranks rank 0's tower and slots are broadcast as well, so
-        that they are identical on every rank."""
+        that they are identical on every rank. At mp > 1 each rank then
+        keeps its shard of each col/row param and its slots
+        (engine.py:258-271)."""
         seed = self.cfg.seed if seed is None else seed
         S, W = self.num_shards, self.width
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -326,6 +430,13 @@ class Engine:
         if S > 1:
             self.comm.broadcast_([*dense.values(), *(
                 v for s in dense_slots.values() for v in s.values())])
+        if self.mp > 1:
+            plan, j = self.model.tp_plan, self.mp_comm.rank
+            dense = {k: v.contiguous() for k, v in
+                     tp.cut(dense, plan, self.mp, j).items()}
+            dense_slots = {k: {n: x.contiguous() for n, x in v.items()}
+                           for k, v in tp.cut(dense_slots, plan, self.mp,
+                                              j).items()}
         step = torch.zeros((), dtype=torch.int32, device=self.device)
         return TrainState(table=table, table_slots=slots, dense=dense,
                           dense_slots=dense_slots, step=step)
@@ -343,22 +454,24 @@ class Engine:
         return emb.reshape(B, F, self.width)
 
     def _sparse_read(self, table, ids, spec):
-        """ids [B, F] -> (f32 emb [B, F, W], uniq [B*F], inv, route): the
+        """ids [B, F] -> (emb [B, F, W], uniq [B*F], inv, route): the
         static-size dedup (-1 in the spare slots) that the sparse update
-        sums and writes over, and the tower's input. On one device the
-        rows are read by position from the table and `route` is None. Over
-        S ranks the unique ids are routed to their owners through `spec`'s
-        exchange, the owners' rows come back in the [S*C, W] send-slot
-        buffer, and one K1 read of it by position (`pos[inv]`; a dropped
-        id's S*C reads a zero row) writes the tower's input
-        (engine.py:295-313)."""
+        sums and writes over, and the tower's input, in f32 (at mp > 1 in
+        the table's dtype, which `_tower` widens after its gather). On one
+        device the rows are read by position from the table and `route`
+        is None. Over S ranks the unique ids are routed to their owners
+        through `spec`'s exchange, the owners' rows come back in the
+        [S*C, W] send-slot buffer, and one K1 read of it by position
+        (`pos[inv]`; a dropped id's S*C reads a zero row) writes the
+        tower's input (engine.py:295-313)."""
         B, F = ids.shape
         uniq, inv = unique_static(ids, ids.numel())
         if self.num_shards == 1:
             return self._read(table, ids), uniq, inv, None
         route = route_ids(spec, uniq, uniq >= 0, self.comm)
         back = owner_rows(spec, table, route, self.comm)
-        emb = embedding_gather(back, route.pos[inv], torch.float32)
+        emb = embedding_gather(back, route.pos[inv],
+                               torch.float32 if self.mp == 1 else None)
         return emb.view(B, F, self.width), uniq, inv, route
 
     def _loss_and_grads(self, dense, emb, dense_x, labels, scale=None):
@@ -369,7 +482,7 @@ class Engine:
                   for k, v in dense.items()}
         emb = emb.detach().requires_grad_(True)
         with torch.enable_grad():
-            logits = self.model.apply(params, emb, dense_x)
+            logits = self._tower(params, emb, dense_x)
             loss = bce_with_logits(logits, labels)
             if scale is not None:
                 loss = loss * scale
@@ -439,7 +552,7 @@ class Engine:
         """One step on this rank's inputs `a` ("d", "s", "y"): (state,
         result), the result as `_reduce` gives it: the loss on one device,
         [loss, overflow] summed over the group over S ranks
-        (engine.py:357-425, without its tensor-parallel branch)."""
+        (engine.py:357-425)."""
         step = state.step.add_(1)
         emb, uniq, inv, route = self._sparse_read(state.table, a["s"],
                                                   self.exchange)
@@ -477,8 +590,7 @@ class Engine:
             emb, _, _, route = self._sparse_read(state.table, a["s"],
                                                  self.eval_exchange)
             self._eval_overflow += route.overflow
-        return state, torch.sigmoid(self.model.apply(state.dense, emb,
-                                                     a["d"]))
+        return state, torch.sigmoid(self._tower(state.dense, emb, a["d"]))
 
     # ------------------------------------------------------------------
     # feeding steps

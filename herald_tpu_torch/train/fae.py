@@ -109,6 +109,13 @@ class FaeEngine(Engine):
                  table_rows: Optional[int] = None, hot_rate: float = 0.01,
                  num_hot: Optional[int] = None, device=None,
                  cuda_graphs: bool = True):
+        if cfg.comm_mode == "hybrid" and cfg.mp_shards > 1:
+            # JAX's FaeEngine shards its step over the dp axis alone and
+            # runs a different computation at mp > 1 (ROADMAP section 3)
+            raise ValueError(
+                "mp_shards > 1 is not supported by the FAE engine: its "
+                "step, hot block and tower are data-parallel only; train "
+                "the plain hybrid engine with mp_shards > 1")
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)
         # of the logical rows, not the padded ones

@@ -36,6 +36,7 @@ from herald_tpu.train.fae import FaeEngine as JaxFaeEngine
 from herald_tpu.utils.profiler import StepTimer as JaxStepTimer
 from herald_tpu_torch.bridge import shard_state
 from herald_tpu_torch.launch import cli
+from herald_tpu_torch.models import get_model
 from herald_tpu_torch.train.checkpoint import load_checkpoint
 from herald_tpu_torch.utils.profiler import StepTimer
 
@@ -172,7 +173,6 @@ def test_log_dir_writes_report_losses_and_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--comm", "hybrid", "--mp-shards", "2"], "--mp-shards"),
     (["--platform", "cpu"], "--platform"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_flags_not_ported_raise(argv, match):
@@ -243,6 +243,70 @@ def test_multi_rank_modes_match_jax(argv, tmp_path, monkeypatch):
                     if k != "plan_time_us"} == {
                 k: v for k, v in jx["sched"].items() if k != "plan_time_us"}
     assert reports[0]["val_auc"] == reports[1]["val_auc"]
+
+
+def test_mp_shards_trains_checkpoints_and_resumes_like_jax(tmp_path,
+                                                          monkeypatch):
+    """`--comm hybrid --mp-shards 2` over 2 gloo ranks of the port ((dp,
+    mp) = (1, 2), `_ranks.launch_rank`) against herald_tpu.launch on a
+    (1, 2) mesh from JAX's initial state (its tower cut into the ranks'
+    shards), within the tolerances above; a run stopped at step 16 and
+    resumed from its checkpoint ends on the whole run's checkpoint, bit
+    for bit."""
+    jcfg = JaxConfig(model="wdl_criteo", batch_size=16, embedding_dim=8,
+                     comm_mode="hybrid", mesh_shape=(1, 2), mp_shards=2,
+                     learning_rate=0.5, seed=5)
+    (tmp_path / "cfg.json").write_text(jcfg.to_json())
+    orig, captured = JaxEngine.init_state, {}
+
+    def init(self, seed=None):
+        st = orig(self, seed)
+        captured["spec"] = self.exchange
+        captured["state"] = jax.tree.map(np.asarray, st)
+        return st
+    monkeypatch.setattr(JaxEngine, "init_state", init)
+    base = ["--config", str(tmp_path / "cfg.json"), "--nepoch", "1"]
+    jx = _jax(base)
+    plan = get_model("wdl_criteo").tp_plan
+    inits = [shard_state(captured["state"], captured["spec"], r, "cpu",
+                         plan, 2)._asdict() for r in range(2)]
+
+    def launch(name, argv):
+        out = tmp_path / name
+        out.mkdir()
+        for r in range(2):
+            torch.save(inits[r], out / f"init.r{r}.pt")
+        run_ranks(launch_rank, 2, out, out, COMMON + base + argv)
+        return [torch.load(out / f"report.r{r}.pt", weights_only=False)
+                for r in range(2)]
+
+    for port in launch("whole", ["--ckpt", str(tmp_path / "c_whole")]):
+        assert (port["devices"], port["backend"]) == (2, "gloo")
+        assert port["steps"] == jx["steps"] == 1280 // 32
+        _close(port, jx)
+    first = launch("first", ["--max-steps", "16",
+                             "--ckpt", str(tmp_path / "c_part")])
+    assert first[0]["steps"] == 16 and first[0]["stopped_early"]
+    rest = launch("rest", ["--resume", str(tmp_path / "c_part"),
+                           "--ckpt", str(tmp_path / "c_rest")])
+    assert rest[0]["steps"] == 40 - 16
+    a = load_checkpoint(str(tmp_path / "c_whole"), "cpu")
+    b = load_checkpoint(str(tmp_path / "c_rest"), "cpu")
+    assert int(a.step) == int(b.step) == 40
+    assert torch.equal(a.table, b.table)
+    assert all(torch.equal(a.dense[k], b.dense[k]) for k in a.dense)
+    assert a.dense["W1"].shape == (13, 256)     # whole, joined from blocks
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--scheduled"], "dp-only"), (["--opt", "lamb"], "lamb"),
+    (["--dense-sync-every", "2"], "dp-only"), (["--fae"], "FAE engine")],
+    ids=lambda v: v[-1] if isinstance(v, list) else None)
+def test_mp_shards_refusals(argv, match):
+    """JAX's config refusals of --mp-shards (the scheduled branch, lamb,
+    dense-sync), and the port's of the FAE engine, before any training."""
+    with pytest.raises(ValueError, match=match):
+        _port(["--comm", "hybrid", "--mp-shards", "2"] + argv)
 
 
 def test_serve_view_flag_raises_as_in_jax():

@@ -8,7 +8,8 @@ tower, train the distributed GCN and the pipelines, search layouts, and
 print what it measured.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase scheduled:pinned|train|fae [--root DIR]
+    python3 chip_smoke.py --phase scheduled|scheduled:pinned|train|fae \
+        [--root DIR]
     python3 chip_smoke.py --phase assigned|hybrid
     python3 chip_smoke.py --phase feed [--root DIR]
     python3 chip_smoke.py --phase onnx
@@ -20,7 +21,7 @@ seconds since the script started), in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
 serve, checkpoint, train, assigned, onnx, train:adam, launch,
 launch:assigned,
-fae, launch:fae, scheduled, scheduled:pinned,
+fae, launch:fae, scheduled, scheduled:memo, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
 hybrid:assigned, hybrid:fae, hybrid:scheduled, launch:hybrid, gnn,
@@ -174,8 +175,19 @@ its capture's launches on each replay; and each path's device busy a
 step stays within 5% of what this script measured before the steps ran
 as CUDA graphs (`RUN_B_BUSY_MS`).
 
-`--phase scheduled:pinned`, `--phase train` (train alone) and `--phase
-fae` run the device and build phases and that phase alone; `--phase fae`
+scheduled:memo runs the live planner of scheduled on its stream, first
+with the staged-chunk memo off alone, then off and on, two engines from
+one seed, their epochs in turns in one process: each epoch's host time
+split into the planner's pop, `_chunk_program`, the pack into pinned
+memory, the copy's issue, the memo's hits and misses and the steps'
+dispatch, its hits and its rate beside `MEMO_PREDICTED`; 0 host waits a
+step, device busy and the HtoD copies a step from one profiled chunk of
+each; the runs bit-identical (losses, and every leaf of the synced state
+of memo on and off).
+
+`--phase scheduled` (scheduled and scheduled:memo), `--phase
+scheduled:pinned`, `--phase train` (train alone) and `--phase fae` run
+the device and build phases and that phase alone; `--phase fae`
 and `--phase assigned` also run launch:fae or launch:assigned,
 `--phase hybrid` runs hybrid and launch:hybrid, and `--phase feed` runs
 launch:feed on `--samples` data of the same size instead of the raw
@@ -1807,6 +1819,8 @@ def _profile_chunks(run, n: int, steps_per_chunk: int,
             "hot_onehot_push_device_ms": _k3_ms(per) if busy else None,
             "pinned_read_kernel_ms": {k: v for k, v in per.items()
                                       if HOT_ADD in k or HOT_GATHER in k},
+            "copies_ms": {k: v for k, v in per.items()
+                          if k.startswith("Memcpy")},
             "top_device_ms": _top(per)}
 
 
@@ -1979,6 +1993,269 @@ def phase_scheduled() -> dict:
         planner.close()
         del state, holder, dev
         _free()
+    emit(out)
+    phase_scheduled_memo(cfg, (dense, sparse, labels), want)
+    return out
+
+
+# scheduled:memo, written before its first chip run (NVIDIA H100 80GB
+# HBM3, 700.00 W in every earlier run): [low, high]. A live step of
+# phase_scheduled ran 0.30-0.31 ms (820K-836K examples/s) in earlier
+# runs with 0.175 ms of device work: the host sets the pace. The memo skips the
+# copy (about 0.014 ms of device time a step, 0.005 of host) and adds a
+# full compare of the chunk's bytes (a hit) or a host copy of them (a
+# miss), each about what the pack costs
+MEMO_PREDICTED = {
+    "live_examples_per_s": {"off": [650e3, 850e3], "on": [620e3, 850e3]},
+    # written after the first parent-and-change run of this phase, before
+    # the alone leg's first run: the split of a leg that runs alone, its
+    # planner with no other leg's epoch to plan ahead in (the parent's
+    # memo-off leg, alone, popped 0.114-0.152 ms a step against
+    # 0.027-0.046 in turns)
+    "alone_pop_chunk_ms_per_step": [0.08, 0.18],
+    "on_over_off_hit_epochs": [0.95, 1.05],
+    "busy_ms_per_step": {"off": [0.17, 0.20], "on": [0.155, 0.19]},
+    "host_ms_per_step_off": {"pop_chunk": [0.005, 0.05],
+                             "chunk_program": [0.10, 0.25],
+                             "pack": [0.03, 0.08],
+                             "copy_issue": [0.0, 0.005],
+                             "dispatch": [0.04, 0.09]},
+    "htod_ms_per_step_off": [0.008, 0.02],
+    "first_epoch_with_hits": 2}
+MEMO_PARTS = ("pop_chunk", "chunk_program", "pack", "copy_issue",
+              "memo_hit", "memo_miss", "dispatch")
+
+
+def _timed_split(eng, planner, acc: dict) -> None:
+    """Wrap the staging steps of `eng` and `planner` on these instances
+    so that each call adds its host seconds to acc[part] (MEMO_PARTS):
+    the planner's pop, `_chunk_program`, the pack into pinned memory
+    (`_host_feed`), the copy's issue (the memo-off `_memo_stage`, or a
+    tree without the memo's `_to_device` less its pack), the memo's
+    lookup and compare on a hit and its staging on a miss, and the steps'
+    dispatch (`train_epoch_staged`, which also notes the chunk's bytes)."""
+    def wrap(obj, name, part):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            hits = getattr(eng, "memo_hits", 0)
+            memo = getattr(eng, "_memo_on", False)
+            pack = acc.get("pack", 0.0)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            dt = time.perf_counter() - t0
+            key = part
+            if name == "_memo_stage" and memo:
+                key = "memo_hit" if eng.memo_hits > hits else "memo_miss"
+            elif name == "_to_device":      # its pack is counted apart
+                dt -= acc.get("pack", 0.0) - pack
+            elif name == "train_epoch_staged":
+                acc["chunk_bytes"] = a[1].packed.numel()
+                acc["row_bytes"] = a[1].packed.shape[-1]
+            acc[key] = acc.get(key, 0.0) + dt
+            return out
+        setattr(obj, name, timed)
+    wrap(planner, "pop_chunk", "pop_chunk")
+    wrap(eng, "_chunk_program", "chunk_program")
+    wrap(eng, "_host_feed", "pack")
+    wrap(eng, "train_epoch_staged", "dispatch")
+    if hasattr(eng, "_memo_stage"):
+        wrap(eng, "_memo_stage", "copy_issue")
+    else:
+        wrap(eng, "_to_device", "copy_issue")
+
+
+def _fingerprint(t: torch.Tensor) -> int:
+    """The sum of a tensor's bits as integers of its element size."""
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return int(t.reshape(-1).view(bits[t.element_size()]).sum(
+        dtype=torch.int64))
+
+
+def _memo_leg(cfg, data, memo: bool, **kw) -> dict:
+    """One live engine of scheduled:memo at full width (`kw` overrides
+    its config): its planner over SCHED_EPOCHS + 1 epochs, its state from
+    seed 0, the dataset on the card, its staging timed (`_timed_split`)."""
+    dense, sparse, labels = data
+    c = HeraldConfig(**{**cfg.__dict__, "sched_queue_size": 256,
+                        "sched_chunk_memo": memo, **kw})
+    eng = CachedEngine(c, table_rows=FULL_ROWS, device=DEVICE)
+    planner = eng.make_planner(sparse, epochs=SCHED_EPOCHS + 1)
+    acc = {}
+    _timed_split(eng, planner, acc)
+    return {"eng": eng, "planner": planner, "acc": acc,
+            "state": [eng.init_cached_state(0)],
+            "dev": eng.stage_dataset(dense, sparse, labels),
+            "losses": [], "epoch_s": [], "hits": [], "split": []}
+
+
+def _memo_chunk(leg):
+    """One chunk of 64 live steps of a leg: its stats (None at the end)."""
+    leg["state"][0], stats = leg["eng"].train_epoch_cached(
+        leg["state"][0], leg["planner"], None, None, None, steps=64,
+        device_data=leg["dev"])
+    return stats
+
+
+def _memo_epoch(leg) -> None:
+    """One epoch of a leg, ended by a readback of its last loss: its
+    seconds, hits, losses and host split (ms, MEMO_PARTS and the rest)."""
+    leg["acc"].clear()
+    hits = getattr(leg["eng"], "memo_hits", 0)
+    t0 = time.perf_counter()
+    outs = [_memo_chunk(leg) for _ in range(SCHED_ITERS // 64)]
+    float(outs[-1]["loss"][-1])
+    dt = time.perf_counter() - t0
+    leg["epoch_s"].append(dt)
+    leg["hits"].append(getattr(leg["eng"], "memo_hits", 0) - hits)
+    leg["losses"].append(torch.cat([o["loss"] for o in outs]))
+    split = {p: leg["acc"].get(p, 0.0) * 1e3 for p in MEMO_PARTS}
+    split["other"] = dt * 1e3 - sum(split.values())
+    leg["split"].append(split)
+    leg["chunk_bytes"] = leg["acc"].get("chunk_bytes")
+    leg["row_bytes"] = leg["acc"].get("row_bytes")
+
+
+def _memo_rates(leg) -> dict:
+    """A leg's rates and its host split a step over its warm epochs (the
+    third on)."""
+    warm = leg["epoch_s"][2:]
+    steps = SCHED_ITERS * len(warm)
+    step_ms = sum(warm) * 1e3 / steps
+    mean = {p: sum(sp[p] for sp in leg["split"][2:]) / steps
+            for p in (*MEMO_PARTS, "other")}
+    return {"live_examples_per_s": BATCH * SCHED_ITERS / min(warm),
+            "epoch_examples_per_s": [BATCH * SCHED_ITERS / t
+                                     for t in leg["epoch_s"]],
+            "split_ms_epoch": leg["split"], "split_ms_per_step_warm": mean,
+            "step_ms_warm": step_ms,
+            "pop_and_program_share": (mean["pop_chunk"]
+                                      + mean["chunk_program"]) / step_ms,
+            "copy_issue_share": mean["copy_issue"] / step_ms,
+            "chunk_bytes": leg["chunk_bytes"]}
+
+
+def phase_scheduled_memo(cfg, data, want) -> dict:
+    """scheduled:memo: the live planner at full width on phase_scheduled's
+    stream (index feed, chunks of 64, a queue of 256). First memo off
+    alone for SCHED_EPOCHS epochs, as a live run has it: each epoch's host
+    time split into MEMO_PARTS (`_timed_split`), its rate. Then memo off
+    and on, two more engines from one seed, SCHED_EPOCHS epochs each in
+    turns (each planner then plans ahead while the other leg runs), each
+    ended by a readback of its last loss: rates, splits, hits. Then one
+    more epoch of each: its first chunk counts the host's waits for the
+    card (0 required), one chunk is profiled (device busy a step, the
+    HtoD copies), the rest drains the stream; sync_cache; memo on held
+    against memo off bit for bit (losses, every leaf of the state; the
+    table's and cache's bit sums printed), and the alone run's losses
+    against both. Last, one more engine ships the full row
+    (`sched_packed_wire` off: `inv` int32, every index) over the whole
+    stream, its losses and state held bit for bit against memo off's,
+    whose narrowed row the captured step widens. The counted epochs
+    launch 3x the tape's launches. A tree without the memo (a parent
+    under --root) runs memo off alone."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    memo = hasattr(CachedEngine, "_memo_stage")
+    for k in KERNELS.values():
+        k.launches = 0
+    alone = _memo_leg(cfg, data, False)
+    for _ in range(SCHED_EPOCHS):
+        _memo_epoch(alone)
+    out = {"phase": "scheduled:memo", "nvidia_smi": smi,
+           "predicted": MEMO_PREDICTED, "epochs": SCHED_EPOCHS,
+           "chunk_steps": 64, "alone": _memo_rates(alone)}
+    modes = ("off", "on") if memo else ()
+    legs = {"off": alone} if not memo else {}
+    if memo:
+        alone["planner"].close()
+        alone_losses = alone["losses"]
+        del alone
+        _free()
+        legs = {m: _memo_leg(cfg, data, m == "on") for m in modes}
+        for _ in range(SCHED_EPOCHS):
+            for m in modes:
+                _memo_epoch(legs[m])
+    out["launches"] = _check_launches("the scheduled path (memo)", {
+        k: (1 + len(modes)) * want[k] for k in KERNELS})
+    for m, leg in legs.items():
+        eng = leg["eng"]
+        waits, sites = _count_host_waits(lambda: _memo_chunk(leg))
+        _no_waits(f"scheduled:memo ({m})", waits, sites)
+        prof = _profile_chunks(lambda i: _memo_chunk(leg), 1, 64)
+        while _memo_chunk(leg) is not None:
+            pass
+        htod = sum(v for k, v in prof["copies_ms"].items() if "HtoD" in k)
+        out[m] = {
+            **(_memo_rates(leg) if memo else {}),
+            "memo_hits_per_epoch": leg["hits"],
+            "memo_active": getattr(eng, "_memo_on", None),
+            "memo_host_bytes": getattr(eng, "_memo_bytes", None),
+            "memo_device_bytes": sum(
+                c.packed.numel()
+                for _, c in getattr(eng, "_chunk_memo", {}).values()),
+            "host_waits_per_step": waits / 64, "host_wait_sites": sites,
+            "device_busy_ms_per_step": prof["device_busy_ms"],
+            "htod_ms_per_step": htod, "step_profile": prof,
+            "staged_step_bytes": eng.staged_step_bytes()}
+        if memo:
+            out[m]["staged_step_bytes_unnarrowed"] = eng.staged_step_bytes(
+                narrow=False)
+        leg["state"][0] = eng.sync_cache(leg["state"][0], leg["planner"])
+        leg["planner"].close()
+        st = leg["state"][0]
+        out[m]["fingerprints"] = {"table": _fingerprint(st.table),
+                                  "cache": _fingerprint(st.cache)}
+    out["alone"]["htod_share"] = (out["off"]["htod_ms_per_step"]
+                                  / out["alone"]["step_ms_warm"])
+    if memo:
+        off, on = legs["off"], legs["on"]
+        diff = _differ(off["state"][0], on["state"][0]) + _differ(
+            off["losses"], on["losses"]) + _differ(off["losses"],
+                                                   alone_losses)
+        if diff:
+            raise AssertionError(f"scheduled:memo: memo on differs from "
+                                 f"memo off in {diff}")
+        if not sum(on["hits"]) or sum(on["hits"][:2]):
+            raise AssertionError(f"scheduled:memo: hits by epoch "
+                                 f"{on['hits']}")
+        out["bit_exact"] = True
+        out["on_over_off_epoch_s"] = [
+            b / a for a, b in zip(off["epoch_s"], on["epoch_s"])]
+        del legs["on"], on
+        _free()
+        # the full wire against the narrowed one, both widened in the
+        # captured step: the same stream, losses and state bit for bit
+        wire = _memo_leg(cfg, data, False, sched_packed_wire=False)
+        for _ in range(SCHED_EPOCHS):
+            _memo_epoch(wire)
+        while _memo_chunk(wire) is not None:
+            pass
+        weng = wire["eng"]
+        wire["state"][0] = weng.sync_cache(wire["state"][0],
+                                           wire["planner"])
+        wire["planner"].close()
+        rows = {"narrowed": off["row_bytes"], "full": wire["row_bytes"],
+                "full_predicted": off["eng"].staged_step_bytes(
+                    narrow=False)}
+        captures = {"narrowed": off["eng"].graphs.captures,
+                    "full": weng.graphs.captures} if weng.graphs else {}
+        uncaptured = DEVICE == "cuda" and not (
+            captures and all(captures.values()))
+        diff = _differ(off["state"][0], wire["state"][0]) + _differ(
+            off["losses"], wire["losses"])
+        if diff or uncaptured or rows["full"] != rows["full_predicted"] \
+                or not rows["narrowed"] < rows["full"]:
+            raise AssertionError(f"scheduled:memo: the full wire differs "
+                                 f"from the narrowed one in {diff}, "
+                                 f"rows {rows}, captures {captures}")
+        out["full_wire"] = {"bit_exact": True, "row_bytes": rows,
+                            "graph_captures": captures}
+        del wire, weng
+    del legs
+    _free()
     emit(out)
     return out
 
@@ -2902,8 +3179,11 @@ def phase_launch_feed(raw: bool) -> dict:
                    for k in ("seconds", "profiled_s",
                              "profiled_examples_per_sec_steady", "profile",
                              "pinned")}}
-        out["scheduled"].update(cache=rep["cache"],
-                                noflush_chunks=rep["noflush_chunks"])
+        out["scheduled"].update(
+            cache=rep["cache"], noflush_chunks=rep["noflush_chunks"],
+            # 2 epochs: the memo's hits start at the third
+            **{k: {m: r["report"].get(k) for m, r in runs.items()}
+               for k in ("chunk_memo_hits", "chunk_memo_active")})
         out["active_bytes_probe"] = _active_bytes_probe()
         out["two_ranks"] = _feed_two_ranks(tmp)
         mark("two_ranks")
@@ -6593,11 +6873,13 @@ def phase_onnx(eng: Engine, state: TrainState, label: str = "onnx",
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("scheduled:pinned", "train", "fae",
+    ap.add_argument("--phase", choices=("scheduled", "scheduled:pinned",
+                                        "train", "fae",
                                         "assigned", "hybrid", "feed",
                                         "onnx", "gnn", "tp"),
                     help="the device and build phases and this one alone "
-                         "(fae: fae and launch:fae; assigned: assigned and "
+                         "(scheduled: scheduled and scheduled:memo; "
+                         "fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
                          "launch:hybrid; feed: launch:feed on --samples "
                          "data; onnx: onnx and onnx:dfm; gnn: gnn; tp: "
@@ -6636,7 +6918,9 @@ def main() -> None:
     phase_build()
     cfg = HeraldConfig(model="wdl_criteo", batch_size=BATCH,
                        embedding_dim=EMB, table_dtype=torch.bfloat16)
-    if args.phase == "scheduled:pinned":
+    if args.phase == "scheduled":
+        phase_scheduled()
+    elif args.phase == "scheduled:pinned":
         phase_scheduled_pinned()
     elif args.phase == "train":
         eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")

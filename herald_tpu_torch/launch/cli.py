@@ -58,7 +58,11 @@ counterparts of `examples/`. Ported:
   copy on a copy stream (`all`: the whole stream before the first step;
   chosen by itself with `--plan-cache --device-data` when the stream fits
   `HERALD_PRESTAGE_BUDGET` bytes, 1 GiB by default); `--prestage 0` stages
-  each chunk when it runs. Over S ranks (`--comm hybrid`) rank 0 alone
+  each chunk when it runs. The staged-chunk memo (`--no-chunk-memo`,
+  `--chunk-memo-mb`) reuses a staged chunk equal to an earlier one, and
+  the report counts `chunk_memo_hits` and says `chunk_memo_active` for
+  both engines, as JAX's does; `HERALD_STATS_DEPTH` bounds the chunks
+  whose stats stay on the card. Over S ranks (`--comm hybrid`) rank 0 alone
   plans for S workers and a `sched/service.py` `BroadcastPlanner` hands
   every rank each chunk over a gloo group of its own (and fast-forwards
   on `--resume`, which takes a
@@ -113,6 +117,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -549,27 +554,36 @@ def _check_resumed(eng, state, path) -> None:
 
 
 class _ChunkStats:
-    """Per-chunk stats read back at boundaries only (the JAX launcher's
-    `_ChunkStats` with its default depth): the losses of the chunks in
-    flight stay on the device until an epoch, checkpoint or the end needs
-    them, so the loop itself never waits for the card."""
+    """Per-chunk stats read back at boundaries (the JAX launcher's
+    `_ChunkStats`, `cli.py:385-440`): the losses of the chunks in flight
+    stay on the device until an epoch, checkpoint or the end needs them, so
+    the loop itself never waits for the card. `HERALD_STATS_DEPTH=N`
+    bounds the chunks in flight, as in JAX: past N the oldest is read back
+    (a wait for the card) while the loop goes on."""
 
-    def __init__(self):
+    def __init__(self, depth: Optional[int] = None):
+        if depth is None:
+            depth = int(os.environ.get("HERALD_STATS_DEPTH", 1 << 20))
+        self.depth = max(depth, 1)
         self.pending = []
         self.losses = []
         self.overflow = 0
 
     def push(self, stats) -> None:
         self.pending.append(stats)
+        while len(self.pending) > self.depth:
+            self._take([self.pending.pop(0)])
 
-    def drain(self) -> None:
-        if not self.pending:
-            return
-        loss = torch.cat([st["loss"].reshape(-1) for st in self.pending])
-        over = torch.stack([st["overflow"].sum() for st in self.pending])
-        self.pending = []
+    def _take(self, pending) -> None:
+        loss = torch.cat([st["loss"].reshape(-1) for st in pending])
+        over = torch.stack([st["overflow"].sum() for st in pending])
         self.losses.extend(loss.cpu().tolist())
         self.overflow += int(over.sum())
+
+    def drain(self) -> None:
+        if self.pending:
+            pending, self.pending = self.pending, []
+            self._take(pending)
 
     def finish(self):
         self.drain()
@@ -946,7 +960,8 @@ def _train_scheduled(args, cfg, rows, trn, device, comm, eval_epoch,
         "timing_steps_per_call": args.scan_steps,
         "chunk_memo_hits": eng.memo_hits + (eng_cold.memo_hits
                                             if eng_cold is not None else 0),
-        "chunk_memo_active": False,
+        "chunk_memo_active": bool(eng._memo_on or (
+            eng_cold is not None and eng_cold._memo_on)),
         "noflush_chunks": eng.noflush_chunks + (
             eng_cold.noflush_chunks if eng_cold is not None else 0),
         "nopull_chunks": eng.nopull_chunks + (

@@ -41,7 +41,13 @@ state keeps JAX's shapes, so checkpoints interchange.
 
 A chunk ships to the card in one copy from pinned host memory, one step
 a row (`_stage_chunk`), and on a card each step replays a CUDA graph
-(`train/graphs.py`) after one copy of its row. A step runs the phases
+(`train/graphs.py`) after one copy of its row. Under `sched_packed_wire`
+on one device the row narrows as JAX's packed wire does: `inv` travels
+as int16 when `U_cap` fits it, and an index row that assigns samples in
+stream order travels as its base (`[K, 1]`); the step widens both on the
+card, bit for bit. With `sched_chunk_memo` a chunk whose packed bytes and
+steps equal a recently staged one's reuses that staged chunk and ships
+nothing (`_memo_stage`, JAX's staged-chunk memo). A step runs the phases
 and writes its program has work for: its variant (`StagedChunk.steps`)
 picks the graph. A phase without work is a no-op in JAX too, which runs
 it on its sentinels when `sched_noflush_variant` / `sched_nopull_variant`
@@ -75,18 +81,22 @@ Both exchanges are collectives, so whether a step flushes or pulls is
 decided from every worker's columns of the chunk, the same on every rank;
 the cache writes stay per rank. The steps run uncaptured.
 
-Not ported: the packed wire and the chunk memo (`sched_packed_wire`,
-`sched_chunk_memo`, fixes for the TPU's remote transport; both flags are
-accepted, `memo_hits` stays 0), `example_step_args` (HLO inspection), and
-residency tracking and `serve_overlay` over S ranks, which raise: they
-read every worker's cache, which JAX's launcher allows in one process
-only (herald_tpu/launch/cli.py:850-854), and every multi-rank run of the
-port is multi-process.
+The port packs a chunk into one copy whatever `sched_packed_wire` says,
+where JAX's unpacked wire ships one array at a time; with the flag off
+the memo is never consulted, as in JAX (`memo_hits` stays 0 while
+`_memo_on` holds the flag). Over S ranks the row does not narrow.
+
+Not ported: residency tracking and `serve_overlay` over S ranks, which
+raise: they read every worker's cache, which JAX's launcher allows in
+one process only (herald_tpu/launch/cli.py:850-854), and every
+multi-rank run of the port is multi-process.
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
+from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -167,6 +177,16 @@ def write_lists(mask: np.ndarray, target: np.ndarray):
     return tgt, pos.astype(np.int32), n > 0
 
 
+def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    """Whether two uint8 arrays hold the same bytes, compared 8 at a time
+    where their length allows (half the time of a byte-wise compare)."""
+    if a.size != b.size:
+        return False
+    if a.size % 8 == 0:
+        a, b = a.view(np.uint64), b.view(np.uint64)
+    return bool(np.array_equal(a, b))
+
+
 class CachedEngine(Engine):
     """Engine variant executing planner micro-programs."""
 
@@ -191,7 +211,14 @@ class CachedEngine(Engine):
         self._slot2id = None        # host residency mirror (serve views)
         self.noflush_chunks = 0     # chunks that took the flush-free path
         self.nopull_chunks = 0      # chunks that also took the pull-free path
-        self.memo_hits = 0          # the chunk memo is not ported
+        # the staged-chunk memo (sched_chunk_memo, `_memo_stage`): recent
+        # staged chunks by content, {key: (host bytes, StagedChunk)}
+        self._chunk_memo = OrderedDict()
+        self._memo_bytes = 0
+        self._memo_evicted = 0      # bytes evicted or replaced before a hit
+        self._memo_on = bool(cfg.sched_chunk_memo)
+        self._memo_lock = threading.Lock()  # _Prestager stages from a pool
+        self.memo_hits = 0          # chunks whose copy was skipped
         self.U_cap = int(cfg.sched_unique_slots or self.ids_per_worker)
         self.F_cap = int(cfg.sched_flush_slots or self.U_cap)
         # prefetch arrays exist only when the planner will hoist: the same
@@ -331,12 +358,17 @@ class CachedEngine(Engine):
         W, U = self.width, self.U_cap
         if "idx" in a:
             dev_d, dev_y = device_data
-            d = dev_d.index_select(0, a["idx"])
-            y = dev_y.index_select(0, a["idx"])
+            idx = a["idx"]
+            if idx.shape[0] == 1:
+                # a row in stream order ships as its base (`_chunk_program`)
+                idx = idx + torch.arange(self.cfg.batch_size,
+                                         dtype=idx.dtype, device=idx.device)
+            d = dev_d.index_select(0, idx)
+            y = dev_y.index_select(0, idx)
         else:
             d, y = a["d"], a["y"]
         B = y.shape[0]
-        inv = a["inv"]
+        inv = a["inv"].to(torch.int32)      # int16 on the narrowed wire
         step = state.step.add_(1)
         elr = self._elr_fn(step)
         S = self.num_shards
@@ -448,9 +480,12 @@ class CachedEngine(Engine):
         per-chunk rule, a pure function of the planner stream. Over S ranks
         the arrays hold every worker's columns ([K, S*X]): the phases are
         decided from all of them, and this rank stages its own block of
-        each (worker `rank`'s program)."""
+        each (worker `rank`'s program). On one device the packed wire
+        narrows `inv` and a row in stream order (JAX's `_stage_chunk`,
+        `cached.py:845-874`)."""
         cfg = self.cfg
         C, S = self.cache_rows, self.num_shards
+        narrow = S == 1 and cfg.sched_packed_wire
         pulls = np.asarray(pulls[:K]).view(np.uint8).astype(bool)
         has_flush = (fids[:K] >= 0).any(axis=1)
         has_pull = pulls.any(axis=1) | (pfids[:K] >= 0).any(axis=1)
@@ -469,12 +504,21 @@ class CachedEngine(Engine):
 
         host = {}
         if index_feed:
-            host["idx"] = np.asarray(assign, np.int32)
+            idx = np.asarray(assign, np.int32)
+            # solo planning in stream order assigns base + arange(gb):
+            # the step rebuilds the row from its base
+            if narrow and idx.shape[1] > 1 and np.array_equal(
+                    idx, idx[:, :1] + np.arange(idx.shape[1],
+                                                dtype=np.int32)):
+                idx = np.ascontiguousarray(idx[:, :1])
+            host["idx"] = idx
         else:
             host["d"] = np.asarray(raw_dense[assign], np.float32)
             host["y"] = np.asarray(raw_labels[assign], np.float32)
         host["slots"] = np.asarray(slots, np.int32)
-        host["inv"] = np.asarray(inv, np.int32)
+        # inv indexes the U_cap-wide unique list: the widest program array
+        host["inv"] = np.asarray(inv, np.int16 if narrow and self.U_cap
+                                 <= np.iinfo(np.int16).max else np.int32)
         pull_ids = np.where(pulls & (uniq >= 0), uniq, -1)
         host["pull_ids"] = np.concatenate([pull_ids, pfids],
                                           axis=1).astype(np.int32)
@@ -500,27 +544,103 @@ class CachedEngine(Engine):
                      raw_labels=None, *, index_feed: bool) -> StagedChunk:
         """Stage one popped chunk (the first K rows of each array) for
         `train_epoch_staged`: its packed steps (`_chunk_program`) in one
-        copy from pinned host memory, on the current stream."""
+        copy from pinned host memory, on the current stream, or a memoized
+        staged chunk of the same content (`_memo_stage`)."""
         host, steps, variant = self._chunk_program(
             K, assign, slots, pulls, fids, fslots, pfids, pfslots, uniq,
             inv, raw_dense, raw_sparse, raw_labels, index_feed=index_feed)
-        packed, layout = self._to_device(host, K)
-        return StagedChunk(K=int(K), variant=variant, index_feed=index_feed,
-                           steps=steps, packed=packed, layout=layout)
+        buf, layout = self._host_feed(host, K)
+        if self.cfg.sched_packed_wire:
+            return self._memo_stage(int(K), variant, index_feed, steps, buf,
+                                    layout)
+        return StagedChunk(int(K), variant, index_feed, steps,
+                           buf.to(self.device, non_blocking=True), layout)
 
-    def staged_step_bytes(self) -> int:
+    def _memo_stage(self, K, variant, index_feed, steps, buf,
+                    layout) -> StagedChunk:
+        """Stage a packed host chunk `buf` ([K, nbytes], pinned on a card),
+        reusing a memoized staged chunk when its content is equal (JAX's
+        `_memo_stage`, `cached.py:905-972`). An epoch-repeat stream re-plans
+        byte-identical programs, so recent chunks stay on the device, keyed
+        by content, and the copy is skipped for an equal one. The key holds
+        everything a `StagedChunk` carries but the bytes (variant, feed, K,
+        each step's variant, layout) and samples the bytes; reuse needs
+        the key equal AND the whole of the bytes equal. Over S ranks the
+        steps' flush and pull flags come from every worker's columns, so a
+        rank never reuses a chunk whose collectives differ.
+
+        The memo keeps a pageable numpy copy of the host bytes and the
+        staged chunk, each up to `sched_chunk_memo_mb`; the pinned buffer
+        goes back to the caching host allocator as without the memo. An
+        evicted chunk lives on while a queued step holds it. After 4x the
+        budget has been evicted or replaced with no hit, the memo clears
+        itself and turns off. The lock covers `_Prestager`'s pool; entries
+        are never edited once published."""
+        def staged():
+            return StagedChunk(K, variant, index_feed, steps,
+                               buf.to(self.device, non_blocking=True),
+                               layout)
+        if not self._memo_on:
+            return staged()
+        flat = buf.numpy().reshape(-1)
+        key = (variant, index_feed, K, steps, layout, flat[:64].tobytes(),
+               flat[-64:].tobytes())
+        with self._memo_lock:
+            hit = self._chunk_memo.get(key)
+        if hit is not None and _same_bytes(flat, hit[0]):
+            with self._memo_lock:
+                if key in self._chunk_memo:
+                    self._chunk_memo.move_to_end(key)
+                self.memo_hits += 1
+            return hit[1]
+        out = staged()
+        # the memo's own copy: on the CPU `out.packed` is `buf` itself
+        mine = flat.copy()
+        with self._memo_lock:
+            if not self._memo_on:
+                # a racing insert tripped the guard while this one staged
+                return out
+            prev = self._chunk_memo.get(key)
+            if prev is None:
+                self._memo_bytes += mine.nbytes
+            else:
+                # the same key, other bytes: replaced before any reuse,
+                # churn as an eviction is (so the guard can trip)
+                self._memo_evicted += prev[0].nbytes
+            self._chunk_memo[key] = (mine, out)
+            # the window slides in stream order: with a budget of an epoch
+            # it holds the previous epoch, what the next one replays
+            cap = self.cfg.sched_chunk_memo_mb << 20
+            while self._memo_bytes > cap and self._chunk_memo:
+                _, (old, _) = self._chunk_memo.popitem(last=False)
+                self._memo_bytes -= old.nbytes
+                self._memo_evicted += old.nbytes
+            if self.memo_hits == 0 and self._memo_evicted > 4 * cap:
+                self._chunk_memo.clear()
+                self._memo_bytes = 0
+                self._memo_on = False
+        return out
+
+    def staged_step_bytes(self, narrow: bool = True) -> int:
         """Bytes of one index-feed step of a staged chunk on the device
         (its packed row), from the program caps: a zero program through
-        `_chunk_program`."""
+        `_chunk_program`, its samples in stream order unless the planner
+        shuffles. `narrow=False`: the row without the packed wire's
+        narrowings (`inv` int32, `idx` a full row)."""
         S, P = self.num_shards, max(self.P_cap, 1)
         mbs, U, F = self.cfg.batch_size, self.U_cap, self.F_cap
 
         def zeros(w, dt=np.int32):
             return np.zeros((1, S * w), dt)
+        assign = (zeros(mbs, np.int64) if self.cfg.sched_shuffle_seed
+                  else np.arange(S * mbs, dtype=np.int64)[None])
         host, _, _ = self._chunk_program(
-            1, zeros(mbs, np.int64), zeros(U), zeros(U, np.uint8), zeros(F),
+            1, assign, zeros(U), zeros(U, np.uint8), zeros(F),
             zeros(F), zeros(P), zeros(P), zeros(U),
             zeros(mbs * self.model.spec.num_sparse), index_feed=True)
+        if not narrow:
+            host["inv"] = host["inv"].astype(np.int32)
+            host["idx"] = np.zeros((1, mbs), np.int32)
         return layout_of((k, TORCH_DTYPES[a.dtype], a.shape[1:])
                          for k, a in host.items()).nbytes
 

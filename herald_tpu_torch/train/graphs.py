@@ -53,7 +53,8 @@ from herald_tpu_torch.ops.kernels import KERNELS
 
 _ALIGN = 16
 # the dtypes a packed buffer carries
-TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+TORCH_DTYPES = {np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32,
                 np.dtype(np.int64): torch.int64,
                 np.dtype(np.float32): torch.float32}
 # same-size integer views: a write-back copies bits, one kernel per size
@@ -106,9 +107,12 @@ def pack(arrays: Dict[str, np.ndarray], steps: Optional[int] = None,
     buf = torch.empty((rows, layout.nbytes), dtype=torch.uint8,
                       pin_memory=pin)
     view = buf.numpy()
-    for f, a in zip(layout.fields, arrays.values()):
+    ends = [f.offset for f in layout.fields[1:]] + [layout.nbytes]
+    for f, a, end in zip(layout.fields, arrays.values(), ends):
         view[:, f.offset:f.offset + f.nbytes] = np.ascontiguousarray(
             a).reshape(rows, -1).view(np.uint8)
+        # the alignment padding too: equal inputs pack to equal bytes
+        view[:, f.offset + f.nbytes:end] = 0
     return (buf if steps else buf[0]), layout
 
 

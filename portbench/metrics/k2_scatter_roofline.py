@@ -1,0 +1,11 @@
+"""Share of the bandwidth roofline of the port's K2 over the traced
+stretch: the bytes its launches need (`roofline.k2_bytes`, from what the
+workload handed over) over its device time by kernel name in the trace."""
+
+from portbench import roofline
+
+
+def read(r):
+    if r.trace is None:
+        return None
+    return roofline.share(r.work.get("k2", 0), r.trace.kernel_s("k2"))

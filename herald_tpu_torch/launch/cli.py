@@ -674,14 +674,17 @@ class _Prestager:
     def get(self):
         """The next staged chunk as (StagedChunk, residency args or None),
         ready on the caller's current stream; None at the end of the
-        stream. Raises the producer's or a worker's error."""
-        item = self.q.get()
-        if item is self._END:
-            if self._err is not None:
-                raise self._err
-            return None
-        fut, tr = item
-        staged, event = fut.result()
+        stream. Raises the producer's or a worker's error. Under a
+        profiler, the wait is the span `launch.stage_wait`."""
+        from herald_tpu_torch.utils.profiler import span
+        with span("launch.stage_wait"):
+            item = self.q.get()
+            if item is self._END:
+                if self._err is not None:
+                    raise self._err
+                return None
+            fut, tr = item
+            staged, event = fut.result()
         self._copies.ready(staged.packed, event)
         return staged, tr
 

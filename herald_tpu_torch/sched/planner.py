@@ -20,6 +20,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from herald_tpu_torch.utils.profiler import span
+
 
 @dataclasses.dataclass
 class StepProgram:
@@ -253,36 +255,43 @@ class CachePlanner:
         Python/ctypes/condvar round trip per step. Returns (K, assign,
         slots, pulls, flush_ids, flush_slots, prefetch_ids,
         prefetch_slots, uniq, inv) with K <= steps actually filled (0 at
-        end of stream; rows beyond K are uninitialized)."""
-        nr = self.nrank
-        P = max(self.P_cap, 1)
-        assign = np.empty((steps, nr * self.mbs), np.int64)
-        slots = np.empty((steps, nr * self.U_cap), np.int32)
-        pulls = np.empty((steps, nr * self.U_cap), np.uint8)
-        fids = np.empty((steps, nr * self.F_cap), np.int32)
-        fslots = np.empty((steps, nr * self.F_cap), np.int32)
-        pf_ids = np.empty((steps, nr * P), np.int32)
-        pf_slots = np.empty((steps, nr * P), np.int32)
-        inv_row = nr * self.mbs * self.num_tables
-        uniq = np.empty((steps, nr * self.U_cap), np.int32)
-        inv = np.empty((steps, inv_row), np.int32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        K = int(self._lib.hplan_pop_chunk_padded(
-            self._h, steps, nr * self.mbs,
-            assign.ctypes.data_as(i64p), self.U_cap, self.F_cap, P,
-            self.cache_rows, slots.ctypes.data_as(i32p),
-            pulls.ctypes.data_as(u8p), fids.ctypes.data_as(i32p),
-            fslots.ctypes.data_as(i32p), pf_ids.ctypes.data_as(i32p),
-            pf_slots.ctypes.data_as(i32p), uniq.ctypes.data_as(i32p),
-            inv.ctypes.data_as(i32p), inv_row))
-        if K == -2:
-            raise RuntimeError(
-                f"a program exceeds the static caps (unique_cap "
-                f"{self.U_cap} / flush_cap {self.F_cap} / prefetch_cap "
-                f"{P}); size them from a probe pass (sched/sizing.py) or "
-                f"leave the defaults")
+        end of stream; rows beyond K are uninitialized). Under a profiler,
+        the span `planner.pop` (`utils/profiler.py`)."""
+        with span("planner.pop") as sp:
+            if sp:
+                sp.counts["queue_before"] = self.queue_length()
+            nr = self.nrank
+            P = max(self.P_cap, 1)
+            assign = np.empty((steps, nr * self.mbs), np.int64)
+            slots = np.empty((steps, nr * self.U_cap), np.int32)
+            pulls = np.empty((steps, nr * self.U_cap), np.uint8)
+            fids = np.empty((steps, nr * self.F_cap), np.int32)
+            fslots = np.empty((steps, nr * self.F_cap), np.int32)
+            pf_ids = np.empty((steps, nr * P), np.int32)
+            pf_slots = np.empty((steps, nr * P), np.int32)
+            inv_row = nr * self.mbs * self.num_tables
+            uniq = np.empty((steps, nr * self.U_cap), np.int32)
+            inv = np.empty((steps, inv_row), np.int32)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            K = int(self._lib.hplan_pop_chunk_padded(
+                self._h, steps, nr * self.mbs,
+                assign.ctypes.data_as(i64p), self.U_cap, self.F_cap, P,
+                self.cache_rows, slots.ctypes.data_as(i32p),
+                pulls.ctypes.data_as(u8p), fids.ctypes.data_as(i32p),
+                fslots.ctypes.data_as(i32p), pf_ids.ctypes.data_as(i32p),
+                pf_slots.ctypes.data_as(i32p), uniq.ctypes.data_as(i32p),
+                inv.ctypes.data_as(i32p), inv_row))
+            if K == -2:
+                raise RuntimeError(
+                    f"a program exceeds the static caps (unique_cap "
+                    f"{self.U_cap} / flush_cap {self.F_cap} / prefetch_cap "
+                    f"{P}); size them from a probe pass (sched/sizing.py) or "
+                    f"leave the defaults")
+            if sp:
+                sp.counts.update(K=K, plan_us=sum(
+                    self.phase_times_us().values()))
         return (K, assign, slots, pulls, fids, fslots, pf_ids, pf_slots,
                 uniq, inv)
 

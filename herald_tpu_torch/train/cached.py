@@ -114,6 +114,7 @@ from herald_tpu_torch.sched.planner import CachePlanner
 from herald_tpu_torch.train.engine import Engine, TrainState, write_rows
 from herald_tpu_torch.train.graphs import (TORCH_DTYPES, Layout, layout_of,
                                            unpack)
+from herald_tpu_torch.utils.profiler import span, spanned
 
 
 class CachedTrainState(NamedTuple):
@@ -546,15 +547,23 @@ class CachedEngine(Engine):
         `train_epoch_staged`: its packed steps (`_chunk_program`) in one
         copy from pinned host memory, on the current stream, or a memoized
         staged chunk of the same content (`_memo_stage`)."""
-        host, steps, variant = self._chunk_program(
-            K, assign, slots, pulls, fids, fslots, pfids, pfslots, uniq,
-            inv, raw_dense, raw_sparse, raw_labels, index_feed=index_feed)
-        buf, layout = self._host_feed(host, K)
-        if self.cfg.sched_packed_wire:
-            return self._memo_stage(int(K), variant, index_feed, steps, buf,
-                                    layout)
-        return StagedChunk(int(K), variant, index_feed, steps,
-                           buf.to(self.device, non_blocking=True), layout)
+        with span("stage.program"):
+            host, steps, variant = self._chunk_program(
+                K, assign, slots, pulls, fids, fslots, pfids, pfslots, uniq,
+                inv, raw_dense, raw_sparse, raw_labels, index_feed=index_feed)
+        with span("stage.pack"):
+            buf, layout = self._host_feed(host, K)
+            if not (self.cfg.sched_packed_wire and self._memo_on):
+                return StagedChunk(int(K), variant, index_feed, steps,
+                                   self._copy(buf), layout)
+            with span("stage.memo"):
+                return self._memo_stage(int(K), variant, index_feed, steps,
+                                        buf, layout)
+
+    def _copy(self, buf):
+        """A packed host chunk's copy to the device, without waiting."""
+        with span("stage.copy"):
+            return buf.to(self.device, non_blocking=True)
 
     def _memo_stage(self, K, variant, index_feed, steps, buf,
                     layout) -> StagedChunk:
@@ -578,8 +587,7 @@ class CachedEngine(Engine):
         are never edited once published."""
         def staged():
             return StagedChunk(K, variant, index_feed, steps,
-                               buf.to(self.device, non_blocking=True),
-                               layout)
+                               self._copy(buf), layout)
         if not self._memo_on:
             return staged()
         flat = buf.numpy().reshape(-1)
@@ -727,16 +735,17 @@ class CachedEngine(Engine):
         # the dense-sync relaxation's cadence, as `train_epoch`'s
         step0 = int(state.step) if self._dsync_on and self.dsync_k > 1 \
             else 0
-        for k in range(staged.K):
-            variant = staged.steps[k]
-            state, _ = self._run(
-                ("cached", staged.index_feed, variant),
-                lambda st, a, v=variant: self._cached_step_body(
-                    st, a, v, device_data),
-                state, (staged.packed[k], staged.layout),
-                out=res[:, k] if S > 1 else res[0, k], reads=reads)
-            if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
-                self._sync_dense(state)
+        with span("step.dispatch"):
+            for k in range(staged.K):
+                variant = staged.steps[k]
+                state, _ = self._run(
+                    ("cached", staged.index_feed, variant),
+                    lambda st, a, v=variant: self._cached_step_body(
+                        st, a, v, device_data),
+                    state, (staged.packed[k], staged.layout),
+                    out=res[:, k] if S > 1 else res[0, k], reads=reads)
+                if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
+                    self._sync_dense(state)
         if self._dsync_on:
             self._sync_dense(state)
         return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
@@ -757,13 +766,15 @@ class CachedEngine(Engine):
         return state, {"loss": stats["loss"][0],
                        "overflow": stats["overflow"][0]}
 
+    @spanned("train.chunk")
     def train_epoch_cached(self, state, planner: CachePlanner, raw_dense,
                            raw_sparse, raw_labels, steps: int,
                            device_data=None):
         """Pop up to `steps` programs in one chunk and run them. With
         `device_data` (from `stage_dataset`) the sample rows are gathered
         on the device by assignment index; the raw_* arrays are then
-        ignored. Returns (state, None) at the end of the stream."""
+        ignored. Returns (state, None) at the end of the stream. Under a
+        profiler, the call is the span `train.chunk` (`utils/profiler.py`)."""
         (K, assign, slots, pulls, fids, fslots,
          pfids, pfslots, uniq, inv) = planner.pop_chunk(steps)
         if K == 0:

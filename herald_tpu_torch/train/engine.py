@@ -96,6 +96,7 @@ from herald_tpu_torch.train.graphs import (TORCH_DTYPES, PackedSteps,
                                            StepGraphs, feed_inputs, pack,
                                            pack_tensors)
 from herald_tpu_torch.utils import metrics as M
+from herald_tpu_torch.utils.profiler import span, spanned
 
 # logical table rows drawn at a time by `Engine.init_state`
 INIT_CHUNK_ROWS = 1 << 20
@@ -671,6 +672,7 @@ class Engine:
             return state, {"loss": res, "overflow": self._zero}
         return state, {"loss": res[0], "overflow": res[1].to(torch.int32)}
 
+    @spanned("train.chunk")
     def train_epoch(self, state: TrainState, dense_x, sparse_ids=None,
                     labels=None, steps: Optional[int] = None):
         """Run `steps` steps (default: as many full batches as the arrays
@@ -686,7 +688,8 @@ class Engine:
         rows, each rank's blocks of the steps are packed on the host, and
         the steps run uncaptured; a dense-sync relaxation averages the
         dense state every `dense_sync_every` steps and at the end
-        (engine.py:455-476)."""
+        (engine.py:455-476). Under a profiler, the call is the span
+        `train.chunk` (`utils/profiler.py`)."""
         S = self.num_shards
         if isinstance(dense_x, PackedSteps):
             if steps not in (None, dense_x.steps):
@@ -712,14 +715,15 @@ class Engine:
         arrays = {k: (by_step(x, dt), dt) for k, (x, dt) in {
             "d": (dense_x, np.float32), "s": (sparse_ids, np.int32),
             "y": (labels, np.float32)}.items()}
-        if any(isinstance(x, torch.Tensor) for x, _ in arrays.values()):
-            buf, layout = pack_tensors({
-                k: torch.as_tensor(x).to(self.device,
-                                         TORCH_DTYPES[np.dtype(dt)])
-                for k, (x, dt) in arrays.items()}, steps)
-        else:
-            buf, layout = self._to_device(
-                {k: x for k, (x, _) in arrays.items()}, steps)
+        with span("feed.pack"):
+            if any(isinstance(x, torch.Tensor) for x, _ in arrays.values()):
+                buf, layout = pack_tensors({
+                    k: torch.as_tensor(x).to(self.device,
+                                             TORCH_DTYPES[np.dtype(dt)])
+                    for k, (x, dt) in arrays.items()}, steps)
+            else:
+                buf, layout = self._to_device(
+                    {k: x for k, (x, _) in arrays.items()}, steps)
         return self._train_steps(state, buf, layout, steps)
 
     def _train_steps(self, state: TrainState, buf: torch.Tensor,
@@ -733,12 +737,13 @@ class Engine:
         # step count is read once a call, only when k > 1 needs it
         step0 = int(state.step) if self._dsync_on and self.dsync_k > 1 \
             else 0
-        for k in range(steps):
-            state, _ = self._run("train", self._train_step_body, state,
-                                 (buf[k], layout),
-                                 out=res[:, k] if S > 1 else res[0, k])
-            if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
-                self._sync_dense(state)
+        with span("step.dispatch"):
+            for k in range(steps):
+                state, _ = self._run("train", self._train_step_body, state,
+                                     (buf[k], layout),
+                                     out=res[:, k] if S > 1 else res[0, k])
+                if self._dsync_on and (step0 + k + 1) % self.dsync_k == 0:
+                    self._sync_dense(state)
         if self._dsync_on:
             # the chunk's end leaves the dense state replicated
             self._sync_dense(state)

@@ -203,6 +203,26 @@ def test_prestaged_launcher_matches_jax(prestaged, jax_init, prestage):
     assert pc == jc and pc["miss_pull"] > 0
 
 
+def test_prestaged_launcher_trace_holds_the_programs_spans(prestaged):
+    """`--log-dir`'s trace.json of the run at --prestage 3 holds the
+    consumer's waits for staged chunks and the dispatch of their steps,
+    on one thread. The staging pool's `stage.*` spans land there only
+    where the profiler records that pool's threads too (torch's CPU
+    profiler records the thread that started it): any found lie on
+    another thread than the consumer's."""
+    out, _ = prestaged
+    events = json.loads((out / "log-3" / "trace.json").read_text())
+    spans = [e for e in events["traceEvents"] if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("herald.")]
+    threads = {e["name"]: {x["tid"] for x in spans
+                           if x["name"] == e["name"]} for e in spans}
+    consumer = threads["herald.launch.stage_wait"]
+    assert consumer == threads["herald.step.dispatch"]
+    staging = set().union(*(t for n, t in threads.items()
+                            if n.startswith("herald.stage.")))
+    assert not staging & consumer
+
+
 def test_prestager_after_autosize_with_serve_view(tmp_path):
     """The prestager starts once the wide engine's cold steps are done,
     and the serve view's residency mirror advances at dispatch: every

@@ -15,12 +15,13 @@ print what it measured.
     python3 chip_smoke.py --phase onnx
     python3 chip_smoke.py --phase gnn
     python3 chip_smoke.py --phase tp
+    python3 chip_smoke.py --phase unique
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
-kernel:embedding_gather, kernel:hot_onehot_push, kernel:rows_scatter_add,
-serve, checkpoint, train, assigned, onnx, train:adam, launch,
-launch:assigned,
+kernel:embedding_gather, kernel:hot_onehot_push, kernel:unique_fill,
+kernel:rows_scatter_add, serve, checkpoint, train, assigned, onnx,
+train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:memo, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
@@ -186,7 +187,8 @@ each; the runs bit-identical (losses, and every leaf of the synced state
 of memo on and off).
 
 `--phase scheduled` (scheduled and scheduled:memo), `--phase
-scheduled:pinned`, `--phase train` (train alone) and `--phase fae` run
+scheduled:pinned`, `--phase train` (train alone), `--phase fae` and
+`--phase unique` (the dedup's kernel against the library chain) run
 the device and build phases and that phase alone; `--phase fae`
 and `--phase assigned` also run launch:fae or launch:assigned,
 `--phase hybrid` runs hybrid and launch:hybrid, and `--phase feed` runs
@@ -271,6 +273,7 @@ from herald_tpu_torch.ops.kernels import gather as k1_ops
 from herald_tpu_torch.ops.kernels import hot_gather as k4_ops
 from herald_tpu_torch.ops.kernels import scatter as k2_ops
 from herald_tpu_torch.ops.kernels import segment as k3_ops
+from herald_tpu_torch.ops import embedding as embedding_ops
 from herald_tpu_torch.ops.kernels.scatter import _launcher as scatter_launcher
 from herald_tpu_torch.ops.kernels.scatter import check_scatter_args
 from herald_tpu_torch.sched import build as host_build
@@ -287,6 +290,11 @@ from herald_tpu_torch.train.engine import Engine, TrainState
 from herald_tpu_torch.utils.profiler import cache_report
 
 ROOT = Path(__file__).resolve().parent
+# the dedup's kernel: a checkout from before it (an A/B's parent under
+# --root) has no such module, and its phases run without it
+unique_ops = (importlib.import_module("herald_tpu_torch.ops.kernels.unique")
+              if importlib.util.find_spec(
+                  "herald_tpu_torch.ops.kernels.unique") else None)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published peak
 # the imported tree runs its steps as CUDA graphs (a parent under --root
 # may not): the gates that need them run only then
@@ -348,6 +356,7 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 # left out of the session's items, and a session that lost more is
 # retaken where its calls can run again
 PAD_LAUNCHES, PAD_KERNEL = 256, "spin_kernel"
+SPAN_PREFIX = "herald."
 # the sessions taken; how many lost records of pad launches alone; and
 # each that lost a measured launch's record, with the positions it lost
 PROFILER = {"sessions": 0, "lost_in_pad": 0, "short": []}
@@ -355,11 +364,14 @@ PROFILER = {"sessions": 0, "lost_in_pad": 0, "short": []}
 
 def _device_items(prof, calls: int):
     """From a profiler session: ({kernel or copy name: device ms per
-    call}, {name: count}), the pad's kernel left out."""
+    call}, {name: count}), the pad's kernel and the program's span
+    annotations (`herald.<name>`, `utils/profiler.py`, which the profiler
+    also lays on the card's timeline) left out."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0 and PAD_KERNEL not in e.key]
+              and e.self_device_time_total > 0 and PAD_KERNEL not in e.key
+              and not e.key.startswith(SPAN_PREFIX)]
     return ({e.key: e.self_device_time_total / 1e3 / calls for e in events},
             {e.key: e.count for e in events})
 
@@ -883,6 +895,155 @@ def phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques) -> dict:
     return out
 
 
+# the dedup kernel, as torch.profiler names it
+UNIQUE_KERNEL = "unique_fill_kernel"
+
+
+def _unique_ids(kind: str, n: int, rng) -> np.ndarray:
+    """n int32 ids of one kind: all equal, all distinct, Zipf 1.2 over
+    the table's rows, negative, the int32 extremes among random ones, or
+    distinct ids of which all but one lie in one of the kernel's parts."""
+    if kind == "equal":
+        return np.full(n, 1234567, np.int32)
+    if kind == "distinct":
+        return rng.choice(FULL_ROWS, n, replace=False).astype(np.int32)
+    if kind == "zipf":
+        return ((rng.zipf(1.2, n) - 1) % FULL_ROWS).astype(np.int32)
+    if kind == "negative":
+        return rng.integers(-5000, 5000, n).astype(np.int32)
+    if kind == "one_part":      # distinct, and all but one in one block
+        a = rng.permutation(n).astype(np.int32)
+        a[a == n - 1] = 1 << 30
+        return a
+    lim = np.iinfo(np.int32)
+    a = rng.integers(lim.min, lim.max, n, endpoint=True).astype(np.int32)
+    a[::3], a[1::5], a[2::7] = lim.max, -lim.max, lim.min
+    return a
+
+
+def _unique_timing(batches: list, size: int) -> dict:
+    """The kernel against the library chain on k batches of n int32 ids
+    (each call on another batch): events ms of eager calls, device ms
+    from the profiler, and each captured alone as a graph of k calls
+    whose replays run back to back behind a sleep kernel (card ms a
+    call, as inside a step's graph)."""
+    k, n = len(batches), batches[0].numel()
+
+    def kern(i):
+        return unique_ops.unique_fill(batches[i % k], size, -1)
+
+    def chain(i):
+        return unique_ops.unique_fill_ref(batches[i % k], size, -1)
+
+    def graph_ms(fn, reps: int = 50) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(k):
+                fn(i)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(k):
+                fn(i)
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            start.record()
+            for _ in range(reps):
+                g.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / (reps * k))
+        return statistics.median(times)
+
+    before = unique_ops.unique_fill.launches
+    times = {what: cuda_ms(f, k) for what, f in
+             (("kernel", kern), ("chain", chain))}
+    prof = {what: device_profile(f, k, UNIQUE_KERNEL if what == "kernel"
+                                 else None)
+            for what, f in (("kernel", kern), ("chain", chain))}
+    graphs = {what: graph_ms(f) for what, f in
+              (("kernel", kern), ("chain", chain))}
+    unique_ops.unique_fill.launches = before
+    bytes_moved = n * 4 + size * 4 + n * 8
+    return {"n": n, "size": size, "calls": k,
+            "kernel_ms": times["kernel"], "chain_ms": times["chain"],
+            "kernel_device_ms": prof["kernel"][0],
+            "chain_device_ms": prof["chain"][0],
+            "chain_device_ms_by_name": _top(prof["chain"][1]),
+            "kernel_graph_ms": graphs["kernel"],
+            "chain_graph_ms": graphs["chain"],
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_call": bytes_moved}
+
+
+def phase_kernel_unique() -> dict:
+    """The dedup's unique_fill kernel against the library chain it
+    replaces (`unique_fill_ref` on the card): uniq and inv bit for bit
+    at n of 1, 63, 64, a wdl step's 6,656 and the capacity, for ids all
+    equal, all distinct, Zipf 1.2, negative, at the int32 extremes and
+    distinct in one of the kernel's parts,
+    with `size` below, at and above n and a fill of -1 and of the table's
+    rows; one launch a call; the rule (`ops.embedding.unique_fill`)
+    sending the capacity + 1 and int64 ids to the chain. Then timed at
+    n = 6,656 (the ids of 64 wdl batches of synthetic_ctr_data) and at
+    the capacity (Zipf 1.2 ids)."""
+    cap = unique_ops.CAPACITY
+    rng = np.random.default_rng(3)
+    cases = 0
+    for n in (1, 63, 64, BATCH * 26, cap):
+        for kind in ("equal", "distinct", "zipf", "negative", "extremes",
+                     "one_part"):
+            ids = torch.as_tensor(_unique_ids(kind, n, rng), device="cuda")
+            for size in (max(n // 3, 1), n, n + 37):
+                for fill in (-1, FULL_ROWS):
+                    before = unique_ops.unique_fill.launches
+                    got = embedding_ops.unique_fill(ids, size, fill)
+                    want = unique_ops.unique_fill_ref(ids, size, fill)
+                    if unique_ops.unique_fill.launches != before + 1 or \
+                            got[0].dtype != want[0].dtype or \
+                            not torch.equal(got[0], want[0]) or \
+                            not torch.equal(got[1], want[1]):
+                        raise AssertionError(
+                            f"unique_fill differs from the chain (n {n}, "
+                            f"{kind}, size {size}, fill {fill})")
+                    cases += 1
+    for ids in (torch.as_tensor(_unique_ids("zipf", cap + 1, rng),
+                                device="cuda"),
+                torch.as_tensor(_unique_ids("zipf", 6656, rng),
+                                device="cuda").long()):
+        before = unique_ops.unique_fill.launches
+        got = embedding_ops.unique_fill(ids, ids.numel(), -1)
+        want = unique_ops.unique_fill_ref(ids, ids.numel(), -1)
+        if unique_ops.unique_fill.launches != before or \
+                not (torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1])):
+            raise AssertionError(f"the dedup's rule took the kernel or "
+                                 f"differs for {ids.numel()} {ids.dtype} "
+                                 f"ids")
+    torch.cuda.synchronize()
+    _, sparse, _ = synthetic_ctr_data(get_model("wdl_criteo").spec,
+                                      64 * BATCH, seed=0,
+                                      num_rows=FULL_ROWS)
+    step = [torch.as_tensor(sparse[i * BATCH:(i + 1) * BATCH].reshape(-1)
+                            .astype(np.int32), device="cuda")
+            for i in range(64)]
+    full = [torch.as_tensor(_unique_ids("zipf", cap, rng), device="cuda")
+            for _ in range(64)]
+    out = {"name": "unique_fill", "cases": cases, "max_abs_err": 0.0,
+           "wdl_step": _unique_timing(step, step[0].numel()),
+           "capacity": _unique_timing(full, cap),
+           "bound_note": "ids read once, uniq and inv written once; the "
+                         "kernel is a cluster of 8 blocks, bound by its "
+                         "chain of block-wide steps"}
+    emit({"phase": "kernel:unique_fill", **out})
+    return out
+
+
 def _scatter_cases():
     """(label, table, unique ids, grads, lr) cases on the card: every
     table and grad dtype without lr, and f32 grads with lr."""
@@ -1334,7 +1495,7 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
     """The main training path at full width: a warm-up chunk, then three
     timed chunks of K steps through Engine.train_epoch, each ended by a
     host readback of its last loss; `per_step` launches of each kernel
-    every step (default: one K1, K2 and K3). Then a profile of 20 steps
+    every step (default: one K1, K2, K3 and dedup). Then a profile of 20 steps
     through train_epoch (device busy within BUSY_GATE of run B), 10 steps
     whose host waits are counted (none), and 8 steps held against the
     plain-kernel reference: the rows the 8 steps touch are copied into a
@@ -1346,7 +1507,7 @@ def phase_train(eng: Engine, state: TrainState, label="train", K=64,
     the engine built with cuda_graphs=False: losses, rows, dense params
     and launches equal to the captured steps', bit for bit."""
     per_step = per_step or {"embedding_gather": 1, "hot_onehot_push": 1,
-                            "rows_scatter_add": 1}
+                            "rows_scatter_add": 1, "unique_fill": 1}
     B = eng.cfg.batch_size
     spec = eng.model.spec
     dense, sparse, labels = synthetic_ctr_data(spec, 2 * K * B, seed=0,
@@ -1512,7 +1673,8 @@ def phase_train_adam() -> dict:
     losses = stats["loss"].cpu()
     step_ms = (time.perf_counter() - t0) / 8 * 1e3
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    want = _want({"embedding_gather": 4, "hot_onehot_push": 1}, 8)
+    want = _want({"embedding_gather": 4, "hot_onehot_push": 1,
+                  "unique_fill": 1}, 8)
     if launches != want:
         raise AssertionError(f"the adam path launched {launches}, expected "
                              f"{want}")
@@ -1694,9 +1856,10 @@ def _expected_launches(tape, steps: int, pinned: bool, fm=False) -> dict:
     grads; one K1 pull on a step with pulls or prefetches; two K1 reads
     (cache rows, table rows; SGD keeps no table slots) on a step with
     flushes; with a pinned tier one K4 read and a second K3 sum; for an
-    FM model one K5 forward and one K5 backward per step. The pinned read
-    is K4's in-place add, none of its gather, but in a checkout from
-    before the add form (an A/B's parent under --root)."""
+    FM model one K5 forward and one K5 backward per step; no dedup (the
+    planner's programs carry each step's unique ids and inverse). The
+    pinned read is K4's in-place add, none of its gather, but in a
+    checkout from before the add form (an A/B's parent under --root)."""
     fids, pulls, pfids = (np.asarray(tape[k][:steps])
                           for k in ("fids", "pulls", "pfids"))
     has_flush = (fids >= 0).any(axis=1)
@@ -1710,6 +1873,7 @@ def _expected_launches(tape, steps: int, pinned: bool, fm=False) -> dict:
             "rows_scatter_add": 0,
             "fm_second_order": steps if fm else 0,
             "fm_second_order_backward": steps if fm else 0,
+            "unique_fill": 0,
             "steps_with_flush": int(has_flush.sum()),
             "steps_with_pull": int(has_pull.sum())}
     want[read] = steps if pinned else 0
@@ -3231,7 +3395,7 @@ def _feed_two_ranks(tmp: Path) -> dict:
 ASSIGNED_K = 32
 FAE_SAMPLES, FAE_STEPS = 65536, 64
 FAE_TRAIN = {"embedding_gather": 2, "hot_onehot_gather_add_": 1,
-             "hot_onehot_push": 2}
+             "hot_onehot_push": 2, "unique_fill": 1}
 
 
 def _launch_counts() -> dict:
@@ -3352,7 +3516,7 @@ def phase_assigned(eng: Engine, state: TrainState) -> dict:
                 lo += K
         launches = dict(counts)
         want = _want({"embedding_gather": 1, "hot_onehot_push": 1,
-                      "rows_scatter_add": 1}, 2 * K)
+                      "rows_scatter_add": 1, "unique_fill": 1}, 2 * K)
         if launches != want:
             raise AssertionError(f"the assigned path launched {launches}; "
                                  f"expected {want}")
@@ -3919,8 +4083,10 @@ def phase_scheduled_dfm() -> dict:
 HYBRID_S, HYBRID_STEPS, HYBRID_TIMED = 2, 8, 64
 # a hybrid SGD step's launches: K1 reads the owner's rows, the returned
 # buffer by position, the send buffer of gradients and the rows updated;
-# K3 sums the duplicate-id gradients and, on the owner, the received ones
-HYBRID_STEP = {"embedding_gather": 4, "hot_onehot_push": 2}
+# K3 sums the duplicate-id gradients and, on the owner, the received ones;
+# the dedup of the rank's 6,656 ids is one unique_fill (the owner's of the
+# 2 x 6,656 received slots, more than its capacity, is the library chain)
+HYBRID_STEP = {"embedding_gather": 4, "hot_onehot_push": 2, "unique_fill": 1}
 # the step's kernel calls in the order it makes them
 HYBRID_SITES = (("embedding_gather", "owner_read"),
                 ("embedding_gather", "by_position"),
@@ -3932,7 +4098,7 @@ HYBRID_SITES = (("embedding_gather", "owner_read"),
 # form reading the hot rows into place, and K3 a third time, summing the
 # hot gradients before their all-reduce
 HYBRID_FAE_STEP = {"embedding_gather": 4, "hot_onehot_push": 3,
-                   "hot_onehot_gather_add_": 1}
+                   "hot_onehot_gather_add_": 1, "unique_fill": 1}
 HYBRID_FAE_SITES = (("embedding_gather", "owner_read"),
                     ("embedding_gather", "by_position"),
                     ("hot_onehot_gather_add_", "hot_read"),
@@ -6785,7 +6951,7 @@ def phase_onnx(eng: Engine, state: TrainState, label: str = "onnx",
     from herald_tpu_torch.onnx import OnnxModel, export_inference, \
         export_state
     per_step = per_step or {"embedding_gather": 1, "hot_onehot_push": 1,
-                            "rows_scatter_add": 1}
+                            "rows_scatter_add": 1, "unique_fill": 1}
     B, W = eng.cfg.batch_size, eng.width
     rows = rows or eng.num_rows
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -6876,14 +7042,15 @@ def main() -> None:
     ap.add_argument("--phase", choices=("scheduled", "scheduled:pinned",
                                         "train", "fae",
                                         "assigned", "hybrid", "feed",
-                                        "onnx", "gnn", "tp"),
+                                        "onnx", "gnn", "tp", "unique"),
                     help="the device and build phases and this one alone "
                          "(scheduled: scheduled and scheduled:memo; "
                          "fae: fae and launch:fae; assigned: assigned and "
                          "launch:assigned; hybrid: hybrid and "
                          "launch:hybrid; feed: launch:feed on --samples "
                          "data; onnx: onnx and onnx:dfm; gnn: gnn; tp: "
-                         "hybrid:tp, autoshard, pipeline and launch:tp)")
+                         "hybrid:tp, autoshard, pipeline and launch:tp; "
+                         "unique: kernel:unique_fill)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
@@ -6945,6 +7112,8 @@ def main() -> None:
     elif args.phase == "tp":
         phase_tp()
         phase_launch_tp()
+    elif args.phase == "unique":
+        phase_kernel_unique()
     elif args.phase == "onnx":
         eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
         phase_onnx(eng, eng.init_state(0))
@@ -6974,6 +7143,7 @@ def main() -> None:
         dfm_sparse, DFM_BATCH, 8)
     k1 = phase_kernel(state.table, batches, positions, inverses)
     k3 = phase_kernel_push(inverses, uniques, dfm_inverses, dfm_uniques)
+    ku = phase_kernel_unique()
     k2 = phase_kernel_scatter(state.table, batches)
     serve = phase_serve(eng, state)
     phase_checkpoint()
@@ -7083,7 +7253,13 @@ def main() -> None:
         _entry("fm_second_order", "fm_second_order.cu", 309,
                by_path("fm_second_order"), k5),
         _entry("fm_second_order_backward", "fm_second_order.cu", 309,
-               by_path("fm_second_order_backward"), k5b)]})
+               by_path("fm_second_order_backward"), k5b),
+        {"name": "unique_fill", "route": "cuda",
+         "source": "herald_tpu_torch/ops/kernels/csrc/unique_fill.cu",
+         "replaces": "none: jnp.unique (herald_tpu/train/engine.py:301-302)",
+         "launches": sum(by_path("unique_fill").values()),
+         "launches_by_path": by_path("unique_fill"), "cases": ku["cases"],
+         "wdl_step": ku["wdl_step"], "capacity": ku["capacity"]}]})
     emit({"phase": "profiler", **PROFILER})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ K2 (`ops/kernels/scatter.py`): the CUDA kernels on the card, their plain
 versions on the CPU. `unique_static` is the training steps' dedup, at a
 static size and with no wait for the card; `unique_fill`, under it, is
 JAX's `jnp.unique` at a static size with any fill, which may cut ids off
-(the GCN's pull mode).
+(the GCN's pull mode), through `ops/kernels/unique.py`'s kernel where it
+takes the ids.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Tuple
 import torch
 
 from herald_tpu_torch.ops.kernels import (embedding_gather, hot_onehot_push,
-                                          rows_scatter_add)
+                                          rows_scatter_add, unique)
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -53,19 +54,14 @@ def unique_fill(ids: torch.Tensor, size: int, fill: int
     return_inverse=True)`: (uniq [size], the sorted distinct ids, cut to
     `size` or padded with `fill`; inv [N] int64, each id's rank among the
     distinct ids, `size` or more for an id cut off). Every shape is fixed,
-    so nothing waits for the card: one sort, the flags of each new id,
-    their running count and two scatters (a slot's duplicates all write
-    its one id)."""
+    so nothing waits for the card. Ids the kernel takes (int32 on a card,
+    at most `unique.CAPACITY`) go through its one launch; any others (the
+    CPU, int64, more ids) through the library chain `unique_fill_ref`.
+    The two give the same bits."""
     flat = ids.reshape(-1)
-    n = flat.numel()
-    srt, order = torch.sort(flat)
-    new = torch.zeros(n, dtype=torch.bool, device=flat.device)
-    torch.ne(srt[1:], srt[:-1], out=new[1:])
-    slot = torch.cumsum(new, 0)
-    inv = torch.empty_like(slot).scatter_(0, order, slot)
-    uniq = torch.full((max(n, size),), fill, dtype=flat.dtype,
-                      device=flat.device).scatter_(0, slot, srt)
-    return uniq[:size], inv
+    if unique.fits(flat):
+        return unique.unique_fill(flat, size, fill)
+    return unique.unique_fill_ref(flat, size, fill)
 
 
 def unique_static(ids: torch.Tensor, size: int

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, one per TPU kernel of the JAX
-package (`herald_tpu/ops/pallas/kernels.py`), each with its plain PyTorch
-version and a launch counter. Built at first use (`build.py`)."""
+package (`herald_tpu/ops/pallas/kernels.py`) and the dedup's `unique_fill`,
+each with its plain PyTorch version and a launch counter. Built at first
+use (`build.py`)."""
 
 from herald_tpu_torch.ops.kernels.fm import (
     FMSecondOrder,
@@ -27,6 +28,7 @@ from herald_tpu_torch.ops.kernels.segment import (
     hot_onehot_push,
     hot_onehot_push_ref,
 )
+from herald_tpu_torch.ops.kernels.unique import unique_fill, unique_fill_ref
 
 # every wrapper with a launch counter, for callers that reset and read them
 KERNELS = {"embedding_gather": embedding_gather,
@@ -35,4 +37,5 @@ KERNELS = {"embedding_gather": embedding_gather,
            "hot_onehot_push": hot_onehot_push,
            "rows_scatter_add": rows_scatter_add,
            "fm_second_order": fm_second_order,
-           "fm_second_order_backward": fm_second_order_backward}
+           "fm_second_order_backward": fm_second_order_backward,
+           "unique_fill": unique_fill}

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("embedding_gather", "fm_second_order", "hot_onehot_gather",
-           "hot_onehot_push", "rows_scatter_add")
+           "hot_onehot_push", "rows_scatter_add", "unique_fill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

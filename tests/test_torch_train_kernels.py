@@ -334,7 +334,8 @@ def test_launch_counters_stay_put_on_the_cpu():
     assert set(KERNELS) == {"embedding_gather", "hot_onehot_gather",
                             "hot_onehot_gather_add_",
                             "hot_onehot_push", "rows_scatter_add",
-                            "fm_second_order", "fm_second_order_backward"}
+                            "fm_second_order", "fm_second_order_backward",
+                            "unique_fill"}
     assert {k: f.launches for k, f in KERNELS.items()} == before
 
 

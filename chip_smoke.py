@@ -16,12 +16,13 @@ print what it measured.
     python3 chip_smoke.py --phase gnn
     python3 chip_smoke.py --phase tp
     python3 chip_smoke.py --phase unique
+    python3 chip_smoke.py --phase pool
 
 Prints one JSON object per line (a phase's with "elapsed_s", the
 seconds since the script started), in this order: device, build,
 kernel:embedding_gather, kernel:hot_onehot_push, kernel:unique_fill,
 kernel:rows_scatter_add, serve, checkpoint, train, assigned, onnx,
-train:adam, launch, launch:assigned,
+kernel:gather_pool_rows, train:dlrm, train:adam, launch, launch:assigned,
 fae, launch:fae, scheduled, scheduled:memo, scheduled:pinned,
 kernel:hot_onehot_gather, launch:scheduled, launch:feed, hybrid,
 hybrid:checkpoint,
@@ -57,6 +58,12 @@ against the plain versions of K1, K3 and K4, 64 timed steps with their
 launches and no plain-version call, host waits, a step profile, the
 dense hot update's device time and evaluate_fae; launch:fae runs the
 launcher's FAE branch at full width.
+
+kernel:gather_pool_rows holds K1's pooled form to its plain version, and
+at DLRM-DCNv2's step (batch 8,192, 214 ids a sample) over the benchmark
+cell's 124,184,588 x 128 f32 table (63.58 GB) checks and times it;
+train:dlrm trains DLRM-DCNv2 at its published widths through train_epoch
+and scores through predict and evaluate, its launches counted.
 
 hybrid trains the same table row-sharded over two ranks that share this
 card (gloo: NCCL refuses two ranks on one device), each a process of
@@ -1044,6 +1051,245 @@ def phase_kernel_unique() -> dict:
     return out
 
 
+# K1's pooled form, as torch.profiler names it
+POOL_KERNEL = "gather_pool_rows"
+DLRM = "dlrm_dcnv2_criteo1tb"
+DLRM_BATCH = 8192       # one of 8 GPUs' share of MLPerf's 65,536
+# the benchmark cell's table: criteo1tb's five 40,000,000-row tables at a
+# hash cap of 24,000,000 rows, the other 21 as published (63.58 GB in f32)
+DLRM_ROWS = 124_184_588
+# the launch counts' table: the same tables at a lower cap (2.1 GB in f32)
+DLRM_COUNT_ROWS = 1 << 22
+
+
+def phase_kernel_pool() -> dict:
+    """K1's pooled form (`gather_pool_rows`, the bags of a multi-hot
+    model) against its plain version on the card, bit for bit: f32 and
+    bf16 tables, int32 and int64 ids, widths 128 (16-byte vectors), 513
+    and 8 (the scalar loop), DLRM-DCNv2's 26 bags and bags of 0, 1 and 5,
+    ids outside the table and one id twice in a bag; a bag of one against
+    K1 by position; one launch a call. K3 through its row map against K3
+    on the expanded gradient, bit for bit. Then at DLRM-DCNv2's step
+    (batch 8,192, 214 ids of `synthetic_multihot_data`) over the cell's
+    124,184,588 rows (`DLRM_ROWS`) at width 128 f32, 15.9G elements: the
+    kernel against its plain version bit for bit (`max_abs_err` from that
+    call) and against the library's EmbeddingBag within 1e-5 of the
+    largest pooled value, then timed: events and device ms, the bound
+    (each distinct row read once, the ids once, the pooled rows written
+    once), the plain version and EmbeddingBag, and K3 through the map
+    against K3 on the expanded copy."""
+    from herald_tpu_torch.data import PORT_DATASETS, synthetic_multihot_data
+    rng = np.random.default_rng(4)
+    dlrm = PORT_DATASETS["criteo1tb"].bag_sizes
+    cases = 0
+    for bags in (dlrm, (0, 1, 5, 1)):
+        off = torch.tensor(np.concatenate([[0], np.cumsum(bags)]),
+                           dtype=torch.int32, device="cuda")
+        P = sum(bags)
+        for dtype in (torch.float32, torch.bfloat16):
+            for W in (128, 513, 8):
+                table = (0.1 * torch.randn((5000, W), device="cuda")).to(dtype)
+                table[7] = -0.0
+                for id_dtype in (torch.int32, torch.int64):
+                    ids = rng.zipf(1.2, (64, P)) % 5000
+                    ids[0, :3] = (-1, 5000, 7)
+                    ids[1, :2] = 7
+                    ids = torch.as_tensor(ids, dtype=id_dtype, device="cuda")
+                    before = k1_ops.gather_pool_rows.launches
+                    got = k1_ops.gather_pool_rows(table, ids, off)
+                    want = k1_ops.gather_pool_rows_ref(table, ids, off)
+                    if k1_ops.gather_pool_rows.launches != before + 1 or \
+                            not torch.equal(got.view(torch.int32),
+                                            want.view(torch.int32)):
+                        raise AssertionError(
+                            f"gather_pool_rows differs from its plain "
+                            f"version ({bags[:4]}, {dtype}, W {W}, "
+                            f"{id_dtype})")
+                    for k in np.flatnonzero(np.asarray(bags) == 1):
+                        k1 = embedding_gather(table, ids[:, int(off[k])]
+                                              .contiguous(), torch.float32)
+                        if not torch.equal(got[:, k].view(torch.int32),
+                                           k1.view(torch.int32)):
+                            raise AssertionError(
+                                "a bag of one is not K1 by position")
+                    cases += 1
+    # K3 through the map, against the expanded gradient
+    nb, P = len(dlrm), sum(dlrm)
+    B = DLRM_BATCH
+    bag_of = np.repeat(np.arange(nb), dlrm)
+    rows = torch.tensor((np.arange(B)[:, None] * nb + bag_of[None])
+                        .reshape(-1), dtype=torch.int32, device="cuda")
+    _, sparse, _ = synthetic_multihot_data(PORT_DATASETS["criteo1tb"], B,
+                                           seed=0, num_rows=DLRM_ROWS)
+    ids = torch.as_tensor(sparse.astype(np.int32), device="cuda")
+    uniq, inv = embedding_ops.unique_static(ids, ids.numel())
+    gp = torch.randn((B * nb, EMB), device="cuda") * 1e-4
+    gi = torch.randint(-4, 5, (B * nb, EMB), device="cuda").float()
+    n = ids.numel()
+    for g in (gp, gi):
+        a = hot_onehot_push(inv, g, n, rows)
+        b = hot_onehot_push(inv, g.index_select(0, rows.long()), n)
+        if not torch.equal(a, b):
+            raise AssertionError("K3 through its map differs from K3 on "
+                                 "the expanded gradient")
+    if not torch.equal(hot_onehot_push(inv, gi, n, rows), hot_onehot_push_ref(
+            inv, gi, n, rows)):
+        raise AssertionError("K3 through its map differs from its plain "
+                             "version on integer grads")
+    cases += 3
+    # timed at the step's shape
+    table = torch.empty((DLRM_ROWS, EMB), device="cuda").normal_().mul_(0.01)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(dlrm)]),
+                       dtype=torch.int32, device="cuda")
+    flat = ids.reshape(-1).long()
+    starts = (torch.arange(B, device="cuda")[:, None] * P
+              + off[:-1].long()[None]).reshape(-1)
+    u = int((uniq >= 0).sum())
+    bytes_moved = u * EMB * 4 + n * 4 + B * nb * EMB * 4 + 4 * (nb + 1)
+
+    def kern(_i):
+        return k1_ops.gather_pool_rows(table, ids, off)
+
+    def bag(_i):
+        return torch.nn.functional.embedding_bag(flat, table, starts,
+                                                 mode="sum")
+
+    got, want = kern(0), k1_ops.gather_pool_rows_ref(table, ids, off)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("gather_pool_rows differs from its plain "
+                             "version at DLRM-DCNv2's step")
+    err = float((got - want).abs().max())
+    lib = float((got.view(-1, EMB) - bag(0)).abs().max())
+    if lib > 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"gather_pool_rows differs from EmbeddingBag "
+                             f"by {lib} at DLRM-DCNv2's step")
+    cases += 1
+    del got, want
+    before = k1_ops.gather_pool_rows.launches
+    prof = device_profile(kern, 20, POOL_KERNEL)
+    out = {"name": "gather_pool_rows", "cases": cases, "max_abs_err": err,
+           "batch": B, "rows": DLRM_ROWS, "positions": n, "distinct": u,
+           "kernel_ms": cuda_ms(kern, 20),
+           "kernel_device_ms": _own_ms(prof[1], POOL_KERNEL),
+           "plain_ms": cuda_ms(lambda i: k1_ops.gather_pool_rows_ref(
+               table, ids, off), 2, repeats=3, warmup=1),
+           "embedding_bag_ms": cuda_ms(bag, 20),
+           "embedding_bag_device_ms": device_profile(bag, 10)[0],
+           "embedding_bag_max_abs_diff": lib,
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes_per_call": bytes_moved,
+           "k3_map_ms": cuda_ms(lambda i: hot_onehot_push(inv, gp, n, rows),
+                                5),
+           "k3_expanded_ms": cuda_ms(lambda i: hot_onehot_push(
+               inv, gp.index_select(0, rows.long()), n), 5)}
+    k1_ops.gather_pool_rows.launches = before
+    del table
+    _free()
+    emit({"phase": "kernel:gather_pool_rows", **out})
+    return out
+
+
+def phase_train_dlrm(K=8) -> dict:
+    """DLRM-DCNv2 through the main path at its published widths and batch
+    8,192 over `DLRM_COUNT_ROWS` rows (`table_sizes_within`'s hash cap) at
+    width 128 f32: a warm-up chunk and two chunks of K steps through
+    Engine.train_epoch, then 8 batches through predict and 4 through
+    evaluate, the kernel counters reset before each. Every train step
+    launches K1's pooled form, K3 (through its row map) and K2 once, and
+    neither K1 by position nor unique_fill (its 1,753,088 ids take the
+    library's dedup); every scored batch launches K1's pooled form once
+    and nothing else. The first step's loss and predict's probabilities
+    are held to the tower over the plain pooled read
+    (`gather_pool_rows_ref`): the loss within 1e-5 (relative), the
+    probabilities within 1e-6."""
+    from herald_tpu_torch.data import PORT_DATASETS, synthetic_multihot_data
+    B = DLRM_BATCH
+    eng = Engine(HeraldConfig(model=DLRM, batch_size=B, embedding_dim=EMB),
+                 table_rows=DLRM_COUNT_ROWS, device="cuda")
+    state = eng.init_state(0)
+    dense, sparse, labels = synthetic_multihot_data(
+        PORT_DATASETS["criteo1tb"], 2 * K * B, seed=0,
+        num_rows=DLRM_COUNT_ROWS)
+    chunks = [_stage(dense, sparse, labels, 0, K, B),
+              _stage(dense, sparse, labels, K * B, K, B)]
+    off = torch.tensor(np.concatenate([[0], np.cumsum(eng.model.bags)]),
+                       dtype=torch.int32, device="cuda")
+
+    def plain_logits(d, s):
+        pooled = k1_ops.gather_pool_rows_ref(state.table, s, off)
+        return eng.model.apply_pooled(state.dense, pooled, d)
+
+    d0, s0, y0 = (c[0] for c in chunks[0])
+    with torch.no_grad():
+        want_loss = float(bce_with_logits(plain_logits(d0, s0), y0))
+    per_step = {"gather_pool_rows": 1, "hot_onehot_push": 1,
+                "rows_scatter_add": 1}
+    for kern in KERNELS.values():
+        kern.launches = 0
+    state, stats = eng.train_epoch(state, *chunks[0], steps=K)  # warm-up
+    losses = [stats["loss"]]
+    t0 = time.perf_counter()
+    for c in (1, 0):
+        state, stats = eng.train_epoch(state, *chunks[c], steps=K)
+        losses.append(stats["loss"])
+    losses = torch.cat(losses).cpu()
+    train_s = time.perf_counter() - t0
+    train = {name: kern.launches for name, kern in KERNELS.items()}
+    if train != _want(per_step, 3 * K):
+        raise AssertionError(f"the train:dlrm path launched {train}; "
+                             f"expected {_want(per_step, 3 * K)}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("non-finite DLRM-DCNv2 training loss")
+    if abs(float(losses[0]) - want_loss) > 1e-5 * abs(want_loss):
+        raise AssertionError(f"DLRM-DCNv2's first loss {float(losses[0])} "
+                             f"against the plain read's {want_loss}")
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    probs_err = 0.0
+    for i in range(8):
+        d, s = dense[i * B:(i + 1) * B], sparse[i * B:(i + 1) * B]
+        got = eng.predict(state, d, s)
+        with torch.no_grad():
+            want = torch.sigmoid(plain_logits(
+                torch.as_tensor(d, device="cuda"),
+                torch.as_tensor(s.astype(np.int32), device="cuda")))
+        probs_err = max(probs_err, float((got - want).abs().max()))
+    if probs_err > 1e-6:
+        raise AssertionError(f"DLRM-DCNv2's predict differs from the plain "
+                             f"read by {probs_err}")
+    ev = eng.evaluate(state, dense[:4 * B], sparse[:4 * B],
+                      labels[:4 * B])
+    if not (np.isfinite(ev["auc"]) and np.isfinite(ev["acc"])):
+        raise AssertionError(f"DLRM-DCNv2's evaluate gave {ev}")
+    scored = {name: kern.launches for name, kern in KERNELS.items()}
+    if scored != _want({"gather_pool_rows": 1}, 12):
+        raise AssertionError(f"the eval:dlrm path launched {scored}; "
+                             f"expected {_want({'gather_pool_rows': 1}, 12)}")
+    out = {"model": DLRM, "batch": B, "rows": DLRM_COUNT_ROWS,
+           "steps": 3 * K, "launches": train, "eval_launches": scored,
+           "first_loss": float(losses[0]), "plain_first_loss": want_loss,
+           "last_loss": float(losses[-1]), "probs_max_abs_err": probs_err,
+           "eval": ev, "train_steps_per_s": 2 * K / train_s}
+    del state, eng, chunks
+    _free()
+    emit({"phase": "train:dlrm", **out})
+    return out
+
+
+def _pool_entry(kp: dict, launches_by_path: dict) -> dict:
+    """K1's pooled form's line of the `kernels` summary."""
+    return {"name": "gather_pool_rows", "route": "cuda",
+            "source": "herald_tpu_torch/ops/kernels/csrc/embedding_gather.cu",
+            "replaces": "none: the JAX package has no multi-hot model",
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path, "cases": kp["cases"],
+            "max_abs_err": kp["max_abs_err"],
+            **{k: kp[k] for k in ("kernel_ms", "kernel_device_ms",
+                                  "plain_ms", "embedding_bag_ms",
+                                  "bound_ms")}}
+
+
 def _scatter_cases():
     """(label, table, unique ids, grads, lr) cases on the card: every
     table and grad dtype without lr, and f32 grads with lr."""
@@ -1873,7 +2119,7 @@ def _expected_launches(tape, steps: int, pinned: bool, fm=False) -> dict:
             "rows_scatter_add": 0,
             "fm_second_order": steps if fm else 0,
             "fm_second_order_backward": steps if fm else 0,
-            "unique_fill": 0,
+            "unique_fill": 0, "gather_pool_rows": 0,
             "steps_with_flush": int(has_flush.sum()),
             "steps_with_pull": int(has_pull.sum())}
     want[read] = steps if pinned else 0
@@ -4166,10 +4412,11 @@ def _hybrid_hooks(fns: dict) -> dict:
     return hooks
 
 
-def _host_k3(ids, grads, num_rows):
+def _host_k3(ids, grads, num_rows, rows=None):
     """K3's plain version on the host, where `index_add_` adds in position
     order: the kernel's order for segments of at most 32 positions."""
-    return hot_onehot_push_ref(ids.cpu(), grads.cpu(), num_rows).to(
+    return hot_onehot_push_ref(ids.cpu(), grads.cpu(), num_rows,
+                               None if rows is None else rows.cpu()).to(
         grads.device)
 
 
@@ -4177,9 +4424,12 @@ def _recording(calls: list, fae: bool = False, hooks=None) -> dict:
     """Hooks that append (kernel, args) of every K1 and K3 call (and K4
     add, with `fae`), the args cloned before the call but for the shard's
     table (read in place), then launch; placed by `hooks` (default the
-    hybrid steps' `_hybrid_hooks`)."""
+    hybrid steps' `_hybrid_hooks`). Trailing None args (K3's `rows` off the
+    multi-hot path) are the defaults, and are recorded and passed without."""
     def wrap(name, fn):
         def call(*args):
+            while args and args[-1] is None:
+                args = args[:-1]
             calls.append((name, [a.clone() if isinstance(a, torch.Tensor)
                                  and a.numel() * a.element_size() < 1 << 28
                                  else a for a in args]))
@@ -7042,7 +7292,8 @@ def main() -> None:
     ap.add_argument("--phase", choices=("scheduled", "scheduled:pinned",
                                         "train", "fae",
                                         "assigned", "hybrid", "feed",
-                                        "onnx", "gnn", "tp", "unique"),
+                                        "onnx", "gnn", "tp", "unique",
+                                        "pool"),
                     help="the device and build phases and this one alone "
                          "(scheduled: scheduled and scheduled:memo; "
                          "fae: fae and launch:fae; assigned: assigned and "
@@ -7050,7 +7301,8 @@ def main() -> None:
                          "launch:hybrid; feed: launch:feed on --samples "
                          "data; onnx: onnx and onnx:dfm; gnn: gnn; tp: "
                          "hybrid:tp, autoshard, pipeline and launch:tp; "
-                         "unique: kernel:unique_fill)")
+                         "unique: kernel:unique_fill; pool: "
+                         "kernel:gather_pool_rows and train:dlrm)")
     ap.add_argument("--root", help="import herald_tpu_torch from this "
                                    "checkout (with --phase)")
     ap.add_argument("--hybrid-rank", type=int,
@@ -7114,6 +7366,12 @@ def main() -> None:
         phase_launch_tp()
     elif args.phase == "unique":
         phase_kernel_unique()
+    elif args.phase == "pool":
+        kp = phase_kernel_pool()
+        dl = phase_train_dlrm()
+        emit({"kernels": [_pool_entry(kp, {
+            "train:dlrm": dl["launches"]["gather_pool_rows"],
+            "eval:dlrm": dl["eval_launches"]["gather_pool_rows"]})]})
     elif args.phase == "onnx":
         eng = Engine(cfg, table_rows=FULL_ROWS, device="cuda")
         phase_onnx(eng, eng.init_state(0))
@@ -7153,6 +7411,10 @@ def main() -> None:
     phase_onnx(eng, state)
     del state, eng
     _free()
+    # the multi-hot model's kernel at the cell's 63.58 GB table, then its
+    # train and eval paths
+    kp = phase_kernel_pool()
+    dlrm = phase_train_dlrm()
     phase_train_adam()
     _free()
     phase_launch()
@@ -7234,10 +7496,12 @@ def main() -> None:
              "gnn:broadcast": gnn["launches"]["broadcast"],
              "serve:dfm": serve_dfm["launches"],
              "train:dfm": train_dfm["launches"],
-             "scheduled:dfm": sched_dfm["launches_tape"]}
+             "scheduled:dfm": sched_dfm["launches_tape"],
+             "train:dlrm": dlrm["launches"],
+             "eval:dlrm": dlrm["eval_launches"]}
 
     def by_path(name):
-        return {p: counts[name] for p, counts in paths.items()}
+        return {p: counts.get(name, 0) for p, counts in paths.items()}
 
     emit({"kernels": [
         _entry("embedding_gather", "embedding_gather.cu", 104,
@@ -7259,7 +7523,8 @@ def main() -> None:
          "replaces": "none: jnp.unique (herald_tpu/train/engine.py:301-302)",
          "launches": sum(by_path("unique_fill").values()),
          "launches_by_path": by_path("unique_fill"), "cases": ku["cases"],
-         "wdl_step": ku["wdl_step"], "capacity": ku["capacity"]}]})
+         "wdl_step": ku["wdl_step"], "capacity": ku["capacity"]},
+        _pool_entry(kp, by_path("gather_pool_rows"))]})
     emit({"phase": "profiler", **PROFILER})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -46,12 +46,96 @@ DATASETS: Dict[str, DatasetSpec] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class MultiHotSpec(DatasetSpec):
+    """A dataset whose samples read a bag of ids from each of its tables
+    (multi-hot). `num_sparse` counts the positions of a sample; the bags lie
+    contiguous in table order, table t's holding `bag_sizes[t]` ids of its
+    `table_sizes[t]` rows, each offset by the rows of the tables before it
+    in one global id space of `num_embed_rows` rows."""
+    table_sizes: Tuple[int, ...] = ()
+    bag_sizes: Tuple[int, ...] = ()
+
+
+# MLPerf Training's DLRM-DCNv2 on Criteo 1TB (the MLCommons reference,
+# recommendation_v2/torchrec_dlrm: --num_embeddings_per_feature and
+# --multi_hot_sizes): 26 tables, 204,184,588 rows, 214 ids a sample
+CRITEO1TB_TABLE_SIZES = (
+    40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+    3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000, 40000000,
+    40000000, 590152, 12973, 108, 36)
+CRITEO1TB_BAG_SIZES = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1,
+                       1, 12, 100, 27, 10, 3, 1, 1)
+
+# the port's datasets that the JAX package has not: multi-hot ones
+PORT_DATASETS: Dict[str, MultiHotSpec] = {
+    "criteo1tb": MultiHotSpec(
+        "criteo1tb", sum(CRITEO1TB_BAG_SIZES), 13,
+        sum(CRITEO1TB_TABLE_SIZES), tuple(range(sum(CRITEO1TB_BAG_SIZES))),
+        len(CRITEO1TB_BAG_SIZES), table_sizes=CRITEO1TB_TABLE_SIZES,
+        bag_sizes=CRITEO1TB_BAG_SIZES),
+}
+
+
 def dataset_for_model(model_name: str) -> DatasetSpec:
     """Model names follow the reference convention `<arch>_<dataset>`."""
     ds = model_name.rsplit("_", 1)[-1]
-    if ds not in DATASETS:
+    spec = DATASETS.get(ds) or PORT_DATASETS.get(ds)
+    if spec is None:
         raise ValueError(f"unknown dataset suffix in model name {model_name!r}")
-    return DATASETS[ds]
+    return spec
+
+
+def table_sizes_within(spec: MultiHotSpec, num_rows: Optional[int] = None
+                       ) -> np.ndarray:
+    """The rows of each of `spec`'s tables, or with `num_rows` below the
+    spec's total, each table's rows capped at one hash cap, the largest
+    that fits them all in `num_rows` (tables below the cap keep their
+    rows): at 124,184,588 rows criteo1tb's five 40,000,000-row tables
+    hold 24,000,000 each and the other 21 keep their published rows."""
+    sizes = np.asarray(spec.table_sizes, np.int64)
+    if num_rows is None or num_rows >= sizes.sum():
+        return sizes
+    if num_rows < sizes.size:
+        raise ValueError(f"{num_rows} rows cannot hold {sizes.size} tables")
+    lo, hi = 1, int(sizes.max())
+    while lo < hi:
+        cap = (lo + hi + 1) // 2
+        if int(np.minimum(sizes, cap).sum()) <= num_rows:
+            lo = cap
+        else:
+            hi = cap - 1
+    return np.minimum(sizes, lo)
+
+
+def synthetic_multihot_data(spec: MultiHotSpec, num_samples: int,
+                            seed: int = 0, zipf_a: float = 1.2,
+                            num_rows: Optional[int] = None):
+    """Multi-hot CTR data: each table's bag draws Zipf ids over the
+    table's rows (`table_sizes_within(spec, num_rows)`), offset into one
+    global id space; dense features are standard normals and labels come
+    from a hidden linear model over them and hashed id signs, as
+    `synthetic_ctr_data` makes them.
+
+    Returns (dense float32 [N, num_dense], sparse int64 [N, num_sparse],
+    the bags contiguous in table order, labels float32 [N, 1])."""
+    rng = np.random.default_rng(seed)
+    sizes = table_sizes_within(spec, num_rows)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    sparse = np.empty((num_samples, spec.num_sparse), dtype=np.int64)
+    p = 0
+    for t, bag in enumerate(spec.bag_sizes):
+        raw = rng.zipf(zipf_a, size=(num_samples, bag))
+        sparse[:, p:p + bag] = offsets[t] + (raw - 1) % sizes[t]
+        p += bag
+    dense = rng.standard_normal((num_samples, spec.num_dense)).astype(
+        np.float32)
+    w = rng.standard_normal(spec.num_dense).astype(np.float32)
+    id_sign = ((sparse * 2654435761 % 97) / 48.0 - 1.0).mean(axis=1)
+    logits = dense @ w + 2.0 * id_sign \
+        + 0.1 * rng.standard_normal(num_samples)
+    labels = (logits > np.median(logits)).astype(np.float32)
+    return dense, sparse, labels.reshape(-1, 1)
 
 
 def synthetic_ctr_data(
@@ -148,7 +232,11 @@ def load_dataset(
 
     `path` holds the reference pipeline's processed `.npy` files (read
     memory-mapped), or for "movie" its `train.npz` (user_input,
-    item_input, labels)."""
+    item_input, labels). A multi-hot spec has no file layout here: its
+    data is always `synthetic_multihot_data`."""
+    if isinstance(spec, MultiHotSpec):
+        return synthetic_multihot_data(spec, num_samples, seed=seed,
+                                       num_rows=num_rows)
     if path and spec.name in _NPY_LAYOUT:
         files = [os.path.join(path, f) for f in _NPY_LAYOUT[spec.name]]
         if all(os.path.exists(f) for f in files):

@@ -11,6 +11,7 @@ from herald_tpu_torch.models.base import (
 # model modules self-register on import
 from herald_tpu_torch.models import dcn as _dcn  # noqa: F401
 from herald_tpu_torch.models import dfm as _dfm  # noqa: F401
+from herald_tpu_torch.models import dlrm as _dlrm  # noqa: F401
 from herald_tpu_torch.models import linear as _linear  # noqa: F401
 from herald_tpu_torch.models import misc as _misc  # noqa: F401
 from herald_tpu_torch.models import wdl as _wdl  # noqa: F401

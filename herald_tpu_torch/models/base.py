@@ -3,10 +3,11 @@
 A model is a pair of plain functions over a flat dict of tensors: the
 engine owns the embedding table and hands the tower the looked-up
 activations `emb [B, F, W]` plus the dense features; `apply` returns
-logits [B]. The registry holds every model of the JAX package and the
-four `fae_*` aliases (`models/__init__.py`). A model with a Megatron
-tower (wdl, dfm, dcn, emb_sum_wdl and their aliases) also carries
-`tp_plan`, which shards each tower param over the mp group, and
+logits [B]. The registry holds every model of the JAX package, the
+four `fae_*` aliases (`models/__init__.py`) and one model of the port's
+own, the multi-hot `dlrm_dcnv2_criteo1tb` (`models/dlrm.py`). A model
+with a Megatron tower (wdl, dfm, dcn, emb_sum_wdl and their aliases) also
+carries `tp_plan`, which shards each tower param over the mp group, and
 `apply_tp`, the tower over those shards (`parallel/tp.py`), as in the
 JAX package (`base.py:71-79`).
 """
@@ -14,7 +15,7 @@ JAX package (`base.py:71-79`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -73,6 +74,13 @@ class ModelDef:
     # Megatron form of `apply` over those shards
     tp_plan: Optional[Dict[str, str]] = None
     apply_tp: Optional[Callable] = None
+    # multi-hot models (a `MultiHotSpec`): `bags` gives the size of each
+    # bag, contiguous over the spec's positions, and `apply_pooled(params,
+    # pooled [B, bags, W], dense) -> logits` the tower over each bag's sum
+    # of rows, which the one-rank engine reads through K1's pooled form;
+    # `apply` pools [B, P, W] itself and calls it
+    bags: Optional[Tuple[int, ...]] = None
+    apply_pooled: Optional[Callable] = None
 
     @property
     def table_rows(self) -> int:

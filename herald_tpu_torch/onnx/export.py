@@ -230,6 +230,10 @@ def export_inference(model, dense_params, table_logical, path: str,
     (written as f32, a chunk at a time)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
+    if getattr(model, "bags", None) is not None:
+        raise NotImplementedError(
+            f"export_inference: model {model.name!r} reads multi-hot bags, "
+            f"which the ONNX graph does not pool yet (ROADMAP item 49)")
     B = batch_size
     F = model.spec.num_sparse
     ND = max(model.spec.num_dense, 0)

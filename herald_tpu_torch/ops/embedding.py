@@ -13,7 +13,7 @@ takes the ids.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,14 +77,17 @@ def unique_static(ids: torch.Tensor, size: int
 
 
 def segment_sum_grads(grad: torch.Tensor, inverse: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
+                      num_segments: int, rows: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Reduce duplicate-id gradients: grad [N, D] by inverse [N] ->
     [num_segments, D] in grad's dtype, as `jax.ops.segment_sum` returns.
     The sum runs through K3 in f32 and is rounded once; JAX adds in the
-    grad dtype (for bf16, one rounding per duplicate)."""
+    grad dtype (for bf16, one rounding per duplicate). With `rows` (int32
+    [N]) position i's gradient is grad's row rows[i] (a pooled bag's), read
+    through K3's map."""
     flat = grad.reshape(-1, grad.shape[-1])
-    return hot_onehot_push(inverse.reshape(-1), flat,
-                           num_segments).to(grad.dtype)
+    return hot_onehot_push(inverse.reshape(-1), flat, num_segments,
+                           rows).to(grad.dtype)
 
 
 def scatter_add_rows(table: torch.Tensor, rows: torch.Tensor,

@@ -40,6 +40,27 @@
 //     mode="fill" read of the JAX engine), and R need not be a multiple
 //     of 8.
 //
+// The pooled form, gather_pool_rows (no Pallas counterpart: the JAX
+// package has no multi-hot model): out[b, k] = the f32 sum of the rows of
+// sample b's bag k, positions [offsets[k], offsets[k + 1]) of its P ids,
+// in position order, an id outside [0, R) adding a zero row. A multi-hot
+// step (DLRM-DCNv2's 214 ids in 26 bags a sample) read by position would
+// write [B, P, D] and read it again to pool; this writes [B, bags, D]
+// alone. Bound on the card: bytes, each distinct row read once (later
+// reads of a row come from L2), the ids once and the pooled rows written
+// once: at DLRM-DCNv2's step (B = 8,192, 1,753,088 ids of which about
+// 264,000 distinct, D = 128 f32) 0.14 GB of rows, 7 MB of ids and 109 MB
+// of output, 0.075 ms at 3.35 TB/s. Design:
+//   - K1's group of L lanes per output row, each lane holding its 16-byte
+//     vectors of the row in f32 registers across the bag;
+//   - the bag's first row is the sum's start, not 0 + row, so a bag of 1
+//     writes K1's bits (a -0.0 stays -0.0), and each later row is added
+//     in position order: the same bits as the plain version's sum;
+//   - a lane issues the loads of kPoolUnroll positions before it adds
+//     them, so a long bag (100 ids) keeps several rows in flight;
+//   - a width that 4 does not divide, or an unaligned base, takes a
+//     scalar loop that adds in the same order.
+//
 // Bound by a plain C interface and loaded with ctypes
 // (herald_tpu_torch/ops/kernels/build.py, gather.py).
 
@@ -168,6 +189,161 @@ void dispatch_lanes(const void* table, const void* ids, void* out,
   }
 }
 
+constexpr int kPoolUnroll = 4;   // positions a lane loads before it adds
+
+// one source element widened to f32
+template <typename SrcT>
+__device__ __forceinline__ float to_f32(SrcT x) {
+  if constexpr (sizeof(SrcT) == 2) {
+    return herald::bf16_to_f32(x);
+  } else {
+    return x;
+  }
+}
+
+// 4 source elements from an aligned address (16 bytes of f32, 8 of bf16)
+// widened to f32
+template <typename SrcT>
+__device__ __forceinline__ float4 load4(const SrcT* src) {
+  if constexpr (sizeof(SrcT) == 2) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
+    return make_float4(__uint_as_float(w.x << 16),
+                       __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16),
+                       __uint_as_float(w.y & 0xffff0000u));
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(src));
+  }
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// One group of L lanes per output row (sample b, bag k). VEC: the table's
+// and the output's rows allow 4-element vectors (dim % 4 == 0, aligned
+// bases); else one element a lane at a time.
+template <typename SrcT, int L, typename IdT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+gather_pool_rows(const SrcT* __restrict__ table, const IdT* __restrict__ ids,
+                 const int* __restrict__ offsets, float* __restrict__ out,
+                 int64_t rows, int64_t dim, int64_t samples,
+                 int64_t positions, int bags) {
+  constexpr int kRowsPerBlock = kThreads / L;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / L;
+  if (r >= samples * bags) return;
+  const int lane = threadIdx.x % L;
+  const int64_t b = r / bags;
+  const int k = static_cast<int>(r - b * bags);
+  const int p0 = __ldg(offsets + k), p1 = __ldg(offsets + k + 1);
+  const IdT* bag_ids = ids + b * positions + p0;
+  const int n = p1 - p0;
+  float* dst = out + r * dim;
+  // an id inside the table, or -1
+  const auto row_of = [&](int j) -> int64_t {
+    const int64_t id = static_cast<int64_t>(__ldg(bag_ids + j));
+    return id >= 0 && id < rows ? id : -1;
+  };
+  if constexpr (VEC) {
+    const int64_t nvec = dim / 4;
+    for (int64_t v = lane; v < nvec; v += L) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j0 = 0; j0 < n; j0 += kPoolUnroll) {
+        float4 x[kPoolUnroll];
+#pragma unroll
+        for (int u = 0; u < kPoolUnroll; ++u) {
+          x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (j0 + u < n) {
+            const int64_t id = row_of(j0 + u);
+            if (id >= 0) x[u] = load4(table + id * dim + v * 4);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kPoolUnroll; ++u) {
+          if (j0 + u == 0) {
+            acc = x[0];
+          } else if (j0 + u < n) {
+            add4(acc, x[u]);
+          }
+        }
+      }
+      reinterpret_cast<float4*>(dst)[v] = acc;
+    }
+  } else {
+    for (int64_t e = lane; e < dim; e += L) {
+      float acc = 0.f;
+      for (int j = 0; j < n; ++j) {
+        const int64_t id = row_of(j);
+        const float x = id >= 0 ? to_f32(__ldg(table + id * dim + e)) : 0.f;
+        acc = j == 0 ? x : acc + x;
+      }
+      dst[e] = acc;
+    }
+  }
+}
+
+template <typename SrcT, int L, bool VEC>
+void launch_pool(const void* table, const void* ids, const int* offsets,
+                 float* out, int64_t rows, int64_t dim, int64_t samples,
+                 int64_t positions, int bags, int ids_int64,
+                 cudaStream_t stream) {
+  constexpr int64_t kRowsPerBlock = kThreads / L;
+  const dim3 grid(static_cast<unsigned>(
+      (samples * bags + kRowsPerBlock - 1) / kRowsPerBlock));
+  const SrcT* t = static_cast<const SrcT*>(table);
+  if (ids_int64) {
+    gather_pool_rows<SrcT, L, int64_t, VEC><<<grid, kThreads, 0, stream>>>(
+        t, static_cast<const int64_t*>(ids), offsets, out, rows, dim, samples,
+        positions, bags);
+  } else {
+    gather_pool_rows<SrcT, L, int32_t, VEC><<<grid, kThreads, 0, stream>>>(
+        t, static_cast<const int32_t*>(ids), offsets, out, rows, dim, samples,
+        positions, bags);
+  }
+}
+
+template <typename SrcT, bool VEC>
+void pool_lanes(const void* table, const void* ids, const int* offsets,
+                float* out, int64_t rows, int64_t dim, int64_t samples,
+                int64_t positions, int bags, int ids_int64,
+                cudaStream_t stream) {
+  // the fewest lanes that cover the output row's 16-byte vectors, up to a
+  // warp
+  const int64_t vectors = (dim * 4 + 15) / 16;
+  if (vectors <= 8) {
+    launch_pool<SrcT, 8, VEC>(table, ids, offsets, out, rows, dim, samples,
+                              positions, bags, ids_int64, stream);
+  } else if (vectors <= 16) {
+    launch_pool<SrcT, 16, VEC>(table, ids, offsets, out, rows, dim, samples,
+                               positions, bags, ids_int64, stream);
+  } else {
+    launch_pool<SrcT, 32, VEC>(table, ids, offsets, out, rows, dim, samples,
+                               positions, bags, ids_int64, stream);
+  }
+}
+
+template <typename SrcT>
+void pool_dispatch(const void* table, const void* ids, const int* offsets,
+                   float* out, int64_t rows, int64_t dim, int64_t samples,
+                   int64_t positions, int bags, int ids_int64,
+                   cudaStream_t stream) {
+  const bool vec = dim % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % (4 * sizeof(SrcT)) ==
+                       0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    pool_lanes<SrcT, true>(table, ids, offsets, out, rows, dim, samples,
+                           positions, bags, ids_int64, stream);
+  } else {
+    pool_lanes<SrcT, false>(table, ids, offsets, out, rows, dim, samples,
+                            positions, bags, ids_int64, stream);
+  }
+}
+
 }  // namespace
 
 // table_code / out_code: 0 = float32, 1 = bfloat16; the output is the
@@ -195,6 +371,43 @@ extern "C" int herald_embedding_gather(const void* table, const void* ids,
     if (t % 2 || o % 4) return static_cast<int>(cudaErrorMisalignedAddress);
     dispatch_lanes<uint16_t, float>(table, ids, out, rows, dim, n, ids_int64,
                                     s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pooled form: table [rows, dim] (table_code 0 = float32, 1 =
+// bfloat16), ids [samples, positions] (int32, or int64 with ids_int64),
+// offsets [bags + 1] int32 on the card (offsets[0] = 0, nondecreasing,
+// offsets[bags] = positions), out f32 [samples, bags, dim]. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int herald_gather_pool_rows(const void* table, const void* ids,
+                                       const void* offsets, void* out,
+                                       int64_t rows, int64_t dim,
+                                       int64_t samples, int64_t positions,
+                                       int bags, int table_code,
+                                       int ids_int64, void* stream) {
+  if (samples <= 0 || rows < 0 || dim <= 0 || bags <= 0 || positions < 0 ||
+      (samples * bags + 7) / 8 > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(out) % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* off = static_cast<const int*>(offsets);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table_code == 0) {
+    if (reinterpret_cast<uintptr_t>(table) % 4) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    pool_dispatch<float>(table, ids, off, o, rows, dim, samples, positions,
+                         bags, ids_int64, s);
+  } else if (table_code == 1) {
+    if (reinterpret_cast<uintptr_t>(table) % 2) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    pool_dispatch<uint16_t>(table, ids, off, o, rows, dim, samples, positions,
+                            bags, ids_int64, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,11 @@
 // K3 hot_onehot_push for Hopper (sm_90a): out[r] = sum of grads[i] over
 // every position i with ids[i] == r, for r in [0, num_rows), in f32.
 // Duplicates accumulate; ids outside [0, num_rows) are dropped; a row with
-// no position is written as zeros.
+// no position is written as zeros. With a row map, position i's grad row
+// is grads[map[i]] instead: a multi-hot step hands K3 the gradient of its
+// pooled bags [B * bags, D] and each position's bag row, so the [N, D]
+// copy of each position's gradient is never written (the grads read are
+// then the pooled rows, B*bags*D*grad_bytes, and the map's N*4 bytes).
 //
 // Replaces: herald_tpu/ops/pallas/kernels.py `hot_onehot_push` (the
 // pallas_call at :274). The Pallas kernel multiplies a bf16 one-hot
@@ -389,10 +393,17 @@ __device__ __forceinline__ void block_sum(RowOf row_of, int nrows,
   }
 }
 
+// The grad row of position p: p itself, or map[p] with a row map.
+__device__ __forceinline__ int64_t grad_index(const int* __restrict__ rowmap,
+                                              int p) {
+  return static_cast<int64_t>(rowmap ? __ldg(rowmap + p) : p);
+}
+
 // A block piece: ranks [32k, 32k + cnt) of its segment's positions.
 template <typename GradT, int VEC, int CPT>
 __device__ __forceinline__ void sum_piece(
-    int b, const GradT* __restrict__ grads, float* __restrict__ out,
+    int b, const GradT* __restrict__ grads,
+    const int* __restrict__ rowmap, float* __restrict__ out,
     float* __restrict__ partials, int64_t dim, const Scratch& s, int* buf,
     int* rows, float* red, int* last) {
   const int4 pc = s.piece[b];   // {first slot, positions, piece, long/~row}
@@ -413,7 +424,7 @@ __device__ __forceinline__ void sum_piece(
   }
   __syncthreads();
   const auto grad_row = [&](int i) {
-    return grads + static_cast<int64_t>(rows[i]) * dim;
+    return grads + grad_index(rowmap, rows[i]) * dim;
   };
   if (tag < 0) {
     block_sum<VEC, CPT, false, GradT>(grad_row, cnt, kWarpRows, dim,
@@ -446,9 +457,9 @@ __device__ __forceinline__ void sum_piece(
 // warp units each.
 template <typename GradT, int VEC, int CPT>
 __global__ void __launch_bounds__(kThreads)
-sum_segments(const GradT* __restrict__ grads, float* __restrict__ out,
-             float* __restrict__ partials, int64_t dim, int workers,
-             Scratch s) {
+sum_segments(const GradT* __restrict__ grads, const int* __restrict__ rowmap,
+             float* __restrict__ out, float* __restrict__ partials,
+             int64_t dim, int workers, Scratch s) {
   __shared__ int buf[kRankMax];
   __shared__ int rows[kWarps][kPiece];
   __shared__ float red[kWarps * 32 * CPT * VEC];
@@ -457,8 +468,8 @@ sum_segments(const GradT* __restrict__ grads, float* __restrict__ out,
   if (static_cast<int>(blockIdx.x) < workers) {
     const int total = lo32(s.cursor[1]);
     for (int b = blockIdx.x; b < total; b += workers) {
-      sum_piece<GradT, VEC, CPT>(b, grads, out, partials, dim, s, buf,
-                                 rows[0], red, &last);
+      sum_piece<GradT, VEC, CPT>(b, grads, rowmap, out, partials, dim, s,
+                                 buf, rows[0], red, &last);
       __syncthreads();
     }
     return;
@@ -477,7 +488,7 @@ sum_segments(const GradT* __restrict__ grads, float* __restrict__ out,
   if (lane < d.y) mine[rank] = p;
   __syncwarp();
   warp_sum<VEC, CPT, GradT>(
-      [&](int i) { return grads + static_cast<int64_t>(mine[i]) * dim; },
+      [&](int i) { return grads + grad_index(rowmap, mine[i]) * dim; },
       d.y, dim, out + static_cast<int64_t>(d.z) * dim);
 }
 
@@ -485,9 +496,9 @@ sum_segments(const GradT* __restrict__ grads, float* __restrict__ out,
 // 513 in one slab. At most 32 f32 accumulators a lane (wider slabs
 // spill registers).
 template <typename GradT, int VEC>
-void launch_sum(const void* grads, void* out, void* partials, int64_t dim,
-                int64_t num_rows, int workers, const Scratch& s,
-                cudaStream_t stream) {
+void launch_sum(const void* grads, const int* rowmap, void* out,
+                void* partials, int64_t dim, int64_t num_rows, int workers,
+                const Scratch& s, cudaStream_t stream) {
   const int64_t per_lane = (dim / VEC + 31) / 32;
   const dim3 grid(static_cast<unsigned>(
       workers + (num_rows + kWarps - 1) / kWarps));
@@ -495,8 +506,8 @@ void launch_sum(const void* grads, void* out, void* partials, int64_t dim,
   float* o = static_cast<float*>(out);
   float* p = static_cast<float*>(partials);
 #define HERALD_SUM(V, C)                                                 \
-  sum_segments<GradT, V, C><<<grid, kThreads, 0, stream>>>(g, o, p, dim, \
-                                                           workers, s)
+  sum_segments<GradT, V, C><<<grid, kThreads, 0, stream>>>(              \
+      g, rowmap, o, p, dim, workers, s)
   if (per_lane <= 1) {
     HERALD_SUM(VEC, 1);
   } else if (per_lane <= 2) {
@@ -545,15 +556,18 @@ int sm_count() {
 
 }  // namespace
 
-// grad_code: 0 = float32, 1 = bfloat16. `zeroed` holds zero_words int32
+// grad_code: 0 = float32, 1 = bfloat16. `rowmap` is null, or int32 [n]:
+// position i sums grads[rowmap[i]] (each in [0, rows of grads)), so grads
+// need not have n rows. `zeroed` holds zero_words int32
 // set to 0 by the caller, `scratch` plain_words int32, both 16-byte
 // aligned; `partials` partial_rows * dim f32: the sizes of
 // segment.scratch_sizes(n, num_rows), checked here against this layout.
 // Returns cudaGetLastError() after the launches (0 on success); the caller
 // raises on anything else.
 extern "C" int herald_hot_onehot_push(
-    const void* ids, const void* grads, void* out, void* zeroed,
-    void* scratch, void* partials, int64_t n, int64_t num_rows, int64_t dim,
+    const void* ids, const void* grads, const void* rowmap, void* out,
+    void* zeroed, void* scratch, void* partials, int64_t n, int64_t num_rows,
+    int64_t dim,
     int64_t zero_words, int64_t plain_words, int64_t partial_rows,
     int grad_code, int ids_int64, void* stream) {
   const int64_t max_pieces = n / (kWarpRows + 1);
@@ -582,6 +596,7 @@ extern "C" int herald_hot_onehot_push(
   s.seg_off = s.pos + n;
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* map = static_cast<const int*>(rowmap);
   if (ids_int64) {
     launch_grouping<int64_t>(ids, n, num_rows, s, st);
   } else {
@@ -600,17 +615,19 @@ extern "C" int herald_hot_onehot_push(
                     reinterpret_cast<uintptr_t>(partials) % 16 == 0;
   if (grad_code == 0) {
     if (vec4) {
-      launch_sum<float, 4>(grads, out, partials, dim, num_rows, workers, s, st);
+      launch_sum<float, 4>(grads, map, out, partials, dim, num_rows, workers,
+                           s, st);
     } else {
-      launch_sum<float, 1>(grads, out, partials, dim, num_rows, workers, s, st);
+      launch_sum<float, 1>(grads, map, out, partials, dim, num_rows, workers,
+                           s, st);
     }
   } else {
     if (vec4) {
-      launch_sum<uint16_t, 4>(grads, out, partials, dim, num_rows, workers,
-                              s, st);
+      launch_sum<uint16_t, 4>(grads, map, out, partials, dim, num_rows,
+                              workers, s, st);
     } else {
-      launch_sum<uint16_t, 1>(grads, out, partials, dim, num_rows, workers,
-                              s, st);
+      launch_sum<uint16_t, 1>(grads, map, out, partials, dim, num_rows,
+                              workers, s, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

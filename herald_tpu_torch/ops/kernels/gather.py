@@ -12,6 +12,14 @@ The engine reads its activations by position with f32 output: one launch
 over the batch's `B*F` ids gives the tower's f32 `[B, F, W]` input, with
 no dedup sort, no `[inv]` expansion and no widening copy. A row that
 several positions read comes from the card's L2 after the first.
+
+`gather_pool_rows` is K1's pooled form for multi-hot models (no Pallas
+counterpart): ids [B, P] whose positions form contiguous bags, `offsets`
+[bags + 1] -> the f32 sum of each bag's rows [B, bags, W] in one launch
+(the kernel `gather_pool_rows` in the same source), with no [B, P, W]
+intermediate. Each bag is summed in position order from its first row,
+so a bag of one gives K1's bits, and `gather_pool_rows_ref` is its plain
+version, bit for bit.
 """
 
 from __future__ import annotations
@@ -105,3 +113,86 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor,
 
 
 embedding_gather.launches = 0
+
+
+def check_offsets(offsets: torch.Tensor, positions: int) -> None:
+    """Raise unless `offsets` is a 1-d int32 tensor of at least 2 entries
+    that starts at 0, never falls and ends at `positions` (read on the
+    CPU only: the card's tensor is taken as the caller built it)."""
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 \
+            or offsets.numel() < 2:
+        raise ValueError(f"gather_pool_rows: offsets must be int32 [bags + "
+                         f"1], got {offsets.dtype} {tuple(offsets.shape)}")
+    if offsets.device.type == "cpu":
+        o = offsets.tolist()
+        if o[0] != 0 or o[-1] != positions or any(
+                b < a for a, b in zip(o, o[1:])):
+            raise ValueError(f"gather_pool_rows: offsets {o} do not cut "
+                             f"{positions} positions into bags")
+
+
+def pool_bags(rows: torch.Tensor, offsets) -> torch.Tensor:
+    """rows [B, P, W] -> [B, bags, W] in their dtype: bag k (positions
+    `offsets[k]` to `offsets[k + 1]`) summed in position order from its
+    first row; an empty bag is zeros. Differentiable."""
+    o = list(offsets)
+    out = rows.new_zeros((rows.shape[0], len(o) - 1, rows.shape[2]))
+    for k, (a, b) in enumerate(zip(o, o[1:])):
+        if b > a:
+            acc = rows[:, a].clone()
+            for j in range(a + 1, b):
+                acc += rows[:, j]
+            out[:, k] = acc
+    return out
+
+
+def gather_pool_rows_ref(table: torch.Tensor, ids: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: K1's rows by position in f32 (zero rows for
+    ids outside the table), pooled by `pool_bags`."""
+    check_offsets(offsets, ids.shape[1])
+    B, P = ids.shape
+    rows = embedding_gather_ref(table, ids.reshape(-1), torch.float32
+                                ).view(B, P, table.shape[1])
+    return pool_bags(rows, offsets.tolist())
+
+
+@functools.cache
+def _pool_launcher():
+    fn = build.load("embedding_gather").herald_gather_pool_rows
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_pool_rows(table: torch.Tensor, ids: torch.Tensor,
+                     offsets: torch.Tensor) -> torch.Tensor:
+    """table [R, W] f32/bf16, ids [B, P] int32/int64, offsets [bags + 1]
+    int32 (0, ..., P) -> f32 [B, bags, W]: each bag's rows summed, an id
+    outside [0, R) adding zeros. On the card this launches the CUDA kernel
+    or raises; `offsets` is then not read back (it must be the card's)."""
+    if table.device.type == "cpu" and ids.device.type == "cpu":
+        return gather_pool_rows_ref(table, ids, offsets)
+    if ids.dim() != 2 or offsets.device != table.device:
+        raise ValueError(f"gather_pool_rows: ids must be [B, P] and offsets "
+                         f"on the table's card, got {tuple(ids.shape)} and "
+                         f"offsets on {offsets.device}")
+    ids = ids.contiguous()
+    check_gather_args("gather_pool_rows", table, ids.view(-1))
+    check_offsets(offsets, ids.shape[1])
+    B, P = ids.shape
+    bags = offsets.numel() - 1
+    R, W = table.shape
+    out = torch.empty((B, bags, W), dtype=torch.float32, device=table.device)
+    if B == 0 or W == 0:
+        return out
+    build.launch("gather_pool_rows", _pool_launcher(), table.device,
+                 table.data_ptr(), ids.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), R, W, B, P, bags, DTYPE_CODES[table.dtype],
+                 int(ids.dtype == torch.int64))
+    gather_pool_rows.launches += 1
+    return out
+
+
+gather_pool_rows.launches = 0

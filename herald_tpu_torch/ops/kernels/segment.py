@@ -19,6 +19,11 @@ rows that are added in warp order, and a long segment's f32 partials are
 added in piece order: the same inputs give the same bits on every launch.
 The .cu header states the order of additions.
 
+With `rows` (int32 [N]) position i sums grads[rows[i]] instead of
+grads[i]: a multi-hot step hands K3 its pooled bags' gradient [B * bags,
+D] and each position's bag row, and no [N, D] copy of each position's
+gradient is written.
+
 `hot_onehot_push` launches it for tensors on the card and uses the plain
 version `hot_onehot_push_ref` only for tensors on the CPU. The wrapper
 allocates the output and the scratch (`scratch_sizes`) and nothing else.
@@ -28,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,9 +46,13 @@ _INT32_MAX = 2**31 - 1
 
 
 def hot_onehot_push_ref(ids: torch.Tensor, grads: torch.Tensor,
-                        num_rows: int) -> torch.Tensor:
-    """Plain PyTorch version: bounds mask, then `index_add_` of the f32
-    grads into zeros."""
+                        num_rows: int, rows: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version: each position's grad row (through `rows`
+    when given), bounds mask, then `index_add_` of the f32 grads into
+    zeros."""
+    if rows is not None:
+        grads = grads.index_select(0, rows.long())
     valid = (ids >= 0) & (ids < num_rows)
     out = torch.zeros((num_rows, grads.shape[1]), dtype=torch.float32,
                       device=grads.device)
@@ -69,25 +78,34 @@ def scratch_sizes(n: int, num_rows: int) -> Tuple[int, int, int]:
 @functools.cache
 def _launcher():
     fn = build.load("hot_onehot_push").herald_hot_onehot_push
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def hot_onehot_push(ids: torch.Tensor, grads: torch.Tensor,
-                    num_rows: int) -> torch.Tensor:
-    """ids [N] int32/int64, grads [N, D] f32/bf16 -> f32 [num_rows, D].
-    On the card this launches the CUDA kernel or raises."""
+                    num_rows: int, rows: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """ids [N] int32/int64, grads [N, D] f32/bf16 (or [M, D] with `rows`,
+    int32 [N], each in [0, M): not checked on the card) -> f32
+    [num_rows, D]. On the card this launches the CUDA kernel or raises."""
     if ids.device.type == "cpu" and grads.device.type == "cpu":
-        return hot_onehot_push_ref(ids, grads, num_rows)
+        return hot_onehot_push_ref(ids, grads, num_rows, rows)
     if not grads.is_cuda or ids.device != grads.device:
         raise ValueError(f"hot_onehot_push: ids on {ids.device} and grads "
                          f"on {grads.device}; both must be on one card")
-    if ids.dim() != 1 or grads.dim() != 2 or grads.shape[0] != ids.shape[0]:
+    if ids.dim() != 1 or grads.dim() != 2 or (
+            rows is None and grads.shape[0] != ids.shape[0]):
         raise ValueError(f"hot_onehot_push: ids must be [N] and grads "
                          f"[N, D], got {tuple(ids.shape)} and "
                          f"{tuple(grads.shape)}")
+    if rows is not None and (rows.dtype != torch.int32
+                             or rows.shape != ids.shape
+                             or rows.device != grads.device):
+        raise ValueError(f"hot_onehot_push: rows must be int32 [N] on the "
+                         f"grads' card, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
     if grads.dtype not in _DTYPE_CODES:
         raise ValueError(f"hot_onehot_push: grads dtype {grads.dtype} not "
                          f"in {list(_DTYPE_CODES)}")
@@ -96,7 +114,7 @@ def hot_onehot_push(ids: torch.Tensor, grads: torch.Tensor,
                          f"int32 or int64")
     if num_rows < 0:
         raise ValueError(f"hot_onehot_push: num_rows {num_rows} < 0")
-    N, D = grads.shape
+    N, D = ids.shape[0], grads.shape[1]
     if N >= _INT32_MAX or num_rows + N // PIECE >= _INT32_MAX:
         raise ValueError(f"hot_onehot_push: N = {N} and num_rows = "
                          f"{num_rows} exceed the kernel's int32 indices")
@@ -105,13 +123,16 @@ def hot_onehot_push(ids: torch.Tensor, grads: torch.Tensor,
         return out
     grads = grads.contiguous()
     ids = ids.contiguous()
+    rows = rows.contiguous() if rows is not None else None
     zero_words, plain_words, partial_rows = scratch_sizes(N, num_rows)
     zeroed = torch.zeros(zero_words, dtype=torch.int32, device=grads.device)
     scratch = torch.empty(plain_words, dtype=torch.int32, device=grads.device)
     partials = torch.empty((partial_rows, D), dtype=torch.float32,
                            device=grads.device)
     build.launch("hot_onehot_push", _launcher(), grads.device,
-                 ids.data_ptr(), grads.data_ptr(), out.data_ptr(),
+                 ids.data_ptr(), grads.data_ptr(),
+                 rows.data_ptr() if rows is not None else None,
+                 out.data_ptr(),
                  zeroed.data_ptr(), scratch.data_ptr(), partials.data_ptr(),
                  N, num_rows, D, zero_words, plain_words, partial_rows,
                  _DTYPE_CODES[grads.dtype], int(ids.dtype == torch.int64))

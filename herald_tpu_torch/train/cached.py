@@ -103,7 +103,7 @@ import numpy as np
 import torch
 
 from herald_tpu_torch.config import HeraldConfig
-from herald_tpu_torch.models.base import ModelDef
+from herald_tpu_torch.models.base import ModelDef, get_model
 from herald_tpu_torch.ops.kernels import (embedding_gather,
                                           hot_onehot_gather_add_,
                                           hot_onehot_push)
@@ -111,7 +111,8 @@ from herald_tpu_torch.parallel.exchange import (gather_rows, make_exchange,
                                                 route_ids, rowquant_int8,
                                                 scatter_grads)
 from herald_tpu_torch.sched.planner import CachePlanner
-from herald_tpu_torch.train.engine import Engine, TrainState, write_rows
+from herald_tpu_torch.train.engine import (Engine, TrainState, refuse_bags,
+                                          write_rows)
 from herald_tpu_torch.train.graphs import (TORCH_DTYPES, Layout, layout_of,
                                            unpack)
 from herald_tpu_torch.utils.profiler import span, spanned
@@ -194,6 +195,7 @@ class CachedEngine(Engine):
     def __init__(self, cfg: HeraldConfig, model: Optional[ModelDef] = None,
                  table_rows: Optional[int] = None, device=None,
                  cuda_graphs: bool = True):
+        refuse_bags(model or get_model(cfg.model), "the cached engine")
         cfg.use_cache = True
         super().__init__(cfg, model=model, table_rows=table_rows,
                          device=device, cuda_graphs=cuda_graphs)

@@ -70,6 +70,16 @@ own samples (scaled by 1/S). The sharded params' grads are summed over
 the dp group in one all-reduce, the replicated ones with the loss and
 the overflow over the whole group in another.
 
+A multi-hot model (`ModelDef.bags`, DLRM-DCNv2) runs at one rank only:
+every step reads its bags through K1's pooled form
+(`ops/kernels/gather.py` `gather_pool_rows`), one launch that writes each
+bag's f32 sum `[B, bags, W]` (no `[B, P, W]` by position), and the tower
+is the model's `apply_pooled`. The train step's backward hands K3 the
+pooled gradient and each position's bag row (`segment_sum_grads`'s
+`rows`), so each position's gradient is read through K3's map and never
+copied out. The hybrid engine over S > 1 ranks, the tensor-parallel
+tower, the cached engine (`train/cached.py`) and FAE refuse such a model.
+
 Entry points run on the card unless the caller passes `device="cpu"`;
 with no device given and no card present they raise.
 """
@@ -85,7 +95,8 @@ import torch
 from herald_tpu_torch.config import HeraldConfig
 from herald_tpu_torch.models.base import ModelDef, bce_with_logits, get_model
 from herald_tpu_torch.ops.embedding import segment_sum_grads, unique_static
-from herald_tpu_torch.ops.kernels import embedding_gather, rows_scatter_add
+from herald_tpu_torch.ops.kernels import (embedding_gather, gather_pool_rows,
+                                          rows_scatter_add)
 from herald_tpu_torch.optim import get_optimizer
 from herald_tpu_torch.optim.schedules import get_schedule
 from herald_tpu_torch.parallel import tp
@@ -151,6 +162,15 @@ def write_rows(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
         any_kept[:, None], vals.index_select(0, src).to(dst.dtype), dst[:1]))
 
 
+def refuse_bags(model: ModelDef, engine: str) -> None:
+    """Raise for a multi-hot model (`ModelDef.bags`) on an engine that
+    reads and plans one id a field: the cached engine and FAE."""
+    if model.bags is not None:
+        raise NotImplementedError(
+            f"model {model.name!r} reads multi-hot bags, which {engine} "
+            f"does not: train it on the plain engine (ROADMAP item 46)")
+
+
 class Engine:
     """Trains and scores one model over a table on one device, or over a
     table row-sharded across the ranks of a process group
@@ -187,6 +207,7 @@ class Engine:
             self._validate_tp()
             self.mp_comm, self.dp_comm = self.comm.grid(self.mp)
         self.dp_shards = self.num_shards // self.mp
+        self._init_bags()
         # what checkpoints need of the layout: (tp_plan, mp), or None
         self.tp_layout = (self.model.tp_plan, self.mp) if self.mp > 1 \
             else None
@@ -224,6 +245,37 @@ class Engine:
         self.graphs = (StepGraphs(self.device)
                        if cuda_graphs and self.device.type == "cuda"
                        and self.num_shards == 1 else None)
+
+    def _init_bags(self):
+        """A multi-hot model's bags: the offsets the pooled read takes, on
+        the device, and the position -> pooled row maps of K3 (`_pos_rows`,
+        one per batch size, made at a step's first, uncaptured run). One
+        rank only."""
+        self.bags = self.model.bags
+        if self.bags is None:
+            return
+        if self.num_shards > 1:
+            raise NotImplementedError(
+                f"model {self.model.name!r} reads multi-hot bags, which run "
+                f"at one rank only; {self.num_shards} ranks given "
+                f"(ROADMAP item 45)")
+        self._bag_offsets = torch.tensor(
+            np.concatenate([[0], np.cumsum(self.bags)]), dtype=torch.int32,
+            device=self.device)
+        self._pos_rows_by_batch: Dict[int, torch.Tensor] = {}
+
+    def _pos_rows(self, batch: int) -> torch.Tensor:
+        """int32 [batch * P]: position p's row in the pooled [batch * bags,
+        W] (sample p // P, bag of p % P)."""
+        rows = self._pos_rows_by_batch.get(batch)
+        if rows is None:
+            nb = len(self.bags)
+            bag_of = np.repeat(np.arange(nb), self.bags)
+            rows = torch.tensor(
+                (np.arange(batch)[:, None] * nb + bag_of[None]).reshape(-1),
+                dtype=torch.int32, device=self.device)
+            self._pos_rows_by_batch[batch] = rows
+        return rows
 
     def _validate_tp(self):
         """mp_shards > 1 (engine.py:185-213, with the mesh's own check):
@@ -278,7 +330,9 @@ class Engine:
         Megatron tower over the mp group's batch and this rank's chunk of
         its logits (engine.py:377-385, 470-478)."""
         if self.mp == 1:
-            return self.model.apply(params, emb, dense_x)
+            tower = self.model.apply if self.bags is None \
+                else self.model.apply_pooled
+            return tower(params, emb, dense_x)
         c = self.mp_comm
         # `emb` in the table's dtype: gathered so and widened after, so
         # the backward's reduce-scatter runs in that dtype too
@@ -449,7 +503,11 @@ class Engine:
         `mode="fill"` read). A row that several positions read comes from
         the card's L2 after the first, so on one device a dedup would save
         the read nothing (the JAX eval path dedups for its multi-shard
-        exchange, `engine.py:301-313`)."""
+        exchange, `engine.py:301-313`). A multi-hot model's ids [B, P] give
+        its pooled bags, f32 [B, bags, W], in one launch of K1's pooled
+        form."""
+        if self.bags is not None:
+            return gather_pool_rows(table, ids, self._bag_offsets)
         B, F = ids.shape
         emb = embedding_gather(table, ids.reshape(-1), torch.float32)
         return emb.reshape(B, F, self.width)
@@ -491,7 +549,7 @@ class Engine:
         return loss.detach(), dict(zip(params, grads[:-1])), grads[-1]
 
     def _apply_sparse_grads(self, table, slots, step, uniq, inv, emb_grad,
-                            route=None):
+                            route=None, pos_rows=None):
         """Sum the grads per unique id (K3, in f32, rounded once to the
         grads' dtype), cast the sums to the table dtype, update the rows
         and slots with the table optimizer, write them back. In place.
@@ -500,8 +558,9 @@ class Engine:
         the sums go to their owners first in the grads' dtype
         (`scatter_grads`; the FAE step's f32, as JAX's wire carries them)
         and are cast there, and the rows updated are the owner's
-        (engine.py:315-355)."""
-        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
+        (engine.py:315-355). `pos_rows` maps each position to its row of
+        a pooled `emb_grad` (a multi-hot model's)."""
+        g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0], pos_rows)
         if route is None:
             rows_idx, row_grads, row_mask = uniq, g_uniq, uniq >= 0
             keep = row_mask & (uniq < table.shape[0])
@@ -565,11 +624,16 @@ class Engine:
         dense, dense_slots = self.dense_opt.apply_dense(
             state.dense, dgrads, state.dense_slots, step,
             lr=self._lr_fn(step), in_place=True)
+        # a multi-hot model's grads are its pooled bags': each position
+        # reads its bag's row through K3's map
+        pos_rows = None if self.bags is None else self._pos_rows(
+            a["s"].shape[0])
         if self._fast_local_sgd:
             # SGD on the table: the f32 emb grads (JAX casts the gather to
             # f32 before `value_and_grad`) summed per distinct id through
             # K3, and `-lr * g` added through K2
-            g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0])
+            g_uniq = segment_sum_grads(emb_grad, inv, uniq.shape[0],
+                                       pos_rows)
             table = rows_scatter_add(state.table, uniq, g_uniq,
                                      lr=self._elr_fn(step))
             table_slots = state.table_slots
@@ -577,7 +641,7 @@ class Engine:
             # the grad of a table-dtype leaf cast to f32, as JAX's is
             table, table_slots = self._apply_sparse_grads(
                 state.table, state.table_slots, step, uniq, inv,
-                emb_grad.to(state.table.dtype), route)
+                emb_grad.to(state.table.dtype), route, pos_rows)
         return TrainState(table=table, table_slots=table_slots, dense=dense,
                           dense_slots=dense_slots, step=step), res
 

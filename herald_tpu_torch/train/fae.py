@@ -67,10 +67,10 @@ import numpy as np
 import torch
 
 from herald_tpu_torch.config import HeraldConfig
-from herald_tpu_torch.models.base import ModelDef
+from herald_tpu_torch.models.base import ModelDef, get_model
 from herald_tpu_torch.ops.kernels import (hot_onehot_gather_add_,
                                           hot_onehot_push)
-from herald_tpu_torch.train.engine import Engine
+from herald_tpu_torch.train.engine import Engine, refuse_bags
 from herald_tpu_torch.utils import metrics as M
 
 
@@ -109,6 +109,7 @@ class FaeEngine(Engine):
                  table_rows: Optional[int] = None, hot_rate: float = 0.01,
                  num_hot: Optional[int] = None, device=None,
                  cuda_graphs: bool = True):
+        refuse_bags(model or get_model(cfg.model), "the FAE engine")
         if cfg.comm_mode == "hybrid" and cfg.mp_shards > 1:
             # JAX's FaeEngine shards its step over the dp axis alone and
             # runs a different computation at mp > 1 (ROADMAP section 3)

@@ -26,7 +26,8 @@ from herald_tpu.ops.embedding import segment_sum_grads as jax_segment_sum
 from herald_tpu.ops.pallas import hot_onehot_push as pallas_push
 from herald_tpu.ops.pallas import rows_scatter_add as pallas_scatter
 from herald_tpu_torch.ops import scatter_add_rows, segment_sum_grads
-from herald_tpu_torch.ops.kernels import (KERNELS, hot_onehot_push,
+from herald_tpu_torch.ops.kernels import (KERNELS, gather_pool_rows,
+                                          hot_onehot_push,
                                           hot_onehot_push_ref,
                                           rows_scatter_add,
                                           rows_scatter_add_ref)
@@ -331,8 +332,12 @@ def test_launch_counters_stay_put_on_the_cpu():
     segment_sum_grads(torch.ones(4, 8), torch.tensor([0, 1, 1, 3]), 4)
     scatter_add_rows(torch.zeros(8, 8), torch.tensor([1, 1]),
                      torch.ones(2, 8))
-    assert set(KERNELS) == {"embedding_gather", "hot_onehot_gather",
-                            "hot_onehot_gather_add_",
+    gather_pool_rows(torch.ones(8, 4), torch.tensor([[1, 2, 9]]),
+                     torch.tensor([0, 1, 3], dtype=torch.int32))
+    hot_onehot_push(torch.tensor([0, 1, 1]), torch.ones(2, 8), 4,
+                    torch.tensor([0, 1, 1], dtype=torch.int32))
+    assert set(KERNELS) == {"embedding_gather", "gather_pool_rows",
+                            "hot_onehot_gather", "hot_onehot_gather_add_",
                             "hot_onehot_push", "rows_scatter_add",
                             "fm_second_order", "fm_second_order_backward",
                             "unique_fill"}
